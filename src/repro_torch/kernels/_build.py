@@ -1,12 +1,12 @@
 """Build the CUDA kernels in ``csrc/`` with ``nvcc`` and load them with
 ``ctypes``.
 
-Each ``csrc/<name>.cu`` becomes ``build/repro_torch/lib<name>-<hash>.so``
-under the repository root (a directory ``.gitignore`` lists).  The hash
-covers the source, the shared headers and the compiler flags, so editing
-a kernel rebuilds it and an unchanged one is reused.  The sources have
-a plain C interface and include no PyTorch header, so a build takes
-seconds.  ``build_all`` starts one ``nvcc`` per source, all at once.
+Every ``csrc/*.cu`` goes into one library,
+``build/repro_torch/libkernels-<hash>.so`` under the repository root (a
+directory ``.gitignore`` lists), in a single ``nvcc`` call.  The hash
+covers the sources and the compiler flags, so editing a kernel rebuilds
+the library and an unchanged one is reused.  The sources have a plain C
+interface and include no PyTorch header, so a build takes seconds.
 
 Nothing here runs at import: the CPU tests import every module, and
 there is no ``nvcc`` on a machine without the CUDA toolkit.
@@ -19,7 +19,6 @@ import os
 import pathlib
 import shutil
 import subprocess
-import threading
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -27,13 +26,12 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_lib: ctypes.CDLL | None = None
 
 
-def sources() -> list[str]:
-    """Kernel names, one per ``csrc/*.cu``."""
-    return sorted(p.stem for p in CSRC.glob("*.cu"))
+def sources() -> list[pathlib.Path]:
+    """The kernel sources, ``csrc/*.cu``."""
+    return sorted(CSRC.glob("*.cu"))
 
 
 def _nvcc() -> str:
@@ -47,55 +45,41 @@ def _nvcc() -> str:
                        "(nvcc on PATH or under /usr/local/cuda/bin)")
 
 
-def _target(name: str, flags: tuple) -> pathlib.Path:
+def _target() -> pathlib.Path:
     h = hashlib.sha256()
-    for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+    for p in [*sources(), *sorted(CSRC.glob("*.cuh"))]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(flags).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libkernels-{h.hexdigest()[:16]}.so"
 
 
-def build_all(verbose: bool = False) -> float:
-    """Compile every kernel whose library is missing or stale, one
-    ``nvcc`` per source, in parallel.  ``verbose`` adds ``-Xptxas -v``
-    and prints the compiler's report.  Returns the wall seconds."""
+def build(verbose: bool = False) -> float:
+    """Compile the library if it is missing or stale.  ``verbose``
+    always compiles, adds ``-Xptxas -v`` and prints the compiler's
+    report.  Returns the wall seconds."""
     t0 = time.perf_counter()
-    flags = NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
+    out = _target()
+    if out.exists() and not verbose:
+        return time.perf_counter() - t0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for name in sources():
-        out = _target(name, NVCC_FLAGS)
-        if out.exists() and not verbose:
-            continue
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        jobs.append((name, proc, tmp, out))
-    failed = []
-    for name, proc, tmp, out in jobs:
-        log, _ = proc.communicate()
-        if verbose or proc.returncode:
-            print(f"[nvcc {name}]\n{log}", flush=True)
-        if proc.returncode:
-            failed.append(name)
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, out)   # atomic: concurrent builders never see a torn .so
-    if failed:
-        raise RuntimeError(f"nvcc failed for {failed}")
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    flags = NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
+    proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), *map(str, sources())],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if verbose or proc.returncode:
+        print(f"[nvcc]\n{proc.stdout}", flush=True)
+    if proc.returncode:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed with code {proc.returncode}")
+    os.replace(tmp, out)   # atomic: a concurrent loader never sees a torn .so
     return time.perf_counter() - t0
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built on first use."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            out = _target(name, NVCC_FLAGS)
-            if not out.exists():
-                build_all()
-            lib = ctypes.CDLL(str(out))
-            _libs[name] = lib
-        return lib
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        build()
+        _lib = ctypes.CDLL(str(_target()))
+    return _lib

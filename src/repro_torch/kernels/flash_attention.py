@@ -65,7 +65,7 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = True, q_offset: int = 0
 
 
 def _lib():
-    lib = _build.library("flash_attention")
+    lib = _build.library()
     fn = lib.flash_attention_fwd
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8

@@ -81,12 +81,10 @@ def rmsnorm(x, w, eps=1e-6):
 # ---- registry and launch counters
 
 
-def register_kernels(attention=True, norm=True) -> None:
+def register_kernels() -> None:
     """Install the kernels as the model-layer implementations."""
-    if attention:
-        L.register_impl("attention", flash_attention)
-    if norm:
-        L.register_impl("rmsnorm", rmsnorm)
+    L.register_impl("attention", flash_attention)
+    L.register_impl("rmsnorm", rmsnorm)
 
 
 def unregister_kernels() -> None:

@@ -24,7 +24,7 @@ launches = 0
 
 
 def _lib():
-    lib = _build.library("rmsnorm")
+    lib = _build.library()
     fn = lib.rmsnorm_fwd
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

@@ -26,7 +26,7 @@ from ..data import SyntheticTokenSource, TokenLoader
 from ..ft import FailureInjector, Supervisor
 from ..kernels.ops import register_kernels
 from ..models import init, train_loss
-from ..optim import adamw_init, adamw_update, cosine_schedule, wsd_schedule
+from ..optim import adamw_init, adamw_update, cosine_schedule
 from ..tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -85,9 +85,7 @@ def run(argv=None) -> tuple[Supervisor, dict]:
     params = init(cfg, gen, dev)
     state = {"params": params, "opt": adamw_init(params),
              "step": torch.zeros((), dtype=torch.int32, device=dev)}
-    lr_fn = (wsd_schedule(args.lr, args.steps) if "minicpm" in args.arch
-             else cosine_schedule(args.lr, args.steps))
-    step_fn = build_step(cfg, lr_fn, dev)
+    step_fn = build_step(cfg, cosine_schedule(args.lr, args.steps), dev)
 
     loader = TokenLoader(SyntheticTokenSource(cfg.vocab, seed=17),
                          batch=args.batch, seq=args.seq)

@@ -58,7 +58,7 @@ def test_flash_kernel_matches_plain(dev, b, hq, hkv, sq, skv, d, causal, dtype):
     torch.cuda.synchronize()
     want, want_lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal, q_offset=off)
     torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
-    torch.testing.assert_close(lse, want_lse, **TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])   # fp32 on both sides
 
 
 def test_flash_grads_match_reference(dev):
