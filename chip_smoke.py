@@ -5,23 +5,32 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-nvcc, holds each kernel against its plain PyTorch version at the main
-path's shapes and at edge shapes, trains full-width Qwen1.5-0.5B (24
-layers, bf16, remat="full", random weights from a seed) for a few steps
+nvcc and holds each kernel against its plain PyTorch version at the
+main paths' shapes and at edge shapes.  Then, for each of the port's
+two training paths, it trains the model at its published widths
+(random weights from a seed, bf16, remat="full") for a few steps
 through the port's own entry points with the kernels installed, checks
-that every kernel of that path was launched, compares one step with
-the plain versions (loss and every gradient leaf), runs the training
-CLI at its defaults, and profiles where a full-width step's device time
-goes (``torch.profiler``), with the kernels and with their plain
-versions.  It prints the card's name and power limit, one JSON line of
-kernel numbers, and as its last line ``{"ok": true, "device": {...}}``.
-Any failed phase ends the run with a non-zero exit code and no result.
+that every kernel of that path was launched exactly as often as the
+path calls it, compares one step with the plain versions (loss and
+every gradient leaf), and profiles where a step's device time goes
+(``torch.profiler``), with the kernels and with their plain versions:
+
+  - Qwen1.5-0.5B, all 24 layers (kernels K1 rmsnorm, K2 flash forward);
+  - Falcon-Mamba-7B, 8 of its 64 layers: one stage of an 8-stage
+    pipeline split, with the embedding and lm_head (K1, and K4 and
+    K4-bwd, the selective scan forward and backward).
+
+Last it runs the training CLI at its defaults for both archs.  It
+prints the card's name and power limit, one JSON line of kernel
+numbers, and as its last line ``{"ok": true, "device": {...}}``.  Any
+failed phase ends the run with a non-zero exit code and no result.
 
 Without a CUDA device, or without the repository beside it, it fails.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import pathlib
@@ -34,8 +43,16 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 STEPS = 6
 BATCH, SEQ = 4, 1024
+FALCON_LAYERS = 8          # one stage of an 8-stage split of the 64 layers
 # fp32 and bf16 tolerances of the kernel checks (tests/test_kernels.py)
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (3e-2, 3e-2)}
+# the selective scan's fp32 tolerance there: (atol, rtol)
+SCAN_TOL = (1e-5, 1e-4)
+# kernel against autograd through ssm_scan_ref in bf16: a relative L2
+# error per output.  The two round to bf16 in different places (the
+# reference's autograd keeps fp32 to the end, then casts; one bf16 ulp is
+# 2**-8 relative), so a right kernel sits near 2e-3.
+SCAN_REF_RL2 = 1e-2
 # one full-width step, kernels against plain versions: (loss relative
 # error, relative L2 error of each gradient leaf; layers are stacked, so
 # a leaf pools every layer).  bf16 at 24 layers, and fp32 at 2 layers.
@@ -44,6 +61,16 @@ PLAIN_RTOL = {"bfloat16": (1e-3, 5e-2), "float32": (1e-5, 1e-3)}
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
+# exp on the special-function units: 16 per clock per SM, 132 SMs, at
+# the H100 SXM's 1.98 GHz boost clock
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
+
+
+T0 = time.perf_counter()
+
+
+def phase(label: str) -> None:
+    print(f"[{label}] at {time.perf_counter() - T0:.1f} s", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -78,8 +105,8 @@ def cuda_ms(torch, fn, reps: int = 20) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def check_close(torch, name, got, want, dtype: str) -> float:
-    atol, rtol = TOL[dtype]
+def check_close(torch, name, got, want, dtype: str, tol=None) -> float:
+    atol, rtol = tol or TOL[dtype]
     got, want = got.float(), want.float()
     if got.shape != want.shape or not torch.isfinite(got).all():
         fail(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)} or non-finite")
@@ -158,10 +185,129 @@ def bound(n_bytes: int, op_seconds: float) -> dict:
             "bound_by": "bytes" if byte_seconds >= op_seconds else "operations"}
 
 
-def phase_train(torch) -> dict:
-    """Full-width Qwen1.5-0.5B through the port's entry points, with kernels."""
+def scan_inputs(torch, g, b, s, c, n, dtype, with_h0=False):
+    """The JAX scan test's distributions: x, dt = softplus(.), A < 0, B, C
+    and, if asked, h0."""
+    def randn(shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+    x = randn((b, s, c), 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(randn((b, s, c))).to(dtype)
+    A = -torch.exp(randn((c, n), 0.2))
+    B, C = randn((b, s, n), 0.5).to(dtype), randn((b, s, n), 0.5).to(dtype)
+    return x, dt, A, B, C, (randn((b, c, n), 0.5) if with_h0 else None)
+
+
+def _scan_tol(t) -> tuple:
+    """bf16 outputs at the bf16 kernel tolerance, fp32 ones at the scan's."""
+    return TOL["bfloat16"] if str(t.dtype) == "torch.bfloat16" else SCAN_TOL
+
+
+def phase_scan_kernels(torch, ms) -> dict:
+    """K4 and K4-bwd against their plain versions at the Falcon path's
+    shape, the JAX test grid, a ragged S with h0 and a continuation from
+    it, each with a non-zero dhT; the backward also against autograd
+    through ``ssm_scan_ref``.  Times at the Falcon path's shape."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import ssm_scan_ref
+    g = torch.Generator(device="cuda").manual_seed(4321)
+    main = (BATCH, SEQ, 8192, 16, torch.bfloat16)     # Falcon-Mamba-7B's d_inner, state
+    cases = [(*main, False), (1, 16, 8, 4, torch.float32, False),
+             (2, 24, 16, 8, torch.float32, False), (1, 8, 6, 4, torch.float32, False),
+             (2, 1000, 256, 16, torch.float32, True), (2, 1000, 256, 16, torch.bfloat16, True)]
+    results = {}
+    for b, s, c, n, dtype, with_h0 in cases:
+        x, dt, A, B, C, h0 = scan_inputs(torch, g, b, s, c, n, dtype, with_h0)
+        dy = torch.randn((b, s, c), generator=g, device="cuda").to(dtype)
+        dhT = torch.randn((b, c, n), generator=g, device="cuda")
+        tag = f"mamba_scan {str(dtype)[6:]} {(b, s, c, n)}{' h0' if with_h0 else ''}"
+        y, hT, hs = ms.mamba_scan_fwd(x, dt, A, B, C, h0, save_states=True)
+        grads = ms.mamba_scan_bwd(x, dt, A, B, C, hs, dy, dhT)
+        torch.cuda.synchronize()
+        want = ms.mamba_scan_plain(x, dt, A, B, C, h0, save_states=True)
+        fwd_err = max(check_close(torch, f"{tag} {k}", got, w, "", _scan_tol(got))
+                      for k, got, w in zip(("y", "hT", "hs"), (y, hT, hs), want))
+        want_g = ms.mamba_scan_bwd_plain(x, dt, A, B, C, want[2], dy, dhT)
+        names = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+        bwd_err = max(check_close(torch, f"{tag} {k}", got, w, "", _scan_tol(got))
+                      for k, got, w in zip(names, grads, want_g))
+        print(f"  {tag} fwd max_abs_err={fwd_err:.3e} bwd max_abs_err={bwd_err:.3e}",
+              flush=True)
+        if with_h0:        # continue from the first half's state
+            y1, h1, _ = ms.mamba_scan_fwd(x[:, :s // 2], dt[:, :s // 2], A, B[:, :s // 2],
+                                          C[:, :s // 2], h0)
+            y2, h2, _ = ms.mamba_scan_fwd(x[:, s // 2:], dt[:, s // 2:], A, B[:, s // 2:],
+                                          C[:, s // 2:], h1)
+            check_close(torch, f"{tag} continued y", torch.cat([y1, y2], 1), y, "",
+                        _scan_tol(y))
+            err = check_close(torch, f"{tag} continued hT", h2, hT, "", SCAN_TOL)
+            print(f"  {tag} continued from step {s // 2}: hT max_abs_err={err:.3e}", flush=True)
+        # autograd through K4/K4-bwd against autograd through the chunked reference
+        D = 1 + 0.1 * torch.randn((c,), generator=g, device="cuda")
+        ref_grads = []
+        for fn in (ops.mamba_scan, ssm_scan_ref):
+            leaves = [t.clone().requires_grad_(True) for t in (x, dt, A, B, C, D)]
+            h = None if h0 is None else h0.clone().requires_grad_(True)
+            yy, hh = fn(*leaves, h0=h)
+            torch.autograd.backward([yy, hh], [dy, dhT])
+            ref_grads.append([t.grad for t in leaves + ([h] if h is not None else [])])
+        worst = 0.0
+        for k, got, w in zip(("x", "dt", "A", "B", "C", "D", "h0"), *ref_grads):
+            if dtype == torch.float32:
+                worst = max(worst, check_close(torch, f"{tag} d{k} vs ssm_scan_ref", got, w,
+                                               "", SCAN_TOL))
+            else:
+                rl2 = ((got.float() - w.float()).norm() / w.float().norm()).item()
+                if not rl2 <= SCAN_REF_RL2:
+                    fail(f"{tag} d{k} vs ssm_scan_ref: relative L2 error {rl2:.3e} > "
+                         f"{SCAN_REF_RL2}")
+                worst = max(worst, rl2)
+        kind = "max_abs_err" if dtype == torch.float32 else "worst relative L2 error"
+        print(f"  {tag} grads vs autograd through ssm_scan_ref: {kind} {worst:.3e}",
+              flush=True)
+        if (b, s, c, n, dtype) == main:
+            results["mamba_scan"] = {"max_abs_err": fwd_err}
+            results["mamba_scan_bwd"] = {"max_abs_err": bwd_err}
+            timed = (x, dt, A, B, C, hs, dy)
+
+    x, dt, A, B, C, hs, dy = timed
+    b, s, c, n = *x.shape, A.shape[1]
+    elems, io = b * s * c * n, x.element_size()
+    exp_ms = elems / SFU_EXP_PER_S * 1e3
+    # forward: reads x, dt, B, C, A; writes y, hT and the chunk states
+    fwd_bytes = (3 * b * s * c + 2 * b * s * n) * io + (c * n + b * c * n + hs.numel()) * 4
+    # backward: reads x, dt, dy, B, C, A, the chunk states; writes dx, ddt,
+    # dB, dC, dA, dh0
+    bwd_bytes = ((5 * b * s * c + 4 * b * s * n) * io
+                 + (2 * c * n + b * c * n + hs.numel()) * 4)
+    results["mamba_scan"].update(
+        ms=cuda_ms(torch, lambda: ms.mamba_scan_fwd(x, dt, A, B, C, save_states=True)),
+        plain_ms=cuda_ms(torch, lambda: ms.mamba_scan_plain(x, dt, A, B, C, save_states=True),
+                         reps=3),
+        library_ms=None,     # no single PyTorch call computes a selective scan
+        # per (b, t, c, n): dt*A, exp, h*a, u*B + that, h*C, the sum over n
+        **bound(fwd_bytes, 7 * elems / FP32_FLOPS))
+    results["mamba_scan_bwd"].update(
+        ms=cuda_ms(torch, lambda: ms.mamba_scan_bwd(x, dt, A, B, C, hs, dy)),
+        plain_ms=cuda_ms(torch, lambda: ms.mamba_scan_bwd_plain(x, dt, A, B, C, hs, dy),
+                         reps=3),
+        library_ms=None,
+        # per (b, t, c, n): the state's recompute (5) and its adjoint: g,
+        # dC, dB, the two sums over n, dA and the carry (15)
+        **bound(bwd_bytes, 20 * elems / FP32_FLOPS))
+    for name in ("mamba_scan", "mamba_scan_bwd"):
+        r = results[name]
+        print(f"  {name} {(b, s, c, n)} bf16: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"exps at the SFU rate {exp_ms:.4f} ms", flush=True)
+    return results
+
+
+def phase_train(torch, cfg, want: dict, fp32_layers: int = 2) -> tuple:
+    """``cfg`` through the port's entry points, with kernels: STEPS
+    training steps under the supervisor, launch counts held to ``want``,
+    then one step against the plain versions in bf16 and, at
+    ``fp32_layers`` layers, in fp32."""
     from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.configs import get_config
     from repro_torch.data import SyntheticTokenSource, TokenLoader
     from repro_torch.ft import Supervisor
     from repro_torch.kernels import ops
@@ -169,10 +315,11 @@ def phase_train(torch) -> dict:
     from repro_torch.models import init
     from repro_torch.optim import adamw_init, cosine_schedule
 
-    cfg = get_config("qwen1.5-0.5b")
-    print(f"  config {cfg.name}: {cfg.n_layers} layers d_model={cfg.d_model} "
-          f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} vocab={cfg.vocab} "
-          f"dtype={cfg.dtype} remat={cfg.remat} params={cfg.param_count()}", flush=True)
+    widths = (f"ssm={cfg.ssm}" if cfg.ssm else
+              f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff}")
+    print(f"  config {cfg.name}: {cfg.n_layers} layers d_model={cfg.d_model} {widths} "
+          f"vocab={cfg.vocab} dtype={cfg.dtype} remat={cfg.remat} "
+          f"params={cfg.param_count()}", flush=True)
     params = init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     state = {"params": params, "opt": adamw_init(params),
              "step": torch.zeros((), dtype=torch.int32, device="cuda")}
@@ -190,7 +337,9 @@ def phase_train(torch) -> dict:
         loader = TokenLoader(SyntheticTokenSource(cfg.vocab, seed=17), batch=BATCH, seq=SEQ)
         sup = Supervisor(CheckpointManager(tmp, keep=1), loader, checkpoint_every=STEPS)
         ops.reset_launch_counts()
+        t0 = time.perf_counter()
         state = sup.run(state, synced_step, STEPS, log_every=1)
+        run_s = time.perf_counter() - t0
         counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     losses = [h["loss"] for h in sup.history]
@@ -198,14 +347,12 @@ def phase_train(torch) -> dict:
         fail(f"losses {losses}")
     if abs(losses[0] - math.log(cfg.vocab)) > 1.0:
         fail(f"first loss {losses[0]} not within 1.0 of ln(vocab) = {math.log(cfg.vocab)}")
-    want = {"rmsnorm": (4 * cfg.n_layers + 1) * STEPS,   # 2/layer fwd + recompute, + final
-            "flash_attention": 2 * cfg.n_layers * STEPS}  # 1/layer fwd + recompute
     print(f"  launch counts {counts}, expected {want}", flush=True)
     if counts != want:
         fail(f"kernel launches {counts} != {want}")
 
     compare_with_plain(torch, cfg, params, losses[0])
-    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    cfg32 = dataclasses.replace(cfg, n_layers=fp32_layers, dtype="float32")
     compare_with_plain(torch, cfg32, init(cfg32, torch.Generator(device="cuda").manual_seed(0),
                                           "cuda"))
 
@@ -215,7 +362,9 @@ def phase_train(torch) -> dict:
     print(f"  step time median {step_s * 1e3:.1f} ms over steps 2-{STEPS} "
           f"(min {min(dts) * 1e3:.1f}, max {max(dts) * 1e3:.1f}), "
           f"{BATCH * SEQ / step_s:.0f} tokens/s, peak memory "
-          f"{peak / 2**30:.2f} GiB (max_memory_allocated)", flush=True)
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated); the supervised run took "
+          f"{run_s:.1f} s, {run_s - sum(h['dt'] for h in sup.history):.1f} s of it outside "
+          "the steps (the checkpoint)", flush=True)
     return counts, {"state": state, "step_fn": step_fn, "loader": loader}
 
 
@@ -268,21 +417,26 @@ def compare_with_plain(torch, cfg, params, step_loss: float | None = None) -> No
 
 
 def phase_cli(torch) -> None:
+    """The CLI at its defaults for both ported archs; ``main`` raises
+    unless the loss falls."""
     from repro_torch.kernels import ops
     from repro_torch.launch import train
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        rc = train.main(["--ckpt-dir", tmp])
-        torch.cuda.synchronize()
-        print(f"  CLI at its defaults: rc={rc} in {time.perf_counter() - t0:.1f} s, "
-              f"launches {ops.launch_counts()}", flush=True)
-    if rc != 0:
-        fail(f"CLI returned {rc}")
+    for extra in ([], ["--arch", "falcon-mamba-7b", "--steps", "50"]):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = train.main(["--ckpt-dir", tmp, *extra])
+            torch.cuda.synchronize()
+            print(f"  CLI {' '.join(extra) or 'at its defaults'}: rc={rc} in "
+                  f"{time.perf_counter() - t0:.1f} s, launches {ops.launch_counts()}",
+                  flush=True)
+        if rc != 0:
+            fail(f"CLI {extra} returned {rc}")
 
 
 # kernel-name substrings -> family, first match wins
 FAMILIES = [("rmsnorm_kernel", "K1 rmsnorm"), ("flash_fwd_kernel", "K2 flash fwd"),
+            ("mamba_scan_fwd_kernel", "K4 scan fwd"), ("mamba_scan_bwd_kernel", "K4-bwd scan"),
             ("gemm", "matmul"), ("cutlass", "matmul"), ("sm90_xmma", "matmul"),
             ("nvjet", "matmul"), ("reduce", "reductions"), ("softmax", "reductions"),
             ("elementwise", "elementwise"), ("copy", "copies/casts"),
@@ -296,20 +450,23 @@ def _family(name: str) -> str:
     return next((fam for key, fam in FAMILIES if key in low), "other")
 
 
-def phase_profile(torch, train: dict) -> None:
-    """Where a full-width step's device time goes, with the kernels and
-    then with their plain versions: one warm-up step, then two steps
-    under ``torch.profiler``, continuing phase 3's training state."""
+def phase_profile(torch, train: dict, plain_steps: int = PROFILED_STEPS) -> None:
+    """Where a full-width step's device time goes, continuing a training
+    phase's state: with the kernels, one warm-up step and then
+    PROFILED_STEPS steps under ``torch.profiler`` (device activity only);
+    then ``plain_steps`` steps with their plain versions.  The plain scan
+    launches ~445k kernels a Falcon step (~27 s), so that path profiles
+    one."""
     from repro_torch.kernels import ops
     state, step_fn, loader = train["state"], train["step_fn"], train["loader"]
-    act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for mode in ("kernels", "plain"):
+    act = [torch.profiler.ProfilerActivity.CUDA]
+    for mode, n_steps in (("kernels", PROFILED_STEPS), ("plain", plain_steps)):
         if mode == "kernels":
             ops.register_kernels()
+            state, _ = step_fn(state, loader.next_batch())
         else:
             ops.unregister_kernels()
-        state, _ = step_fn(state, loader.next_batch())
-        batches = [loader.next_batch() for _ in range(PROFILED_STEPS)]
+        batches = [loader.next_batch() for _ in range(n_steps)]
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
@@ -319,25 +476,28 @@ def phase_profile(torch, train: dict) -> None:
                 state, _ = step_fn(state, b)
             stop.record()
             torch.cuda.synchronize()
-        step_ms = start.elapsed_time(stop) / PROFILED_STEPS
-        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / PROFILED_STEPS / 1e3
+        step_ms = start.elapsed_time(stop) / n_steps
+        # the raw device events: prof.events() would build a Python event
+        # tree over every one, minutes for the plain scan's launches
+        kernels = [(e.name(), e.duration_ns() / n_steps / 1e6)
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(ms for _, ms in kernels)
         fam: dict[str, float] = {}
         by_name: dict[str, list] = {}
-        for e in kernels:
-            ms = e.time_range.elapsed_us() / PROFILED_STEPS / 1e3
-            fam[_family(e.name)] = fam.get(_family(e.name), 0.0) + ms
-            rec = by_name.setdefault(e.name, [0.0, 0])
+        for name, ms in kernels:
+            fam[_family(name)] = fam.get(_family(name), 0.0) + ms
+            rec = by_name.setdefault(name, [0.0, 0])
             rec[0] += ms
             rec[1] += 1
         print(f"  {mode}: step {step_ms:.2f} ms (CUDA events, profiled), device busy "
               f"{busy_ms:.2f} ms/step = {busy_ms / step_ms:.1%} of the step, "
-              f"{len(kernels) // PROFILED_STEPS} kernel launches/step", flush=True)
+              f"{len(kernels) // n_steps} kernel launches/step", flush=True)
         for f, ms in sorted(fam.items(), key=lambda kv: -kv[1]):
             print(f"    {f:16s} {ms:8.2f} ms/step  {ms / busy_ms:6.1%}", flush=True)
         print("    top kernels (ms/step, launches/step):", flush=True)
         for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
-            print(f"    {ms:8.3f} {n // PROFILED_STEPS:5d}  {name[:100]}", flush=True)
+            print(f"    {ms:8.3f} {n // n_steps:5d}  {name[:100]}", flush=True)
     ops.unregister_kernels()
 
 
@@ -357,37 +517,58 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print("allow_tf32: matmul False, cudnn False", flush=True)
 
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import rmsnorm as rn
-    print("[1/5] build", flush=True)
+    phase("1/5 build")
     names = [p.name for p in _build.sources()]
     print(f"  built {names} in {_build.build(verbose=True):.1f} s", flush=True)
 
-    print("[2/5] kernels against their plain versions", flush=True)
+    phase("2/5 kernels against their plain versions")
     results = phase_kernels(torch, F, fa, rn)
+    results.update(phase_scan_kernels(torch, ms))
 
-    print("[3/5] full-width training", flush=True)
-    counts, train = phase_train(torch)
+    counts = {}
+    qwen = get_config("qwen1.5-0.5b")
+    falcon = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=FALCON_LAYERS)
+    # per step with remat="full": each layer's kernels run in the forward
+    # and again in its recompute; the final norm runs once
+    paths = [(qwen, {"rmsnorm": (4 * qwen.n_layers + 1) * STEPS,
+                     "flash_attention": 2 * qwen.n_layers * STEPS,
+                     "mamba_scan": 0, "mamba_scan_bwd": 0}),
+             (falcon, {"rmsnorm": (2 * falcon.n_layers + 1) * STEPS, "flash_attention": 0,
+                       "mamba_scan": 2 * falcon.n_layers * STEPS,
+                       "mamba_scan_bwd": falcon.n_layers * STEPS})]
+    for (cfg, want), tag in zip(paths, ("3", "3b")):
+        phase(f"{tag}/5 full-width training: {cfg.name}, {cfg.n_layers} layers")
+        counts[cfg.name], train = phase_train(torch, cfg, want)
+        phase(f"5/5 where a full-width {cfg.name} step's device time goes")
+        phase_profile(torch, train, plain_steps=1 if cfg.ssm else PROFILED_STEPS)
+        del train                      # free this path's state before the next one
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    print("[4/5] training CLI", flush=True)
+    phase("4/5 training CLI")
     phase_cli(torch)
 
-    print("[5/5] where a full-width step's device time goes", flush=True)
-    phase_profile(torch, train)
-
-    meta = {"rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
-                        "src/repro/kernels/rmsnorm.py:19"),
-            "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                                "src/repro/kernels/flash_attention.py:27")}
+    meta = {"rmsnorm": ("rmsnorm.cu", "src/repro/kernels/rmsnorm.py:19"),
+            "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:27"),
+            "mamba_scan": ("mamba_scan.cu", "src/repro/kernels/mamba_scan.py:43"),
+            "mamba_scan_bwd": ("mamba_scan.cu", "src/repro/kernels/mamba_scan.py:43")}
     kernels = []
     for name, (source, replaces) in meta.items():
         r = results[name]
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": counts[name],
+        by_path = {arch: c[name] for arch, c in counts.items() if c[name]}
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"src/repro_torch/kernels/csrc/{source}",
+                        "replaces": replaces, "launches": sum(by_path.values()),
+                        "launches_by_path": by_path,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    phase("done")
     print(gpu_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

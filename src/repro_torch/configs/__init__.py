@@ -15,7 +15,7 @@ ARCHS = [
     "qwen3-1b", "qwen3-9b",
 ]
 
-PORTED = ["qwen1.5-0.5b"]
+PORTED = ["qwen1.5-0.5b", "falcon-mamba-7b"]
 
 
 def get_config(name: str):

@@ -24,8 +24,10 @@ def _to_tensor(a, device, dtype):
 
 
 def params_from_numpy(tree, device, dtype=None):
-    """Tensors on ``device`` (cast to ``dtype`` if given) from a nested
-    dict of numpy arrays."""
+    """Tensors on ``device`` from a nested dict of numpy arrays, each
+    leaf keeping its own dtype.  ``dtype=`` casts every leaf, so a bf16
+    Mamba's fp32 ``A_log`` and ``D`` become bf16 too: leave it out to
+    load a mixed-dtype tree as it is."""
     return tree_map(lambda a: _to_tensor(a, device, dtype), tree)
 
 

@@ -3,9 +3,10 @@
 ``flash_attention``: forward is kernel K2, backward is the PyTorch port
 of the flash backward (``models.attention._flash_bwd``) from the saved
 (q, k, v, out, lse).  ``rmsnorm``: forward is kernel K1, backward is the
-analytic VJP of ``rmsnorm_ref`` in PyTorch.  On CPU tensors both
-forwards use their kernels' plain versions.  ``register_kernels`` swaps
-them into the model layers' impl registry.
+analytic VJP of ``rmsnorm_ref`` in PyTorch.  ``mamba_scan``: forward
+is kernel K4, backward is kernel K4-bwd from the chunk states K4 saves.
+On CPU tensors every kernel uses its plain version.
+``register_kernels`` swaps them into the model layers' impl registry.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 from ..models import layers as L
 from ..models.attention import _flash_bwd, check_scale, flash_attention_ref
 from . import flash_attention as _fa
+from . import mamba_scan as _ms
 from . import rmsnorm as _rn
 
 # ---- flash attention: K2 forward + PyTorch flash backward
@@ -78,6 +80,38 @@ def rmsnorm(x, w, eps=1e-6):
     return _RMSNorm.apply(x, w, float(eps))
 
 
+# ---- Mamba-1 selective scan: K4 forward + K4-bwd backward
+
+
+class _MambaScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, h0):
+        ctx.set_materialize_grads(False)
+        grad = any(ctx.needs_input_grad)
+        y, hT, hs = _ms.mamba_scan_fwd(x, dt, A, B, C, h0, save_states=grad)
+        if grad:
+            ctx.save_for_backward(x, dt, A, B, C, hs)
+            ctx.h0_dtype = None if h0 is None else h0.dtype
+        return y, hT
+
+    @staticmethod
+    def backward(ctx, dy, dhT):
+        x, dt, A, B, C, hs = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        dx, ddt, dA, dB, dC, dh0 = _ms.mamba_scan_bwd(x, dt, A, B, C, hs, dy, dhT)
+        dh0 = None if ctx.h0_dtype is None else dh0.to(ctx.h0_dtype)
+        return dx, ddt, dA, dB, dC, dh0
+
+
+def mamba_scan(xz, dt, A, B, C, D, h0=None, chunk=None):
+    """``ssm_scan_ref``'s contract through K4 and K4-bwd: returns
+    (y + x*D in x's dtype, hT fp32).  ``chunk`` is ignored, as the JAX
+    wrapper ignores it."""
+    y, hT = _MambaScan.apply(xz, dt, A, B, C, h0)
+    return y + xz * D.to(xz.dtype), hT
+
+
 # ---- registry and launch counters
 
 
@@ -85,18 +119,22 @@ def register_kernels() -> None:
     """Install the kernels as the model-layer implementations."""
     L.register_impl("attention", flash_attention)
     L.register_impl("rmsnorm", rmsnorm)
+    L.register_impl("mamba_scan", mamba_scan)
 
 
 def unregister_kernels() -> None:
-    for k in ("attention", "rmsnorm"):
+    for k in ("attention", "rmsnorm", "mamba_scan"):
         L._IMPLS.pop(k, None)
 
 
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel name."""
-    return {"rmsnorm": _rn.launches, "flash_attention": _fa.launches}
+    return {"rmsnorm": _rn.launches, "flash_attention": _fa.launches,
+            "mamba_scan": _ms.launches, "mamba_scan_bwd": _ms.bwd_launches}
 
 
 def reset_launch_counts() -> None:
     _rn.launches = 0
     _fa.launches = 0
+    _ms.launches = 0
+    _ms.bwd_launches = 0

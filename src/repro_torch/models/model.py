@@ -1,5 +1,5 @@
-"""Architecture config and the dense decoder (port of
-``repro.models.model``).
+"""Architecture config, the dense decoder and the pure Mamba-1 stack
+(port of ``repro.models.model``).
 
 Layers are stacked on a leading ``n_layers`` axis, as in the JAX
 package, so its parameters load unchanged.  The JAX ``lax.scan`` over
@@ -172,14 +172,17 @@ def params_count(cfg: ArchConfig, active_only: bool = False) -> int:
 
 
 # ---------------------------------------------------------------------------
-# init (dense family)
+# init (dense and pure-SSM families)
 # ---------------------------------------------------------------------------
 
-def _check_dense(cfg: ArchConfig) -> None:
-    if (cfg.moe or cfg.ssm or cfg.hybrid_every or cfg.n_enc_layers
-            or cfg.mrope):
+def _check_family(cfg: ArchConfig) -> None:
+    """The ported families: the dense decoder and the pure Mamba-1 stack."""
+    if cfg.ssm and cfg.ssm.version != 1:
+        raise NotImplementedError(f"{cfg.name} ({cfg.family}): Mamba-2 is not ported yet")
+    if cfg.moe or cfg.hybrid_every or cfg.n_enc_layers or cfg.mrope:
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): only the dense decoder is ported")
+            f"{cfg.name} ({cfg.family}): only the dense decoder and pure "
+            "Mamba-1 stacks are ported")
 
 
 def _stack(trees: list) -> Any:
@@ -192,7 +195,7 @@ def init(cfg: ArchConfig, generator: torch.Generator, device="cuda") -> dict:
     """Random parameters in the JAX package's layout.  Draws come from
     ``generator`` on its own device and land on ``device``; they do not
     match JAX's random draws (load JAX weights with ``interop`` for that)."""
-    _check_dense(cfg)
+    _check_family(cfg)
     dev = resolve_device(device)
     dt = cfg.tdtype
     p: dict[str, Any] = {
@@ -203,6 +206,13 @@ def init(cfg: ArchConfig, generator: torch.Generator, device="cuda") -> dict:
         p["lm_head"] = L._normal(generator, (cfg.d_model, cfg.vocab), 0.02, dt, dev)
 
     def one():
+        if cfg.ssm:                            # pure SSM (falcon-mamba)
+            return {
+                "norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
+                "mamba": L.init_mamba(generator, cfg.d_model, cfg.ssm.state,
+                                      cfg.ssm.version, dt, dev, cfg.ssm.expand,
+                                      cfg.ssm.d_conv, cfg.ssm.headdim),
+            }
         return {
             "norm1": torch.ones((cfg.d_model,), dtype=dt, device=dev),
             "attn": L.init_attn(generator, cfg.d_model, cfg.n_heads,
@@ -223,6 +233,11 @@ def _norm(cfg, w, x):
 
 
 def _dec_layer(cfg, lp, x):
+    if cfg.ssm:
+        h, _, _ = L.mamba_block(lp["mamba"], _norm(cfg, lp["norm"], x),
+                                state=cfg.ssm.state, version=cfg.ssm.version,
+                                chunk=cfg.ssm_chunk)
+        return x + h
     x = x + L.attention_block(lp["attn"], _norm(cfg, lp["norm1"], x), cfg,
                               causal=cfg.causal)
     return x + L.mlp_block(lp["mlp"], _norm(cfg, lp["norm2"], x), cfg.act)
@@ -256,7 +271,7 @@ def _logits(cfg: ArchConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
 
 def train_loss(cfg: ArchConfig, p: dict, batch: dict) -> torch.Tensor:
     """batch: tokens (B, S) int, labels (B, S) int (-1 = ignore)."""
-    _check_dense(cfg)
+    _check_family(cfg)
     x = p["embed"][batch["tokens"]]
     h = _run_decoder(cfg, p, x)
     return _ce_loss(cfg, p, h, batch["labels"])

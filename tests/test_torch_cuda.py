@@ -89,3 +89,66 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     q = _randn((1, 2, 16, 64), torch.float32, dev)
     with pytest.raises(NotImplementedError):
         ops.flash_attention(q, q, q, window=4)
+
+
+def _scan_inputs(b, s, c, n, dtype, dev, with_h0=False):
+    x = _randn((b, s, c), dtype, dev, seed=0, scale=0.5)
+    dt = torch.nn.functional.softplus(_randn((b, s, c), torch.float32, dev, seed=1)).to(dtype)
+    A = -torch.exp(_randn((c, n), torch.float32, dev, seed=2, scale=0.2))
+    B = _randn((b, s, n), dtype, dev, seed=3, scale=0.5)
+    C = _randn((b, s, n), dtype, dev, seed=4, scale=0.5)
+    h0 = _randn((b, c, n), torch.float32, dev, seed=5, scale=0.5) if with_h0 else None
+    return x, dt, A, B, C, h0
+
+
+SCAN_CASES = [(1, 16, 8, 4, False), (2, 24, 16, 8, False), (1, 8, 6, 4, False),
+              (2, 1000, 96, 16, True), (1, 300, 40, 8, True)]
+
+
+@pytest.mark.parametrize("b,s,c,n,with_h0", SCAN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_kernels_match_plain(dev, b, s, c, n, with_h0, dtype):
+    """K4 and K4-bwd against their plain versions: y in x's dtype at the
+    dtype's tolerance, hT and the fp32 gradients (dA, dh0) at fp32's."""
+    from repro_torch.kernels import mamba_scan as ms
+    x, dt, A, B, C, h0 = _scan_inputs(b, s, c, n, dtype, dev, with_h0)
+    before = (ms.launches, ms.bwd_launches)
+    y, hT, hs = ms.mamba_scan_fwd(x, dt, A, B, C, h0, save_states=True)
+    dy = _randn((b, s, c), dtype, dev, seed=6)
+    dhT = _randn((b, c, n), torch.float32, dev, seed=7)
+    grads = ms.mamba_scan_bwd(x, dt, A, B, C, hs, dy, dhT)
+    torch.cuda.synchronize()
+    assert (ms.launches, ms.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want_y, want_hT, want_hs = ms.mamba_scan_plain(x, dt, A, B, C, h0, save_states=True)
+    torch.testing.assert_close(y.float(), want_y.float(), **TOL[dtype])
+    for got, want in ((hT, want_hT), (hs, want_hs)):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+    want_g = ms.mamba_scan_bwd_plain(x, dt, A, B, C, want_hs, dy, dhT)
+    for got, want in zip(grads, want_g):
+        assert got.dtype == want.dtype
+        tol = TOL[dtype] if got.dtype == torch.bfloat16 else dict(atol=1e-5, rtol=1e-4)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_mamba_scan_grads_match_reference(dev):
+    """Autograd through K4/K4-bwd against autograd through ssm_scan_ref."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import ssm_scan_ref
+    x, dt, A, B, C, h0 = _scan_inputs(2, 300, 40, 16, torch.float32, dev, with_h0=True)
+    D = _randn((40,), torch.float32, dev, seed=8, shift=1.0)
+    dy = _randn((2, 300, 40), torch.float32, dev, seed=6)
+    grads = []
+    for fn in (ops.mamba_scan, ssm_scan_ref):
+        xs = [t.clone().requires_grad_(True) for t in (x, dt, A, B, C, D, h0)]
+        y, _ = fn(*xs[:6], h0=xs[6])
+        y.backward(dy)
+        grads.append([t.grad for t in xs])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+
+
+def test_mamba_scan_refuses_other_state_sizes(dev):
+    from repro_torch.kernels import mamba_scan as ms
+    x, dt, A, B, C, _ = _scan_inputs(1, 8, 6, 32, torch.float32, dev)
+    with pytest.raises(ValueError, match="state size"):
+        ms.mamba_scan_fwd(x, dt, A, B, C)

@@ -1,7 +1,8 @@
 """The port's training path on the CPU against the JAX package.
 
-Reduced Qwen1.5-0.5B in fp32 with JAX-initialized weights carried over
-by ``repro_torch.interop``: loss and every gradient leaf against
+Reduced Qwen1.5-0.5B and Falcon-Mamba-7B in fp32 with JAX-initialized
+weights carried over by ``repro_torch.interop``: loss and every gradient
+leaf against
 ``jax.value_and_grad(train_loss)``, AdamW + cosine steps against the JAX
 ``build_step``, the token stream byte for byte, checkpoints, and the
 CLI's checkpoint-restart.  Only numpy crosses between the packages.
@@ -46,9 +47,9 @@ def _x64_off():
     jax.config.update("jax_enable_x64", prev)
 
 
-def _cfgs(remat="none"):
-    jcfg = dataclasses.replace(jconfigs.get_config("qwen1.5-0.5b").reduced(), remat=remat)
-    tcfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(), remat=remat)
+def _cfgs(remat="none", arch="qwen1.5-0.5b"):
+    jcfg = dataclasses.replace(jconfigs.get_config(arch).reduced(), remat=remat)
+    tcfg = dataclasses.replace(get_config(arch).reduced(), remat=remat)
     return jcfg, tcfg
 
 
@@ -72,10 +73,10 @@ def _jax_paths(tree):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_loss_and_grads(variant: tuple):
+def _jax_loss_and_grads(variant: tuple, arch: str = "qwen1.5-0.5b"):
     """(numpy params, batch, loss, {path: grad}) of the JAX reference for
     one config variant; shared by the ref and kernels cases."""
-    jcfg = dataclasses.replace(_cfgs()[0], **dict(variant))
+    jcfg = dataclasses.replace(_cfgs(arch=arch)[0], **dict(variant))
     jp, np_params = _jax_params(jcfg)
     batch = _batch(jcfg.vocab)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -102,9 +103,23 @@ class TestLossAndGrads:
     @pytest.mark.parametrize("kernels_registered", [False, True], indirect=True,
                              ids=["ref", "kernels"])
     def test_matches_jax(self, variant, kernels_registered):
-        tcfg = dataclasses.replace(_cfgs()[1], **variant)
+        self._check(variant, "qwen1.5-0.5b")
+
+    @pytest.mark.parametrize("variant", [
+        {"remat": "none"}, {"remat": "full"}, {"remat": "full", "ssm_chunk": 4},
+    ], ids=["none", "full", "full-chunk4"])
+    @pytest.mark.parametrize("kernels_registered", [False, True], indirect=True,
+                             ids=["ref", "kernels"])
+    def test_falcon_mamba_matches_jax(self, variant, kernels_registered):
+        """The pure Mamba-1 stack; with kernels registered the scan runs
+        K4's and K4-bwd's plain versions through the autograd wrapper."""
+        self._check(variant, "falcon-mamba-7b")
+
+    @staticmethod
+    def _check(variant, arch):
+        tcfg = dataclasses.replace(_cfgs(arch=arch)[1], **variant)
         np_params, batch, want_loss, want = _jax_loss_and_grads(
-            tuple(sorted(variant.items())))
+            tuple(sorted(variant.items())), arch)
         tp = params_from_numpy(np_params, "cpu")
         for leaf in tree_leaves(tp):
             leaf.requires_grad_(True)
@@ -129,7 +144,8 @@ class TestLossAndGrads:
             assert torch.isfinite(train_loss(tcfg, tp, tb))
         finally:
             ops.unregister_kernels()
-        assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0}
+        assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0,
+                                       "mamba_scan": 0, "mamba_scan_bwd": 0}
 
 
 class TestSupervisorParts:
@@ -278,6 +294,9 @@ class TestCLI:
         assert "resumed from step 12" in capsys.readouterr().out
         assert [h["step"] for h in sup.history] == [13, 14]
 
+    def test_falcon_mamba_loss_falls(self, tmp_path):
+        assert ttrain.main(_cli(tmp_path, "--arch", "falcon-mamba-7b")) == 0
+
     def test_cuda_without_a_card_raises(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -307,20 +326,42 @@ class TestConfigs:
     def test_qwen_config_equals_jax(self):
         assert get_config("qwen1.5-0.5b") == _port_cfg(jconfigs.get_config("qwen1.5-0.5b"))
 
+    def test_falcon_config_equals_jax(self):
+        tcfg = get_config("falcon-mamba-7b")
+        jcfg = jconfigs.get_config("falcon-mamba-7b")
+        assert tcfg == _port_cfg(jcfg)
+        assert tcfg.param_count() == jcfg.param_count() == 7_272_665_088
+
     def test_unported_configs_raise(self):
         with pytest.raises(NotImplementedError, match="not ported"):
             get_config("dbrx-132b")
+        with pytest.raises(NotImplementedError, match="not ported"):
+            get_config("zamba2-2.7b")
         with pytest.raises(KeyError):
             get_config("no-such-arch")
 
     def test_init_layout_matches_jax(self):
-        jcfg, tcfg = _cfgs()
-        avals = jax.eval_shape(lambda: jmodels.init(jcfg, jax.random.PRNGKey(0)))
-        want = {tuple(k.key for k in path): (tuple(a.shape), "torch." + str(a.dtype))
-                for path, a in jax.tree_util.tree_flatten_with_path(avals)[0]}
-        got = init(tcfg, torch.Generator().manual_seed(0), "cpu")
-        assert want == {p: (tuple(t.shape), str(t.dtype))
-                        for p, t in tree_flatten_with_path(got)}
+        assert _init_layouts(*_cfgs())
+
+    def test_falcon_init_layout_matches_jax(self):
+        """In a bf16 Falcon-Mamba, A_log and D stay fp32, as in JAX."""
+        jcfg, tcfg = (dataclasses.replace(c, dtype="bfloat16")
+                      for c in _cfgs(arch="falcon-mamba-7b"))
+        got = _init_layouts(jcfg, tcfg)
+        assert got[("layers", "mamba", "A_log")] == ((2, 128, 8), "torch.float32")
+        assert got[("layers", "mamba", "D")] == ((2, 128), "torch.float32")
+        assert got[("layers", "mamba", "in_proj")] == ((2, 64, 256), "torch.bfloat16")
+
+
+def _init_layouts(jcfg, tcfg) -> dict:
+    """{path: (shape, dtype)} of the port's init, asserted equal to JAX's."""
+    avals = jax.eval_shape(lambda: jmodels.init(jcfg, jax.random.PRNGKey(0)))
+    want = {tuple(k.key for k in path): (tuple(a.shape), "torch." + str(a.dtype))
+            for path, a in jax.tree_util.tree_flatten_with_path(avals)[0]}
+    got = init(tcfg, torch.Generator().manual_seed(0), "cpu")
+    got = {p: (tuple(t.shape), str(t.dtype)) for p, t in tree_flatten_with_path(got)}
+    assert want == got
+    return got
 
 
 class TestInterop:
@@ -334,3 +375,31 @@ class TestInterop:
         np.testing.assert_array_equal(back, np.asarray(a.astype(jnp.float32)))
         f16 = params_from_numpy({"x": np.ones(3, np.float32)}, "cpu", torch.bfloat16)
         assert f16["x"].dtype == torch.bfloat16
+
+    def test_mixed_dtype_tree_keeps_dtypes_and_bits(self, tmp_path):
+        """A bf16 Falcon-Mamba tree holds fp32 A_log and D: both cross
+        interop and a checkpoint save and restore with their own dtype
+        and bits, and ``dtype=`` casts every leaf, A_log included."""
+        jcfg = dataclasses.replace(jconfigs.get_config("falcon-mamba-7b").reduced(),
+                                   dtype="bfloat16")
+        jtree = jax.tree_util.tree_map(np.asarray, jmodels.init(jcfg, jax.random.PRNGKey(0)))
+        want = _jax_paths(jtree)
+        tp = params_from_numpy(jtree, "cpu")
+        ckpt = CheckpointManager(tmp_path, keep=1)
+        ckpt.save(1, tp, extra={"data": {"step": 1}})
+        restored, _ = ckpt.restore(tree_map(torch.zeros_like, tp))
+        back = _jax_paths(params_to_numpy(restored))
+        dtypes = {}
+        for path, t in tree_flatten_with_path(restored):
+            w = want[path]
+            dtypes[path[-1]] = str(t.dtype)
+            assert str(t.dtype) == "torch." + str(w.dtype), path
+            bits = np.int16 if w.dtype.name == "bfloat16" else np.int32
+            assert t.view(getattr(torch, bits.__name__)).numpy().tobytes() == \
+                w.view(bits).tobytes(), path
+            np.testing.assert_array_equal(back[path], w.astype(np.float32))
+        assert dtypes["A_log"] == dtypes["D"] == "torch.float32"
+        assert dtypes["in_proj"] == "torch.bfloat16"
+        cast = params_from_numpy({"A_log": want[("layers", "mamba", "A_log")]}, "cpu",
+                                 torch.bfloat16)
+        assert cast["A_log"].dtype == torch.bfloat16
