@@ -49,14 +49,15 @@ TOL = {"float32": (2e-5, 2e-5), "bfloat16": (3e-2, 3e-2)}
 # the selective scan's fp32 tolerance there: (atol, rtol)
 SCAN_TOL = (1e-5, 1e-4)
 # kernel against autograd through ssm_scan_ref in bf16: a relative L2
-# error per output.  The two round to bf16 in different places (the
-# reference's autograd keeps fp32 to the end, then casts; one bf16 ulp is
-# 2**-8 relative), so a right kernel sits near 2e-3.
-SCAN_REF_RL2 = 1e-2
+# error per output.  Both cast y to bf16 once and keep the state and every
+# gradient in fp32, so they differ only in the order of fp32 sums; the
+# H100 reads about 4e-5 (PERF.md, section 6), and the limit leaves 25x.
+SCAN_REF_RL2 = 1e-3
 # one full-width step, kernels against plain versions: (loss relative
 # error, relative L2 error of each gradient leaf; layers are stacked, so
 # a leaf pools every layer).  bf16 at 24 layers, and fp32 at 2 layers.
 PLAIN_RTOL = {"bfloat16": (1e-3, 5e-2), "float32": (1e-5, 1e-3)}
+FP32_LAYERS = 2            # depth of the fp32 comparison
 # H100 SXM published peaks at 700 W (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -302,11 +303,11 @@ def phase_scan_kernels(torch, ms) -> dict:
     return results
 
 
-def phase_train(torch, cfg, want: dict, fp32_layers: int = 2) -> tuple:
+def phase_train(torch, cfg, want: dict) -> tuple:
     """``cfg`` through the port's entry points, with kernels: STEPS
     training steps under the supervisor, launch counts held to ``want``,
     then one step against the plain versions in bf16 and, at
-    ``fp32_layers`` layers, in fp32."""
+    FP32_LAYERS layers, in fp32."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.data import SyntheticTokenSource, TokenLoader
     from repro_torch.ft import Supervisor
@@ -352,7 +353,7 @@ def phase_train(torch, cfg, want: dict, fp32_layers: int = 2) -> tuple:
         fail(f"kernel launches {counts} != {want}")
 
     compare_with_plain(torch, cfg, params, losses[0])
-    cfg32 = dataclasses.replace(cfg, n_layers=fp32_layers, dtype="float32")
+    cfg32 = dataclasses.replace(cfg, n_layers=FP32_LAYERS, dtype="float32")
     compare_with_plain(torch, cfg32, init(cfg32, torch.Generator(device="cuda").manual_seed(0),
                                           "cuda"))
 
@@ -452,20 +453,20 @@ def _family(name: str) -> str:
 
 def phase_profile(torch, train: dict, plain_steps: int = PROFILED_STEPS) -> None:
     """Where a full-width step's device time goes, continuing a training
-    phase's state: with the kernels, one warm-up step and then
-    PROFILED_STEPS steps under ``torch.profiler`` (device activity only);
-    then ``plain_steps`` steps with their plain versions.  The plain scan
-    launches ~445k kernels a Falcon step (~27 s), so that path profiles
-    one."""
+    phase's state: with the kernels, then with their plain versions, one
+    warm-up step and then steps under ``torch.profiler`` (device activity
+    only): PROFILED_STEPS with the kernels, ``plain_steps`` plain.  The
+    plain scan launches ~445k kernels a Falcon step (~20 s), so that path
+    profiles one."""
     from repro_torch.kernels import ops
     state, step_fn, loader = train["state"], train["step_fn"], train["loader"]
     act = [torch.profiler.ProfilerActivity.CUDA]
     for mode, n_steps in (("kernels", PROFILED_STEPS), ("plain", plain_steps)):
         if mode == "kernels":
             ops.register_kernels()
-            state, _ = step_fn(state, loader.next_batch())
         else:
             ops.unregister_kernels()
+        state, _ = step_fn(state, loader.next_batch())
         batches = [loader.next_batch() for _ in range(n_steps)]
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)

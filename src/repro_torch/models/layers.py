@@ -242,24 +242,20 @@ def ssm_scan_ref(xz, dt, A, B, C, D, h0=None, chunk: int = SSM_CHUNK):
     return y.to(xz.dtype) + xz * D.to(xz.dtype), h
 
 
-def mamba_block(p, x, *, state: int, version: int, conv_state=None, ssm_state=None,
-                chunk: int = SSM_CHUNK):
-    """Mamba-1 block: in_proj -> causal conv -> silu -> x_proj ->
-    softplus(dt) -> selective scan (the ``"mamba_scan"`` impl) -> gate by
-    silu(z) -> out_proj.  Returns (out, new conv state, last SSM state)."""
+def mamba_block(p, x, *, state: int, version: int, chunk: int = SSM_CHUNK):
+    """Mamba-1 block over a whole sequence from a zero state: in_proj ->
+    causal conv -> silu -> x_proj -> softplus(dt) -> selective scan (the
+    ``"mamba_scan"`` impl) -> gate by silu(z) -> out_proj."""
     if version != 1:
         raise NotImplementedError("the Mamba-2 SSD scan is not ported yet")
     xz = x @ p["in_proj"]
     xh, z = torch.chunk(xz, 2, dim=-1)                    # (B, S, Ci)
-    xh, new_conv = _causal_conv(xh, p["conv_w"], p["conv_b"], conv_state)
+    xh, _ = _causal_conv(xh, p["conv_w"], p["conv_b"])
     xh = F.silu(xh)
     proj = xh @ p["x_proj"]
     dt_rank = p["dt_proj"].shape[0]
     dt, Bm, Cm = torch.split(proj, [dt_rank, state, state], dim=-1)
     dt = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    scan = get_impl("mamba_scan", ssm_scan_ref)
-    kw = {"chunk": chunk} if scan is ssm_scan_ref else {}
-    y, hT = scan(xh, dt, A, Bm, Cm, p["D"], h0=ssm_state, **kw)
-    y = y * F.silu(z)
-    return y @ p["out_proj"], new_conv, hT
+    y, _ = get_impl("mamba_scan", ssm_scan_ref)(xh, dt, A, Bm, Cm, p["D"], chunk=chunk)
+    return (y * F.silu(z)) @ p["out_proj"]

@@ -234,9 +234,8 @@ def _norm(cfg, w, x):
 
 def _dec_layer(cfg, lp, x):
     if cfg.ssm:
-        h, _, _ = L.mamba_block(lp["mamba"], _norm(cfg, lp["norm"], x),
-                                state=cfg.ssm.state, version=cfg.ssm.version,
-                                chunk=cfg.ssm_chunk)
+        h = L.mamba_block(lp["mamba"], _norm(cfg, lp["norm"], x),
+                          state=cfg.ssm.state, version=cfg.ssm.version, chunk=cfg.ssm_chunk)
         return x + h
     x = x + L.attention_block(lp["attn"], _norm(cfg, lp["norm1"], x), cfg,
                               causal=cfg.causal)
