@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 nvcc and holds each kernel against its plain PyTorch version at the
 main paths' shapes and at edge shapes.  Then, for each of the port's
-two training paths, it trains the model at its published widths
+three training paths, it trains the model at its published widths
 (random weights from a seed, bf16, remat="full") for a few steps
 through the port's own entry points with the kernels installed, checks
 that every kernel of that path was launched exactly as often as the
@@ -18,9 +18,14 @@ every gradient leaf), and profiles where a step's device time goes
   - Qwen1.5-0.5B, all 24 layers (kernels K1 rmsnorm, K2 flash forward);
   - Falcon-Mamba-7B, 8 of its 64 layers: one stage of an 8-stage
     pipeline split, with the embedding and lm_head (K1, and K4 and
-    K4-bwd, the selective scan forward and backward).
+    K4-bwd, the selective scan forward and backward);
+  - DeepSeek-MoE-16B, 2 of its 28 layers: one stage of a 14-stage
+    split, with the embedding and lm_head (K1, K2 at head_dim 128, and
+    K3, the grouped expert matmul, forward and backward).  Before its
+    full-step comparison one MoE block at full width is held to its
+    plain version on the same routing.
 
-Last it runs the training CLI at its defaults for both archs.  It
+Last it runs the training CLI at its defaults for the three archs.  It
 prints the card's name and power limit, one JSON line of kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed phase ends the run with a non-zero exit code and no result.
@@ -29,6 +34,7 @@ Without a CUDA device, or without the repository beside it, it fails.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -44,6 +50,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 STEPS = 6
 BATCH, SEQ = 4, 1024
 FALCON_LAYERS = 8          # one stage of an 8-stage split of the 64 layers
+DEEPSEEK_LAYERS = 2        # one stage of a 14-stage split of the 28 layers
 # fp32 and bf16 tolerances of the kernel checks (tests/test_kernels.py)
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (3e-2, 3e-2)}
 # the selective scan's fp32 tolerance there: (atol, rtol)
@@ -58,6 +65,21 @@ SCAN_REF_RL2 = 1e-3
 # a leaf pools every layer).  bf16 at 24 layers, and fp32 at 2 layers.
 PLAIN_RTOL = {"bfloat16": (1e-3, 5e-2), "float32": (1e-5, 1e-3)}
 FP32_LAYERS = 2            # depth of the fp32 comparison
+# An MoE step in bf16 is compared twice.  K2 and K3 round bf16 differently
+# from the plain path, and the discrete top-k routing turns a one-ulp
+# difference in a router logit into a whole token moving between experts:
+# on the H100, 87 and 306 of the 24,576 choices of the two DeepSeek layers
+# differed, and every gradient leaf, not only the experts', then differed
+# by 4.6e-2 to 1.3e-1 (PERF.md, section 6).  That measures the router's
+# sensitivity, not the kernels.  So the freely routed plain run holds the
+# loss and prints its routing differences and leaf errors, and a second
+# plain run, routed as the kernel run (each router call takes the kernel
+# run's experts, its gates renormalised from its own probabilities), holds
+# every leaf to the limit.  The block-level check (the same routing by
+# construction) and the fp32 comparison (freely routed, no routing
+# difference allowed) hold the MoE as well.
+# K3 against its plain version (tests/test_kernels.py, TestMoEGMM)
+GMM_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 5e-2)}
 # H100 SXM published peaks at 700 W (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -148,7 +170,8 @@ def phase_kernels(torch, F, fa, rn) -> dict:
 
     # K2 flash attention: the model's shape, then MQA / GQA / offsets / D=128 / ragged.
     # lse is fp32 on both sides in either dtype, so it is held at the fp32 tolerance.
-    cases = [(4, 16, 16, 1024, 1024, 64, True), (2, 4, 1, 64, 64, 64, True),
+    cases = [(4, 16, 16, 1024, 1024, 64, True), (4, 16, 16, 1024, 1024, 128, True),
+             (2, 4, 1, 64, 64, 64, True),
              (1, 8, 2, 64, 128, 64, True), (1, 8, 2, 100, 300, 64, True),
              (1, 2, 2, 32, 48, 128, False), (2, 4, 2, 40, 72, 128, True),
              (1, 4, 4, 1000, 1000, 64, True)]
@@ -167,16 +190,24 @@ def phase_kernels(torch, F, fa, rn) -> dict:
             print(f"  {tag} max_abs_err={err:.3e} lse_err={lse_err:.3e}", flush=True)
             if dt == torch.bfloat16 and (b, hq, sq, d) == (4, 16, 1024, 64):
                 results["flash_attention"] = {"max_abs_err": max(err, lse_err)}
-    q = randn((BATCH, 16, SEQ, 64), torch.bfloat16)
-    k, v = randn((BATCH, 16, SEQ, 64), torch.bfloat16), randn((BATCH, 16, SEQ, 64), torch.bfloat16)
-    pairs = BATCH * 16 * SEQ * (SEQ + 1) // 2          # causal (query, key) pairs computed
-    n_bytes = 4 * q.numel() * q.element_size() + BATCH * 16 * SEQ * 4   # q, k, v, out, lse
-    results["flash_attention"].update(
-        ms=cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal=True)),
-        plain_ms=cuda_ms(torch, lambda: fa.flash_attention_fwd_plain(q, k, v, causal=True)),
-        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v,
-                                                                           is_causal=True)),
-        **bound(n_bytes, 4 * 64 * pairs / BF16_FLOPS))
+    def flash_times(d: int) -> dict:
+        q, k, v = (randn((BATCH, 16, SEQ, d), torch.bfloat16) for _ in range(3))
+        pairs = BATCH * 16 * SEQ * (SEQ + 1) // 2      # causal (query, key) pairs computed
+        n_bytes = 4 * q.numel() * q.element_size() + BATCH * 16 * SEQ * 4   # q, k, v, out, lse
+        timed = dict(
+            ms=cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal=True)),
+            plain_ms=cuda_ms(torch, lambda: fa.flash_attention_fwd_plain(q, k, v, causal=True)),
+            library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v,
+                                                                               is_causal=True)),
+            **bound(n_bytes, 4 * d * pairs / BF16_FLOPS))
+        print(f"  flash {(BATCH, 16, SEQ, d)} causal bf16: kernel {timed['ms']:.4f} ms, plain "
+              f"{timed['plain_ms']:.4f} ms, SDPA {timed['library_ms']:.4f} ms, bound "
+              f"{timed['bound_ms']:.4f} ms ({timed['bound_by']})", flush=True)
+        return timed
+
+    # Qwen's head_dim 64, and DeepSeek's 128 beside it
+    results["flash_attention"].update(flash_times(64))
+    results["flash_attention"]["at_head_dim_128"] = flash_times(128)
     return results
 
 
@@ -184,6 +215,72 @@ def bound(n_bytes: int, op_seconds: float) -> dict:
     byte_seconds = n_bytes / HBM_BYTES_PER_S
     return {"bound_ms": max(byte_seconds, op_seconds) * 1e3,
             "bound_by": "bytes" if byte_seconds >= op_seconds else "operations"}
+
+
+def gmm_shapes(cfg) -> list:
+    """(E, rows, K, N) of the MoE path's grouped matmuls at BATCH x SEQ
+    tokens: gate/up (d_model -> d_expert) and down (d_expert -> d_model)."""
+    from repro_torch.models.layers import _dispatch_groups
+    n_sc = _dispatch_groups(BATCH, SEQ)
+    tg, e, k = SEQ // n_sc, cfg.moe.n_experts, cfg.moe.top_k
+    rows = BATCH * n_sc * max(1, int(cfg.moe.capacity_factor * tg * k / e))
+    return [(e, rows, cfg.d_model, cfg.moe.d_expert), (e, rows, cfg.moe.d_expert, cfg.d_model)]
+
+
+def phase_gmm_kernels(torch, mg, cfg) -> dict:
+    """K3's three layouts (forward, dx, dw) against their plain versions
+    at the MoE path's shapes and the JAX test's edge shapes, in fp32 and
+    bf16.  Times at the gate/up shape in bf16."""
+    g = torch.Generator(device="cuda").manual_seed(2468)
+    path = gmm_shapes(cfg)
+    results = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        for e, m, k, n in path + [(4, 32, 64, 128), (2, 16, 32, 32), (8, 130, 64, 96)]:
+            x = torch.randn((e, m, k), generator=g, device="cuda").to(dt)
+            w = (torch.randn((e, k, n), generator=g, device="cuda") * k ** -0.5).to(dt)
+            dy = torch.randn((e, m, n), generator=g, device="cuda").to(dt)
+            y = mg.moe_gmm_fwd(x, w)
+            dx, dw = mg.moe_gmm_bwd(x, w, dy)
+            torch.cuda.synchronize()
+            want_dx, want_dw = mg.moe_gmm_bwd_plain(x, w, dy)
+            tag = f"moe_gmm {dname} {(e, m, k, n)}"
+            errs = [check_close(torch, f"{tag} {name}", got, want, dname, GMM_TOL[dname])
+                    for name, got, want in (("y", y, mg.moe_gmm_plain(x, w)),
+                                            ("dx", dx, want_dx), ("dw", dw, want_dw))]
+            print(f"  {tag} max_abs_err y={errs[0]:.3e} dx={errs[1]:.3e} dw={errs[2]:.3e}",
+                  flush=True)
+            if dt == torch.bfloat16 and (e, m, k, n) == path[0]:
+                results["moe_gmm"] = {"max_abs_err": errs[0]}
+                results["moe_gmm_bwd"] = {"max_abs_err": max(errs[1:])}
+                timed = (x, w, dy)
+            del x, w, dy, y, dx, dw, want_dx, want_dw
+    x, w, dy = timed
+    e, m, k = x.shape
+    n = w.shape[2]
+    flops = 2 * e * m * k * n
+    io = x.element_size()
+    results["moe_gmm"].update(
+        ms=cuda_ms(torch, lambda: mg.moe_gmm_fwd(x, w), reps=10),
+        plain_ms=cuda_ms(torch, lambda: mg.moe_gmm_plain(x, w)),
+        library_ms=cuda_ms(torch, lambda: torch.bmm(x, w)),
+        **bound((x.numel() + w.numel() + e * m * n) * io, flops / BF16_FLOPS))
+    two_bmm_ms = cuda_ms(torch, lambda: (torch.bmm(dy, w.transpose(1, 2)),
+                                         torch.bmm(x.transpose(1, 2), dy)))
+    results["moe_gmm_bwd"].update(
+        ms=cuda_ms(torch, lambda: mg.moe_gmm_bwd(x, w, dy), reps=5),
+        plain_ms=cuda_ms(torch, lambda: mg.moe_gmm_bwd_plain(x, w, dy)),
+        library_ms=None,     # no single PyTorch call computes both dx and dw
+        # reads x, w, dy; writes dx, dw
+        **bound(2 * (x.numel() + w.numel()) * io + dy.numel() * io, 2 * flops / BF16_FLOPS))
+    for name, work in (("moe_gmm", flops), ("moe_gmm_bwd", 2 * flops)):
+        r = results[name]
+        lib = f"torch.bmm {r['library_ms']:.4f} ms" if r["library_ms"] else \
+            f"two torch.bmm calls {two_bmm_ms:.4f} ms"
+        print(f"  {name} {(e, m, k, n)} bf16: kernel {r['ms']:.4f} ms "
+              f"({work / r['ms'] / 1e9:.1f} TFLOP/s), plain {r['plain_ms']:.4f} ms, {lib}, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    return results
 
 
 def scan_inputs(torch, g, b, s, c, n, dtype, with_h0=False):
@@ -317,7 +414,8 @@ def phase_train(torch, cfg, want: dict) -> tuple:
     from repro_torch.optim import adamw_init, cosine_schedule
 
     widths = (f"ssm={cfg.ssm}" if cfg.ssm else
-              f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff}")
+              f"heads={cfg.n_heads}/{cfg.n_kv_heads} head_dim={cfg.head_dim} "
+              + (f"moe={cfg.moe}" if cfg.moe else f"d_ff={cfg.d_ff}"))
     print(f"  config {cfg.name}: {cfg.n_layers} layers d_model={cfg.d_model} {widths} "
           f"vocab={cfg.vocab} dtype={cfg.dtype} remat={cfg.remat} "
           f"params={cfg.param_count()}", flush=True)
@@ -352,6 +450,8 @@ def phase_train(torch, cfg, want: dict) -> tuple:
     if counts != want:
         fail(f"kernel launches {counts} != {want}")
 
+    if cfg.moe:
+        check_moe_block(torch, cfg)
     compare_with_plain(torch, cfg, params, losses[0])
     cfg32 = dataclasses.replace(cfg, n_layers=FP32_LAYERS, dtype="float32")
     compare_with_plain(torch, cfg32, init(cfg32, torch.Generator(device="cuda").manual_seed(0),
@@ -369,12 +469,103 @@ def phase_train(torch, cfg, want: dict) -> tuple:
     return counts, {"state": state, "step_fn": step_fn, "loader": loader}
 
 
+@contextlib.contextmanager
+def recorded_routing(replay: list | None = None):
+    """The expert ids of every MoE router call inside the block, in call
+    order: the forward's layers first, then, under remat, the
+    recompute's.  With ``replay`` (an earlier run's list), call i routes
+    to ``replay[i]``'s experts instead, with gates renormalised from its
+    own probabilities; the list still records its own choices.  Wraps
+    the port's ``_router`` for the block's duration."""
+    from repro_torch.models import layers as L
+    calls, router = [], L._router
+
+    def recording(p, xt, top_k):
+        probs, gates, idx = router(p, xt, top_k)
+        calls.append(idx.detach())
+        if replay is not None:
+            idx = replay[len(calls) - 1]
+            vals = probs.gather(1, idx)
+            gates = vals / vals.sum(-1, keepdim=True).clamp(min=1e-9)
+        return probs, gates, idx
+    L._router = recording
+    try:
+        yield calls
+    finally:
+        L._router = router
+
+
+def routing_diffs(a: list, b: list) -> list:
+    """Per layer, the (token, k) choices of one run that the other did not make."""
+    return [int((~(x[:, :, None] == y[:, None, :]).any(-1)).sum()) for x, y in zip(a, b)]
+
+
+def rel_l2(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def check_moe_block(torch, cfg) -> None:
+    """One ``moe_block`` at the config's widths on one input (BATCH, SEQ,
+    d_model) in its dtype, with K3 and with its plain version.  The
+    router does not go through K3, so both route alike (checked).  The
+    output is held elementwise to K3's tolerance; aux and the gradients
+    of x and of every MoE leaf (cotangent N(0, 1) on y and 1 on aux) to
+    the per-leaf relative L2 limit of ``PLAIN_RTOL``."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.tree import tree_flatten_with_path, tree_leaves, tree_map
+    g = torch.Generator(device="cuda").manual_seed(7)
+    m = cfg.moe
+    p = L.init_moe(g, cfg.d_model, m.d_expert, m.n_experts, m.n_shared, cfg.act, cfg.tdtype,
+                   "cuda")
+    x = torch.randn((BATCH, SEQ, cfg.d_model), generator=g, device="cuda").to(cfg.tdtype)
+    dy = torch.randn((BATCH, SEQ, cfg.d_model), generator=g, device="cuda").to(cfg.tdtype)
+    names = ["x"] + ["/".join(path) for path, _ in tree_flatten_with_path(p)]
+
+    def run():
+        tree = tree_map(lambda t: t.detach().requires_grad_(True), p)
+        leaves = [x.detach().requires_grad_(True)] + tree_leaves(tree)
+        with recorded_routing() as calls:
+            y, aux = L.moe_block(tree, leaves[0], n_experts=m.n_experts, top_k=m.top_k,
+                                 act=cfg.act, capacity_factor=m.capacity_factor)
+        grads = torch.autograd.grad([y, aux], leaves, [dy, torch.ones_like(aux)])
+        return y.detach(), aux.detach(), calls[0], grads
+
+    ops.register_kernels()
+    ops.reset_launch_counts()
+    y_k, aux_k, route_k, grads_k = run()
+    torch.cuda.synchronize()
+    launched = ops.launch_counts()
+    ops.unregister_kernels()
+    y_p, aux_p, route_p, grads_p = run()
+    if launched["moe_gmm"] != 3 or launched["moe_gmm_bwd"] != 6:
+        fail(f"moe block: K3 launches {launched}, expected 3 forward and 6 backward")
+    if not torch.equal(route_k, route_p):
+        fail("moe block: the routing differs between the K3 and plain runs")
+    dname = cfg.dtype
+    y_err = check_close(torch, "moe block y", y_k, y_p, dname, GMM_TOL[dname])
+    grad_rtol = PLAIN_RTOL[dname][1]
+    errs = {"aux": abs(aux_k.item() - aux_p.item()) / abs(aux_p.item())}
+    errs.update({f"d{name}": rel_l2(gk, gp) for name, gk, gp in zip(names, grads_k, grads_p)})
+    print(f"  moe block {tuple(x.shape)} {dname}, K3 against plain on the same routing: "
+          f"y max_abs_err {y_err:.3e}; relative errors (limit {grad_rtol}):", flush=True)
+    for name, err in errs.items():
+        print(f"    {name:20s} {err:.3e}", flush=True)
+    worst = max(errs, key=errs.get)
+    if not all(math.isfinite(e) for e in errs.values()) or errs[worst] > grad_rtol:
+        fail(f"moe block: K3 and plain disagree: {worst} at {errs[worst]:.3e}")
+
+
 def compare_with_plain(torch, cfg, params, step_loss: float | None = None) -> None:
     """Step 1's loss and every gradient leaf on the same weights and
     batch, with the kernels and with their plain versions, held to
     ``PLAIN_RTOL`` of the config's dtype.  ``step_loss`` is the kernel
     loss the training step reported, if any.  The gradients go through
-    the flash backward, which reuses K2's lse."""
+    the flash backward, which reuses K2's lse.  For an MoE config it
+    prints how many routing choices differ per layer between the two
+    runs; in fp32 any is a failure, and in bf16 the leaves are held
+    against a plain run routed as the kernel run (see the note at
+    ``PLAIN_RTOL``)."""
     from repro_torch.data import SyntheticTokenSource, TokenLoader
     from repro_torch.kernels import ops
     from repro_torch.models import train_loss
@@ -385,17 +576,29 @@ def compare_with_plain(torch, cfg, params, step_loss: float | None = None) -> No
     batch = {k: torch.as_tensor(v, device="cuda").long() for k, v in first.items()}
     paths = ["/".join(path) for path, _ in tree_flatten_with_path(params)]
 
-    def loss_and_grads():
+    def loss_and_grads(replay=None):
         p = tree_map(lambda t: t.detach().requires_grad_(True), params)
-        loss = train_loss(cfg, p, batch)
-        leaves = [leaf for _, leaf in tree_flatten_with_path(p)]
-        grads = torch.autograd.grad(loss, leaves)
-        return float(loss.detach()), [g.float() for g in grads]
+        with recorded_routing(replay) as calls:
+            loss = train_loss(cfg, p, batch)
+            leaves = [leaf for _, leaf in tree_flatten_with_path(p)]
+            grads = torch.autograd.grad(loss, leaves)
+        return float(loss.detach()), [g.float() for g in grads], calls
+
+    def leaf_errors(k_grads, p_grads, held: bool) -> dict:
+        errs = {name: rel_l2(k, p) for name, k, p in zip(paths, k_grads, p_grads)}
+        k_norm = torch.sqrt(sum(g.square().sum() for g in k_grads)).item()
+        p_norm = torch.sqrt(sum(g.square().sum() for g in p_grads)).item()
+        limit = f"limit {grad_rtol}" if held else "printed, not held"
+        print(f"  step 1 grad norm: kernels {k_norm:.6f}, plain {p_norm:.6f}; relative L2 "
+              f"error per leaf ({limit}):", flush=True)
+        for name, err in errs.items():
+            print(f"    {name:24s} {err:.3e}", flush=True)
+        return errs
 
     ops.register_kernels()
-    k_loss, k_grads = loss_and_grads()
+    k_loss, k_grads, k_routes = loss_and_grads()
     ops.unregister_kernels()
-    p_loss, p_grads = loss_and_grads()
+    p_loss, p_grads, p_routes = loss_and_grads()
     loss_rtol, grad_rtol = PLAIN_RTOL[cfg.dtype]
     first_loss = k_loss if step_loss is None else step_loss
     rel = abs(p_loss - first_loss) / abs(p_loss)
@@ -404,25 +607,34 @@ def compare_with_plain(torch, cfg, params, step_loss: float | None = None) -> No
           f"limit {loss_rtol})", flush=True)
     if rel > loss_rtol:
         fail("kernel and plain losses disagree")
-    errs = {name: ((k - p).norm() / p.norm()).item()
-            for name, k, p in zip(paths, k_grads, p_grads)}
-    k_norm = torch.sqrt(sum(g.square().sum() for g in k_grads)).item()
-    p_norm = torch.sqrt(sum(g.square().sum() for g in p_grads)).item()
-    print(f"  step 1 grad norm: kernels {k_norm:.6f}, plain {p_norm:.6f}; relative L2 "
-          f"error per leaf (limit {grad_rtol}):", flush=True)
-    for name, err in errs.items():
-        print(f"    {name:24s} {err:.3e}", flush=True)
+    if cfg.moe:
+        diffs = routing_diffs(k_routes[:cfg.n_layers], p_routes[:cfg.n_layers])
+        print(f"  routing choices that differ between the two runs, per layer (of "
+              f"{BATCH * SEQ * cfg.moe.top_k}): {diffs}", flush=True)
+        if cfg.dtype == "float32" and any(diffs):
+            fail(f"fp32 routing differs between kernels and plain versions: {diffs}")
+        if cfg.dtype == "bfloat16":
+            leaf_errors(k_grads, p_grads, held=False)
+            del p_grads
+            p_loss, p_grads, _ = loss_and_grads(replay=k_routes)
+            rel = abs(p_loss - k_loss) / abs(p_loss)
+            print(f"  plain run routed as the kernel run: loss {p_loss:.6f} (rel diff "
+                  f"{rel:.3e}, limit {loss_rtol})", flush=True)
+            if rel > loss_rtol:
+                fail("kernel and routed plain losses disagree")
+    errs = leaf_errors(k_grads, p_grads, held=True)
     worst = max(errs, key=errs.get)
     if not all(math.isfinite(e) for e in errs.values()) or errs[worst] > grad_rtol:
         fail(f"kernel and plain gradients disagree: {worst} at {errs[worst]:.3e}")
 
 
 def phase_cli(torch) -> None:
-    """The CLI at its defaults for both ported archs; ``main`` raises
-    unless the loss falls."""
+    """The CLI at its defaults for the three ported paths (Falcon at 50
+    steps); ``main`` raises unless the loss falls."""
     from repro_torch.kernels import ops
     from repro_torch.launch import train
-    for extra in ([], ["--arch", "falcon-mamba-7b", "--steps", "50"]):
+    for extra in ([], ["--arch", "falcon-mamba-7b", "--steps", "50"],
+                  ["--arch", "deepseek-moe-16b"]):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
             ops.reset_launch_counts()
             t0 = time.perf_counter()
@@ -436,7 +648,8 @@ def phase_cli(torch) -> None:
 
 
 # kernel-name substrings -> family, first match wins
-FAMILIES = [("rmsnorm_kernel", "K1 rmsnorm"), ("flash_fwd_kernel", "K2 flash fwd"),
+FAMILIES = [("moe_gmm_kernel", "K3 grouped mm"),
+            ("rmsnorm_kernel", "K1 rmsnorm"), ("flash_fwd_kernel", "K2 flash fwd"),
             ("mamba_scan_fwd_kernel", "K4 scan fwd"), ("mamba_scan_bwd_kernel", "K4-bwd scan"),
             ("gemm", "matmul"), ("cutlass", "matmul"), ("sm90_xmma", "matmul"),
             ("nvjet", "matmul"), ("reduce", "reductions"), ("softmax", "reductions"),
@@ -522,6 +735,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import moe_gmm as mg
     from repro_torch.kernels import rmsnorm as rn
     phase("1/5 build")
     names = [p.name for p in _build.sources()]
@@ -534,15 +748,24 @@ def main() -> int:
     counts = {}
     qwen = get_config("qwen1.5-0.5b")
     falcon = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=FALCON_LAYERS)
+    deepseek = dataclasses.replace(get_config("deepseek-moe-16b"), n_layers=DEEPSEEK_LAYERS)
+    results.update(phase_gmm_kernels(torch, mg, deepseek))
     # per step with remat="full": each layer's kernels run in the forward
-    # and again in its recompute; the final norm runs once
-    paths = [(qwen, {"rmsnorm": (4 * qwen.n_layers + 1) * STEPS,
-                     "flash_attention": 2 * qwen.n_layers * STEPS,
-                     "mamba_scan": 0, "mamba_scan_bwd": 0}),
-             (falcon, {"rmsnorm": (2 * falcon.n_layers + 1) * STEPS, "flash_attention": 0,
+    # and again in its recompute; the final norm runs once.  An MoE layer
+    # runs three grouped matmuls (gate, up, down), and each one's backward
+    # launches K3 twice (dx and dw)
+    none = dict.fromkeys(("rmsnorm", "flash_attention", "mamba_scan", "mamba_scan_bwd",
+                          "moe_gmm", "moe_gmm_bwd"), 0)
+    paths = [(qwen, {**none, "rmsnorm": (4 * qwen.n_layers + 1) * STEPS,
+                     "flash_attention": 2 * qwen.n_layers * STEPS}),
+             (falcon, {**none, "rmsnorm": (2 * falcon.n_layers + 1) * STEPS,
                        "mamba_scan": 2 * falcon.n_layers * STEPS,
-                       "mamba_scan_bwd": falcon.n_layers * STEPS})]
-    for (cfg, want), tag in zip(paths, ("3", "3b")):
+                       "mamba_scan_bwd": falcon.n_layers * STEPS}),
+             (deepseek, {**none, "rmsnorm": (4 * deepseek.n_layers + 1) * STEPS,
+                         "flash_attention": 2 * deepseek.n_layers * STEPS,
+                         "moe_gmm": 6 * deepseek.n_layers * STEPS,
+                         "moe_gmm_bwd": 6 * deepseek.n_layers * STEPS})]
+    for (cfg, want), tag in zip(paths, ("3", "3b", "3c")):
         phase(f"{tag}/5 full-width training: {cfg.name}, {cfg.n_layers} layers")
         counts[cfg.name], train = phase_train(torch, cfg, want)
         phase(f"5/5 where a full-width {cfg.name} step's device time goes")
@@ -557,7 +780,9 @@ def main() -> int:
     meta = {"rmsnorm": ("rmsnorm.cu", "src/repro/kernels/rmsnorm.py:19"),
             "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:27"),
             "mamba_scan": ("mamba_scan.cu", "src/repro/kernels/mamba_scan.py:43"),
-            "mamba_scan_bwd": ("mamba_scan.cu", "src/repro/kernels/mamba_scan.py:43")}
+            "mamba_scan_bwd": ("mamba_scan.cu", "src/repro/kernels/mamba_scan.py:43"),
+            "moe_gmm": ("moe_gmm.cu", "src/repro/kernels/moe_gmm.py:19"),
+            "moe_gmm_bwd": ("moe_gmm.cu", "src/repro/kernels/moe_gmm.py:19")}
     kernels = []
     for name, (source, replaces) in meta.items():
         r = results[name]
@@ -568,7 +793,9 @@ def main() -> int:
                         "launches_by_path": by_path,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        **({"at_head_dim_128": r["at_head_dim_128"]}
+                           if "at_head_dim_128" in r else {})})
     phase("done")
     print(gpu_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -15,7 +15,7 @@ ARCHS = [
     "qwen3-1b", "qwen3-9b",
 ]
 
-PORTED = ["qwen1.5-0.5b", "falcon-mamba-7b"]
+PORTED = ["qwen1.5-0.5b", "falcon-mamba-7b", "deepseek-moe-16b", "dbrx-132b"]
 
 
 def get_config(name: str):

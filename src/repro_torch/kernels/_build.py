@@ -3,7 +3,8 @@
 
 Every ``csrc/*.cu`` goes into one library,
 ``build/repro_torch/libkernels-<hash>.so`` under the repository root (a
-directory ``.gitignore`` lists), in a single ``nvcc`` call.  The hash
+directory ``.gitignore`` lists): one ``nvcc`` per source, all started
+together, compiles the objects, and one more links them.  The hash
 covers the sources and the compiler flags, so editing a kernel rebuilds
 the library and an unchanged one is reused.  The sources have a plain C
 interface and include no PyTorch header, so a build takes seconds.
@@ -24,7 +25,7 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lib: ctypes.CDLL | None = None
 
@@ -54,6 +55,23 @@ def _target() -> pathlib.Path:
     return BUILD_DIR / f"libkernels-{h.hexdigest()[:16]}.so"
 
 
+def _run(jobs: dict[str, list[str]], verbose: bool) -> None:
+    """Start every named command at once, wait for all, and raise if any
+    failed."""
+    procs = {name: subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+             for name, cmd in jobs.items()}
+    failed = []
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if verbose or proc.returncode:
+            print(f"[nvcc {name}]\n{log}", flush=True)
+        if proc.returncode:
+            failed.append(f"{name}: code {proc.returncode}")
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}")
+
+
 def build(verbose: bool = False) -> float:
     """Compile the library if it is missing or stale.  ``verbose``
     always compiles, adds ``-Xptxas -v`` and prints the compiler's
@@ -63,16 +81,20 @@ def build(verbose: bool = False) -> float:
     if out.exists() and not verbose:
         return time.perf_counter() - t0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    tag = f"{out.name}.{os.getpid()}"
+    tmp = out.with_name(f"{tag}.tmp")
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
     flags = NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
-    proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), *map(str, sources())],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if verbose or proc.returncode:
-        print(f"[nvcc]\n{proc.stdout}", flush=True)
-    if proc.returncode:
+    try:
+        _run({src.name: [_nvcc(), *flags, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(sources(), objs)}, verbose)
+        _run({"link": [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]},
+             verbose)
+        os.replace(tmp, out)   # atomic: a concurrent loader never sees a torn .so
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}")
-    os.replace(tmp, out)   # atomic: a concurrent loader never sees a torn .so
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return time.perf_counter() - t0
 
 

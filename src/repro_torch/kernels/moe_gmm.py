@@ -1,0 +1,125 @@
+"""K3: the grouped (per-expert) matmul, forward and backward,
+hand-written CUDA for Hopper.
+
+Replaces the Pallas TPU kernel ``repro/kernels/moe_gmm.py``
+(``_gmm_kernel`` / ``moe_gmm_pallas``).  Source: ``csrc/moe_gmm.cu``,
+one kernel for three operand layouts: the forward ``y[e] = x[e] @ w[e]``
+and the backward's ``dx[e] = dy[e] @ w[e].T`` and ``dw[e] = x[e].T @
+dy[e]``, which the TPU kernel does not have.  Accumulation is fp32 and
+every output takes the inputs' dtype; any shape is taken.
+
+At the DeepSeek-MoE-16B training shape a call does 165 GFLOP over 567
+MB, at the ridge of the H100's roofline (~0.17 ms either way); this
+first version computes on the CUDA cores in fp32 (PERF.md has its time).
+
+``moe_gmm_fwd`` and ``moe_gmm_bwd`` launch the kernel on CUDA tensors
+and use the plain PyTorch versions ``moe_gmm_plain`` and
+``moe_gmm_bwd_plain`` on CPU tensors.  ``launches`` and
+``bwd_launches`` count kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..models.layers import moe_gmm_ref as moe_gmm_plain  # the plain version
+from . import _build
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TILE = 128              # rows of C per block (the kernel's kTile)
+
+launches = 0
+bwd_launches = 0
+
+
+def moe_gmm_bwd_plain(x, w, dy, need_dx: bool = True, need_dw: bool = True):
+    """Gradients of ``moe_gmm_plain``: (dx = dy @ w^T, dw = x^T @ dy) per
+    expert, each None where not asked for."""
+    dx = torch.einsum("ecf,edf->ecd", dy, w) if need_dx else None
+    dw = torch.einsum("ecd,ecf->edf", x, dy) if need_dw else None
+    return dx, dw
+
+
+def _check_kernel(*tensors):
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("moe_gmm kernel: every tensor must be on one CUDA device, got "
+                         f"{sorted({str(t.device) for t in tensors})}")
+    if len({t.dtype for t in tensors}) != 1 or tensors[0].dtype not in DTYPES:
+        raise TypeError(f"moe_gmm kernel: dtypes {[t.dtype for t in tensors]} must be one "
+                        "of float32 / bfloat16")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("moe_gmm kernel: inputs must be contiguous")
+
+
+def _check_shapes(x, w):
+    if x.ndim != 3 or w.ndim != 3 or x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1]:
+        raise ValueError(f"moe_gmm: x {tuple(x.shape)} and w {tuple(w.shape)} must be "
+                         "(E, M, K) and (E, K, N)")
+    e, m = x.shape[:2]
+    if e > 65535 or -(-m // TILE) > 65535:
+        raise ValueError(f"moe_gmm kernel: {e} experts x {m} rows exceed the grid")
+
+
+def _fn():
+    fn = _build.library().moe_gmm
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(a, b, c, m, n, k, trans_a, trans_b):
+    """c (E, m, n) = op(a) @ op(b) per expert, on the card."""
+    rc = _fn()(a.data_ptr(), b.data_ptr(), c.data_ptr(), c.shape[0], m, n, k,
+               int(trans_a), int(trans_b), DTYPES[c.dtype],
+               torch.cuda.current_stream(c.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"moe_gmm kernel launch failed: CUDA error {rc}")
+
+
+def _on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def moe_gmm_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (E, M, K) @ w (E, K, N) -> (E, M, N) in x's dtype."""
+    global launches
+    if _on_cpu(x, w):
+        return moe_gmm_plain(x, w)
+    _check_kernel(x, w)
+    _check_shapes(x, w)
+    e, m, k = x.shape
+    n = w.shape[2]
+    y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
+    if y.numel():
+        _launch(x, w, y, m, n, k, False, False)
+        launches += 1
+    return y
+
+
+def moe_gmm_bwd(x, w, dy, need_dx: bool = True, need_dw: bool = True):
+    """Gradients of ``moe_gmm_fwd`` from dy (E, M, N): (dx (E, M, K),
+    dw (E, K, N)), each one launch, or None where not asked for."""
+    global bwd_launches
+    if _on_cpu(x, w, dy):
+        return moe_gmm_bwd_plain(x, w, dy, need_dx, need_dw)
+    _check_kernel(x, w, dy)
+    _check_shapes(x, w)
+    e, m, k = x.shape
+    n = w.shape[2]
+    if dy.shape != (e, m, n):
+        raise ValueError(f"moe_gmm kernel: dy {tuple(dy.shape)} must be ({e}, {m}, {n})")
+    dx = dw = None
+    if need_dx:
+        dx = torch.empty_like(x)
+        if dx.numel():
+            _launch(dy, w, dx, m, k, n, False, True)
+            bwd_launches += 1
+    if need_dw:
+        dw = torch.empty_like(w)
+        if dw.numel():
+            _launch(x, dy, dw, k, n, m, True, False)
+            bwd_launches += 1
+    return dx, dw

@@ -5,7 +5,9 @@ of the flash backward (``models.attention._flash_bwd``) from the saved
 (q, k, v, out, lse).  ``rmsnorm``: forward is kernel K1, backward is the
 analytic VJP of ``rmsnorm_ref`` in PyTorch.  ``mamba_scan``: forward
 is kernel K4, backward is kernel K4-bwd from the chunk states K4 saves.
-On CPU tensors every kernel uses its plain version.
+``moe_gmm``: forward and backward are kernel K3 (its backward in two
+transposed-operand layouts).  On CPU tensors every kernel uses its
+plain version.
 ``register_kernels`` swaps them into the model layers' impl registry.
 """
 from __future__ import annotations
@@ -16,6 +18,7 @@ from ..models import layers as L
 from ..models.attention import _flash_bwd, check_scale, flash_attention_ref
 from . import flash_attention as _fa
 from . import mamba_scan as _ms
+from . import moe_gmm as _mg
 from . import rmsnorm as _rn
 
 # ---- flash attention: K2 forward + PyTorch flash backward
@@ -112,6 +115,27 @@ def mamba_scan(xz, dt, A, B, C, D, h0=None, chunk=None):
     return y + xz * D.to(xz.dtype), hT
 
 
+# ---- grouped expert matmul: K3 forward + K3 backward
+
+
+class _MoeGmm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        x, w = x.contiguous(), w.contiguous()
+        ctx.save_for_backward(x, w)
+        return _mg.moe_gmm_fwd(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        return _mg.moe_gmm_bwd(x, w, dy.contiguous(), *ctx.needs_input_grad)
+
+
+def moe_gmm(x, w):
+    """``moe_gmm_ref``'s contract through K3: x (E, M, K) @ w (E, K, N)."""
+    return _MoeGmm.apply(x, w)
+
+
 # ---- registry and launch counters
 
 
@@ -120,17 +144,19 @@ def register_kernels() -> None:
     L.register_impl("attention", flash_attention)
     L.register_impl("rmsnorm", rmsnorm)
     L.register_impl("mamba_scan", mamba_scan)
+    L.register_impl("moe_gmm", moe_gmm)
 
 
 def unregister_kernels() -> None:
-    for k in ("attention", "rmsnorm", "mamba_scan"):
+    for k in ("attention", "rmsnorm", "mamba_scan", "moe_gmm"):
         L._IMPLS.pop(k, None)
 
 
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel name."""
     return {"rmsnorm": _rn.launches, "flash_attention": _fa.launches,
-            "mamba_scan": _ms.launches, "mamba_scan_bwd": _ms.bwd_launches}
+            "mamba_scan": _ms.launches, "mamba_scan_bwd": _ms.bwd_launches,
+            "moe_gmm": _mg.launches, "moe_gmm_bwd": _mg.bwd_launches}
 
 
 def reset_launch_counts() -> None:
@@ -138,3 +164,5 @@ def reset_launch_counts() -> None:
     _fa.launches = 0
     _ms.launches = 0
     _ms.bwd_launches = 0
+    _mg.launches = 0
+    _mg.bwd_launches = 0

@@ -2,7 +2,8 @@
 
 Everything takes explicit parameter trees (nested dicts of tensors) laid
 out as in the JAX package: ``x @ W`` with ``W`` stored ``(d_in, d_out)``.
-The hot ops (rmsnorm, attention, the selective scan) route through an
+The hot ops (rmsnorm, attention, the grouped expert matmul, the
+selective scan) route through an
 ``impl`` registry so the hand-written CUDA kernels swap in
 (``kernels.ops.register_kernels``) while the plain PyTorch references
 run everywhere.
@@ -140,6 +141,154 @@ def mlp_block(p, x, act: str = "swiglu"):
         # JAX's gelu defaults to the tanh approximation
         h = F.gelu(x @ p["w_up"], approximate="tanh")
     return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# MoE (shared + routed experts, top-k, grouped static-capacity dispatch)
+# ---------------------------------------------------------------------------
+
+def init_moe(gen: torch.Generator, d_model: int, d_expert: int, n_experts: int,
+             n_shared: int, act: str, dtype, device) -> dict:
+    """Routed experts stacked ``(E, d_in, d_out)``, an fp32 router and,
+    if ``n_shared``, one shared MLP of width ``d_expert * n_shared``."""
+    s = d_model ** -0.5
+    p = {
+        "router": _normal(gen, (d_model, n_experts), s, torch.float32, device),
+        "we_up": _normal(gen, (n_experts, d_model, d_expert), s, dtype, device),
+        "we_down": _normal(gen, (n_experts, d_expert, d_model), d_expert ** -0.5, dtype,
+                           device),
+    }
+    if act == "swiglu":
+        p["we_gate"] = _normal(gen, (n_experts, d_model, d_expert), s, dtype, device)
+    if n_shared:
+        p["shared"] = init_mlp(gen, d_model, d_expert * n_shared, act, dtype, device)
+    return p
+
+
+def moe_gmm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Grouped matmul: x (E, cap, d) @ w (E, d, f) -> (E, cap, f)."""
+    return torch.einsum("ecd,edf->ecf", x, w)
+
+
+def moe_expert_mm(x_e, p, act: str):
+    """The routed experts on dispatched rows, through the ``"moe_gmm"``
+    impl: x_e (E, rows, d_model) -> (E, rows, d_model)."""
+    gmm = get_impl("moe_gmm", moe_gmm_ref)
+    if act == "swiglu":
+        h = F.silu(gmm(x_e, p["we_gate"])) * gmm(x_e, p["we_up"])
+    else:
+        h = F.gelu(gmm(x_e, p["we_up"]), approximate="tanh")
+    return gmm(h, p["we_down"])
+
+
+def _router(p, xt, top_k: int):
+    """fp32 softmax router: (probs (T, E), renormalised top-k gates
+    (T, K), expert ids (T, K))."""
+    logits = xt.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, top_k, dim=-1)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    return probs, gate_vals, gate_idx
+
+
+def _dispatch_groups(b: int, s: int, target: int = 1024) -> int:
+    """Number of sequence chunks per row so that b*n_sc ~ target groups."""
+    n_sc = 1
+    while (b * n_sc * 2 <= target and s % (n_sc * 2) == 0
+           and s // (n_sc * 2) >= 64):
+        n_sc *= 2
+    return n_sc
+
+
+def _route(eid: torch.Tensor, n_experts: int, cap: int):
+    """Per-group slot assignment, all groups at once.  eid: (G, Tg, K)
+    expert ids.  Each group stably sorts its Tg*K choices by expert and
+    gives the first ``cap`` of each expert a slot ``e*cap + pos``; the
+    rest go to the drop slot ``E*cap``.  Returns (tok_of_slot, filled),
+    each (G, E*cap), and slot_of_choice (G, Tg*K)."""
+    g, tg, k = eid.shape
+    tk, n_slots = tg * k, n_experts * cap
+    flat = eid.reshape(g, tk)
+    order = torch.argsort(flat, dim=-1, stable=True)
+    eid_s = torch.gather(flat, 1, order)
+    experts = torch.arange(n_experts, device=eid.device).expand(g, n_experts).contiguous()
+    seg = torch.searchsorted(eid_s, experts, side="left")
+    pos = torch.arange(tk, device=eid.device) - torch.gather(seg, 1, eid_s)
+    slot = torch.where(pos < cap, eid_s * cap + pos, n_slots)
+    # invert: which choice feeds each slot (tk = none; the drop column goes)
+    inv = torch.full((g, n_slots + 1), tk, dtype=order.dtype, device=eid.device)
+    inv = inv.scatter_(1, slot, order)[:, :n_slots]
+    filled = inv < tk
+    tok_of_slot = torch.where(filled, inv // k, 0)
+    slot_of_choice = torch.empty_like(slot).scatter_(1, order, slot)
+    return tok_of_slot, filled, slot_of_choice
+
+
+def moe_block(p, x, *, n_experts: int, top_k: int, act: str = "swiglu",
+              capacity_factor: float = 1.25):
+    """Token-choice top-k MoE with static capacity and grouped local
+    dispatch, as the JAX package's ``moe_block``: the B*S tokens form G
+    groups (batch x sequence chunks) of Tg, each group routes its own
+    tokens into ``cap`` slots per expert, and choices past an expert's
+    capacity are dropped.  The expert buffer is laid out (E, G*cap, d)
+    (row ``e*G*cap + g*cap + c`` holds slot ``e*cap + c`` of group g), so
+    the experts run as one grouped matmul through ``moe_expert_mm``.
+    Each token sums its kept choices' rows weighted by their gates.
+    x: (B, S, D) -> (y (B, S, D), load-balancing aux loss)."""
+    b, s, d = x.shape
+    K, E = top_k, n_experts
+    n_sc = _dispatch_groups(b, s)
+    G, Tg = b * n_sc, s // n_sc
+    xt = x.reshape(G * Tg, d)
+    probs, gate_vals, gate_idx = _router(p, xt, K)
+    cap = max(1, int(capacity_factor * Tg * K / E))
+    tok, filled, slot_of_choice = _route(gate_idx.reshape(G, Tg, K), E, cap)
+
+    group = torch.arange(G, device=x.device)[:, None]
+    src = (group * Tg + tok).reshape(G, E, cap).transpose(0, 1).reshape(-1)
+    fill = filled.reshape(G, E, cap).transpose(0, 1).reshape(-1, 1).to(x.dtype)
+    x_e = (xt[src] * fill).reshape(E, G * cap, d)
+    y_e = moe_expert_mm(x_e, p, act).reshape(E * G * cap, d)
+
+    kept = slot_of_choice < E * cap                                   # (G, Tg*K)
+    row = (slot_of_choice // cap) * (G * cap) + group * cap + slot_of_choice % cap
+    row = torch.where(kept, row, 0)                   # a dropped choice weighs 0
+    gate = (gate_vals.reshape(G, Tg * K) * kept).to(x.dtype)
+    y = (y_e[row.reshape(-1)] * gate.reshape(-1, 1)).reshape(G * Tg, K, d).sum(1)
+    if "shared" in p:
+        y = y + mlp_block(p["shared"], xt, act)
+    return y.reshape(b, s, d), moe_aux_loss(probs, gate_idx, n_experts)
+
+
+def moe_block_dense(p, x, *, n_experts: int, top_k: int, act: str = "swiglu",
+                    capacity_factor: float = 1.25):
+    """GShard-style one-hot dispatch einsums over all B*S tokens as one
+    group: O(T*K*E*cap) memory, only for toy sizes, the oracle of
+    ``moe_block``."""
+    b, s, d = x.shape
+    n_tok = b * s
+    xt = x.reshape(n_tok, d)
+    probs, gate_vals, gate_idx = _router(p, xt, top_k)
+    cap = max(1, int(capacity_factor * n_tok * top_k / n_experts))
+    onehot = F.one_hot(gate_idx, n_experts)
+    flat = onehot.reshape(n_tok * top_k, n_experts)
+    pos = (torch.cumsum(flat, dim=0) * flat - 1).reshape(n_tok, top_k, n_experts)
+    keep = (pos < cap) & (onehot > 0)
+    disp = F.one_hot(pos.clamp(0, cap - 1), cap).to(xt.dtype) * keep[..., None].to(xt.dtype)
+    x_e = torch.einsum("tec,td->ecd", disp.sum(1), xt)
+    y_e = moe_expert_mm(x_e, p, act)
+    comb = (disp * gate_vals[..., None, None].to(xt.dtype)).sum(1)
+    y = torch.einsum("tec,ecd->td", comb, y_e)
+    if "shared" in p:
+        y = y + mlp_block(p["shared"], xt, act)
+    return y.reshape(b, s, d), moe_aux_loss(probs, gate_idx, n_experts)
+
+
+def moe_aux_loss(probs, gate_idx, n_experts: int) -> torch.Tensor:
+    """Switch-style load-balancing loss."""
+    me = probs.mean(dim=0)
+    top1 = F.one_hot(gate_idx[:, 0], n_experts).float().mean(dim=0)
+    return n_experts * torch.sum(me * top1)
 
 
 # ---------------------------------------------------------------------------

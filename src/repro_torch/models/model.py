@@ -1,5 +1,5 @@
-"""Architecture config, the dense decoder and the pure Mamba-1 stack
-(port of ``repro.models.model``).
+"""Architecture config, the dense and MoE decoders and the pure Mamba-1
+stack (port of ``repro.models.model``).
 
 Layers are stacked on a leading ``n_layers`` axis, as in the JAX
 package, so its parameters load unchanged.  The JAX ``lax.scan`` over
@@ -172,17 +172,18 @@ def params_count(cfg: ArchConfig, active_only: bool = False) -> int:
 
 
 # ---------------------------------------------------------------------------
-# init (dense and pure-SSM families)
+# init (dense, MoE and pure-SSM families)
 # ---------------------------------------------------------------------------
 
 def _check_family(cfg: ArchConfig) -> None:
-    """The ported families: the dense decoder and the pure Mamba-1 stack."""
+    """The ported families: the dense and MoE decoders and the pure
+    Mamba-1 stack."""
     if cfg.ssm and cfg.ssm.version != 1:
         raise NotImplementedError(f"{cfg.name} ({cfg.family}): Mamba-2 is not ported yet")
-    if cfg.moe or cfg.hybrid_every or cfg.n_enc_layers or cfg.mrope:
+    if cfg.hybrid_every or cfg.n_enc_layers or cfg.mrope:
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): only the dense decoder and pure "
-            "Mamba-1 stacks are ported")
+            f"{cfg.name} ({cfg.family}): only the dense and MoE decoders and "
+            "pure Mamba-1 stacks are ported")
 
 
 def _stack(trees: list) -> Any:
@@ -213,13 +214,18 @@ def init(cfg: ArchConfig, generator: torch.Generator, device="cuda") -> dict:
                                       cfg.ssm.version, dt, dev, cfg.ssm.expand,
                                       cfg.ssm.d_conv, cfg.ssm.headdim),
             }
-        return {
+        lp = {
             "norm1": torch.ones((cfg.d_model,), dtype=dt, device=dev),
             "attn": L.init_attn(generator, cfg.d_model, cfg.n_heads,
                                 cfg.n_kv_heads, cfg.head_dim, cfg.qkv_bias, dt, dev),
             "norm2": torch.ones((cfg.d_model,), dtype=dt, device=dev),
-            "mlp": L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act, dt, dev),
         }
+        if cfg.moe:
+            lp["moe"] = L.init_moe(generator, cfg.d_model, cfg.moe.d_expert,
+                                   cfg.moe.n_experts, cfg.moe.n_shared, cfg.act, dt, dev)
+        else:
+            lp["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act, dt, dev)
+        return lp
     p["layers"] = _stack([one() for _ in range(cfg.n_layers)])
     return p
 
@@ -233,13 +239,28 @@ def _norm(cfg, w, x):
 
 
 def _dec_layer(cfg, lp, x):
+    """One layer: (x, aux), where aux is the MoE load-balancing loss (0
+    for dense and SSM layers)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.ssm:
         h = L.mamba_block(lp["mamba"], _norm(cfg, lp["norm"], x),
                           state=cfg.ssm.state, version=cfg.ssm.version, chunk=cfg.ssm_chunk)
-        return x + h
+        return x + h, aux
     x = x + L.attention_block(lp["attn"], _norm(cfg, lp["norm1"], x), cfg,
                               causal=cfg.causal)
-    return x + L.mlp_block(lp["mlp"], _norm(cfg, lp["norm2"], x), cfg.act)
+    h = _norm(cfg, lp["norm2"], x)
+    if cfg.moe:
+        m, aux = _moe_dispatch(cfg, lp["moe"], h)
+        return x + m, aux
+    return x + L.mlp_block(lp["mlp"], h, cfg.act), aux
+
+
+def _moe_dispatch(cfg, moe_params, h):
+    """The grouped single-device dispatch.  The JAX package's
+    expert-parallel all-to-all branch (``moe_block_ep``) waits for the
+    port's multi-rank runtime."""
+    return L.moe_block(moe_params, h, n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+                       act=cfg.act, capacity_factor=cfg.moe.capacity_factor)
 
 
 def _unstack(tree, n: int) -> list:
@@ -251,14 +272,16 @@ def _unstack(tree, n: int) -> list:
     return list(tree.unbind(0))
 
 
-def _run_decoder(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, D) embedded inputs -> hidden states."""
+def _run_decoder(cfg: ArchConfig, p: dict, x: torch.Tensor) -> tuple:
+    """x: (B, S, D) embedded inputs -> (hidden states, summed aux loss)."""
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _unstack(p["layers"], cfg.n_layers):
         if cfg.remat == "full":
-            x = checkpoint(_dec_layer, cfg, lp, x, use_reentrant=False)
+            x, aux = checkpoint(_dec_layer, cfg, lp, x, use_reentrant=False)
         else:
-            x = _dec_layer(cfg, lp, x)
-    return x
+            x, aux = _dec_layer(cfg, lp, x)
+        total = total + aux
+    return x, total
 
 
 def _logits(cfg: ArchConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
@@ -269,11 +292,12 @@ def _logits(cfg: ArchConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
 
 
 def train_loss(cfg: ArchConfig, p: dict, batch: dict) -> torch.Tensor:
-    """batch: tokens (B, S) int, labels (B, S) int (-1 = ignore)."""
+    """batch: tokens (B, S) int, labels (B, S) int (-1 = ignore).
+    Cross-entropy plus 0.01 x the layers' summed MoE aux loss."""
     _check_family(cfg)
     x = p["embed"][batch["tokens"]]
-    h = _run_decoder(cfg, p, x)
-    return _ce_loss(cfg, p, h, batch["labels"])
+    h, aux = _run_decoder(cfg, p, x)
+    return _ce_loss(cfg, p, h, batch["labels"]) + 0.01 * aux
 
 
 def _ce_token_stats(cfg, p, h, labels):

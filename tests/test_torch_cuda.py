@@ -152,3 +152,63 @@ def test_mamba_scan_refuses_other_state_sizes(dev):
     x, dt, A, B, C, _ = _scan_inputs(1, 8, 6, 32, torch.float32, dev)
     with pytest.raises(ValueError, match="state size"):
         ms.mamba_scan_fwd(x, dt, A, B, C)
+
+
+# K3 shapes (E, M, K, N): the DeepSeek-MoE-16B path's gate/up and down
+# products at a quarter of its experts, and the JAX test grid
+GMM_SHAPES = [(16, 448, 2048, 1408), (16, 448, 1408, 2048), (4, 32, 64, 128),
+              (2, 16, 32, 32), (8, 130, 64, 96)]
+# tests/test_kernels.py (TestMoEGMM)
+GMM_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+           torch.bfloat16: dict(atol=5e-2, rtol=5e-2)}
+
+
+@pytest.mark.parametrize("e,m,k,n", GMM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gmm_kernel_matches_plain(dev, e, m, k, n, dtype):
+    """K3's three layouts (forward, dx, dw) against their plain versions."""
+    from repro_torch.kernels import moe_gmm as mg
+    x = _randn((e, m, k), dtype, dev, seed=0)
+    w = _randn((e, k, n), dtype, dev, seed=1, scale=k ** -0.5)
+    dy = _randn((e, m, n), dtype, dev, seed=2)
+    before = (mg.launches, mg.bwd_launches)
+    y = mg.moe_gmm_fwd(x, w)
+    dx, dw = mg.moe_gmm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    assert (mg.launches, mg.bwd_launches) == (before[0] + 1, before[1] + 2)
+    want_dx, want_dw = mg.moe_gmm_bwd_plain(x, w, dy)
+    for got, want in ((y, mg.moe_gmm_plain(x, w)), (dx, want_dx), (dw, want_dw)):
+        assert got.dtype == dtype and got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(), **GMM_TOL[dtype])
+
+
+def test_moe_gmm_grads_match_reference(dev):
+    """Autograd through K3 against autograd through ``moe_gmm_ref``."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import moe_gmm_ref
+    x = _randn((8, 130, 64), torch.float32, dev, seed=0)
+    w = _randn((8, 64, 96), torch.float32, dev, seed=1)
+    dy = _randn((8, 130, 96), torch.float32, dev, seed=2)
+    grads = []
+    for fn in (ops.moe_gmm, moe_gmm_ref):
+        xs = [t.clone().requires_grad_(True) for t in (x, w)]
+        fn(*xs).backward(dy)
+        grads.append([t.grad for t in xs])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, **GMM_TOL[torch.float32])
+
+
+def test_moe_gmm_refuses_what_it_does_not_take(dev):
+    from repro_torch.kernels import moe_gmm as mg
+    x = _randn((2, 16, 32), torch.float32, dev)
+    w = _randn((2, 32, 24), torch.float32, dev)
+    with pytest.raises(ValueError, match="CUDA device"):
+        mg.moe_gmm_fwd(x.cpu(), w)                               # CPU mixed with CUDA
+    with pytest.raises(TypeError):
+        mg.moe_gmm_fwd(x, w.to(torch.bfloat16))                  # dtype mismatch
+    with pytest.raises(ValueError, match="contiguous"):
+        mg.moe_gmm_fwd(x.transpose(1, 2).contiguous().transpose(1, 2), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        mg.moe_gmm_bwd(x, w, _randn((2, 24, 16), torch.float32, dev).transpose(1, 2))
+    with pytest.raises(ValueError, match=r"\(E, M, K\)"):
+        mg.moe_gmm_fwd(x, w[:, :16].contiguous())                # contraction mismatch

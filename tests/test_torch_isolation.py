@@ -31,6 +31,7 @@ def test_importing_every_module_loads_no_jax():
         "             or k == 'repro' or k.startswith('repro.') or k == 'ml_dtypes')\n"
         "assert not bad, bad\n"
         "assert len(mods) >= 25, mods\n"
+        "assert 'repro_torch.kernels.moe_gmm' in mods, mods\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,

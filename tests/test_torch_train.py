@@ -145,7 +145,8 @@ class TestLossAndGrads:
         finally:
             ops.unregister_kernels()
         assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0,
-                                       "mamba_scan": 0, "mamba_scan_bwd": 0}
+                                       "mamba_scan": 0, "mamba_scan_bwd": 0,
+                                       "moe_gmm": 0, "moe_gmm_bwd": 0}
 
 
 class TestSupervisorParts:
@@ -334,7 +335,7 @@ class TestConfigs:
 
     def test_unported_configs_raise(self):
         with pytest.raises(NotImplementedError, match="not ported"):
-            get_config("dbrx-132b")
+            get_config("whisper-large-v3")
         with pytest.raises(NotImplementedError, match="not ported"):
             get_config("zamba2-2.7b")
         with pytest.raises(KeyError):
