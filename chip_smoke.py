@@ -5,8 +5,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-nvcc and holds each kernel against its plain PyTorch version at the
-main paths' shapes and at edge shapes.  Then, for each of the port's
+nvcc, checks in the library's SASS (``cuobjdump -sass``) that every
+instantiation of the bf16 K2 and K3 kernels issues tensor-core ``wgmma``
+(HGMMA) and TMA loads (UTMALDG), and holds each kernel against its plain
+PyTorch version at the main paths' shapes and at edge shapes.  Then, for each of the port's
 three training paths, it trains the model at its published widths
 (random weights from a seed, bf16, remat="full") for a few steps
 through the port's own entry points with the kernels installed, checks
@@ -40,6 +42,7 @@ import gc
 import json
 import math
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -55,6 +58,13 @@ DEEPSEEK_LAYERS = 2        # one stage of a 14-stage split of the 28 layers
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (3e-2, 3e-2)}
 # the selective scan's fp32 tolerance there: (atol, rtol)
 SCAN_TOL = (1e-5, 1e-4)
+# the bf16 K2 against the TPU kernel's formula (fp32 P; the plain version
+# in fp32, its output rounded to bf16).  The kernel's bf16 P moves each
+# weight by up to 2^-9, so an output by up to 2^-9 max|v| (~9e-3 for
+# N(0, 1) values at these lengths), and the output's rounding to bf16 can
+# then flip by one ulp (1.6e-2 in [2, 4)): ~2.4e-2 at worst, under the
+# repo's bf16 tolerance.  PERF.md, section 6, records the readings.
+FP32_P_TOL = TOL["bfloat16"]
 # kernel against autograd through ssm_scan_ref in bf16: a relative L2
 # error per output.  Both cast y to bf16 once and keep the state and every
 # gradient in fp32, so they differ only in the order of fp32 sums; the
@@ -187,9 +197,21 @@ def phase_kernels(torch, F, fa, rn) -> dict:
             tag = f"flash {dname} {(b, hq, hkv, sq, skv, d, causal)}"
             err = check_close(torch, tag, out, want, dname)
             lse_err = check_close(torch, tag + " lse", lse, want_lse, "float32")
-            print(f"  {tag} max_abs_err={err:.3e} lse_err={lse_err:.3e}", flush=True)
+            extra = ""
+            if dt == torch.bfloat16:
+                # the plain version's bf16 path repeats the kernel's bf16 P;
+                # this holds the kernel to the TPU kernel's formula, fp32 P
+                fp32_p = fa.flash_attention_fwd_plain(q.float(), k.float(), v.float(),
+                                                      causal=causal, q_offset=off)[0]
+                p_err = check_close(torch, tag + " against fp32 P", out, fp32_p.to(dt),
+                                    dname, FP32_P_TOL)
+                extra = f" against_fp32_P={p_err:.3e}"
+            print(f"  {tag} max_abs_err={err:.3e} lse_err={lse_err:.3e}{extra}", flush=True)
             if dt == torch.bfloat16 and (b, hq, sq, d) == (4, 16, 1024, 64):
-                results["flash_attention"] = {"max_abs_err": max(err, lse_err)}
+                results["flash_attention"] = {"max_abs_err": max(err, lse_err),
+                                              "max_abs_err_fp32_p": p_err}
+            if dt == torch.bfloat16 and (b, hq, sq, d) == (4, 16, 1024, 128):
+                fp32_p_d128 = p_err
     def flash_times(d: int) -> dict:
         q, k, v = (randn((BATCH, 16, SEQ, d), torch.bfloat16) for _ in range(3))
         pairs = BATCH * 16 * SEQ * (SEQ + 1) // 2      # causal (query, key) pairs computed
@@ -200,15 +222,64 @@ def phase_kernels(torch, F, fa, rn) -> dict:
             library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v,
                                                                                is_causal=True)),
             **bound(n_bytes, 4 * d * pairs / BF16_FLOPS))
-        print(f"  flash {(BATCH, 16, SEQ, d)} causal bf16: kernel {timed['ms']:.4f} ms, plain "
-              f"{timed['plain_ms']:.4f} ms, SDPA {timed['library_ms']:.4f} ms, bound "
+        timed["tflops"] = 4 * d * pairs / timed["ms"] / 1e9
+        print(f"  flash {(BATCH, 16, SEQ, d)} causal bf16: kernel {timed['ms']:.4f} ms "
+              f"({timed['tflops']:.1f} TFLOP/s), plain "
+              f"{timed['plain_ms']:.4f} ms, SDPA {timed['library_ms']:.4f} ms "
+              f"(kernel/SDPA {timed['ms'] / timed['library_ms']:.2f}x), bound "
               f"{timed['bound_ms']:.4f} ms ({timed['bound_by']})", flush=True)
         return timed
 
     # Qwen's head_dim 64, and DeepSeek's 128 beside it
     results["flash_attention"].update(flash_times(64))
     results["flash_attention"]["at_head_dim_128"] = flash_times(128)
+    results["flash_attention"]["at_head_dim_128"]["max_abs_err_fp32_p"] = fp32_p_d128
     return results
+
+
+# the bf16 tensor-core kernels and their instantiations (head dims; layouts)
+TC_KERNELS = {"flash_fwd_wgmma_kernel": 2, "moe_gmm_wgmma_kernel": 3}
+
+
+def cuobjdump() -> str:
+    """The toolkit's cuobjdump, else the one Triton's package carries."""
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    cands = [pathlib.Path("/usr/local/cuda/bin/cuobjdump")]
+    with contextlib.suppress(ImportError):
+        import triton
+        cands.append(pathlib.Path(triton.__file__).parent / "backends/nvidia/bin/cuobjdump")
+    for c in cands:
+        if c.exists():
+            return str(c)
+    fail("no cuobjdump: neither the CUDA toolkit's nor Triton's")
+
+
+def sass_check(lib: pathlib.Path) -> dict:
+    """Count HGMMA (wgmma) and UTMALDG (TMA load) instructions in each
+    instantiation of the bf16 tensor-core kernels in the built library's
+    SASS, and fail if one is missing or has none of either."""
+    out = subprocess.run([cuobjdump(), "-sass", str(lib)], capture_output=True, text=True,
+                         check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = {"HGMMA": 0, "UTMALDG": 0}
+        elif name is not None:
+            for op in ("HGMMA", "UTMALDG"):
+                counts[name][op] += op in line
+    found = {}
+    for kernel, n_inst in TC_KERNELS.items():
+        mine = {k: v for k, v in counts.items() if kernel in k}
+        for k, v in sorted(mine.items()):
+            print(f"  SASS {k}: HGMMA {v['HGMMA']}, UTMALDG {v['UTMALDG']}", flush=True)
+        if len(mine) != n_inst or not all(v["HGMMA"] and v["UTMALDG"] for v in mine.values()):
+            fail(f"SASS check: {kernel} has {len(mine)} of {n_inst} instantiations, "
+                 f"counts {list(mine.values())}: each needs HGMMA and UTMALDG")
+        found.update(mine)
+    return found
 
 
 def bound(n_bytes: int, op_seconds: float) -> dict:
@@ -273,13 +344,17 @@ def phase_gmm_kernels(torch, mg, cfg) -> dict:
         library_ms=None,     # no single PyTorch call computes both dx and dw
         # reads x, w, dy; writes dx, dw
         **bound(2 * (x.numel() + w.numel()) * io + dy.numel() * io, 2 * flops / BF16_FLOPS))
+    results["moe_gmm_bwd"]["two_bmm_ms"] = two_bmm_ms
     for name, work in (("moe_gmm", flops), ("moe_gmm_bwd", 2 * flops)):
         r = results[name]
-        lib = f"torch.bmm {r['library_ms']:.4f} ms" if r["library_ms"] else \
-            f"two torch.bmm calls {two_bmm_ms:.4f} ms"
+        r["tflops"] = work / r["ms"] / 1e9
+        lib_ms = r["library_ms"] or two_bmm_ms
+        lib = "torch.bmm" if r["library_ms"] else "two torch.bmm calls"
         print(f"  {name} {(e, m, k, n)} bf16: kernel {r['ms']:.4f} ms "
-              f"({work / r['ms'] / 1e9:.1f} TFLOP/s), plain {r['plain_ms']:.4f} ms, {lib}, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+              f"({r['tflops']:.1f} TFLOP/s), plain "
+              f"{r['plain_ms']:.4f} ms, {lib} {lib_ms:.4f} ms (kernel/library "
+              f"{r['ms'] / lib_ms:.2f}x), bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
+              flush=True)
     return results
 
 
@@ -648,7 +723,8 @@ def phase_cli(torch) -> None:
 
 
 # kernel-name substrings -> family, first match wins
-FAMILIES = [("moe_gmm_kernel", "K3 grouped mm"),
+FAMILIES = [("moe_gmm_wgmma_kernel", "K3 grouped mm"), ("moe_gmm_kernel", "K3 grouped mm"),
+            ("flash_fwd_wgmma_kernel", "K2 flash fwd"),
             ("rmsnorm_kernel", "K1 rmsnorm"), ("flash_fwd_kernel", "K2 flash fwd"),
             ("mamba_scan_fwd_kernel", "K4 scan fwd"), ("mamba_scan_bwd_kernel", "K4-bwd scan"),
             ("gemm", "matmul"), ("cutlass", "matmul"), ("sm90_xmma", "matmul"),
@@ -740,6 +816,7 @@ def main() -> int:
     phase("1/5 build")
     names = [p.name for p in _build.sources()]
     print(f"  built {names} in {_build.build(verbose=True):.1f} s", flush=True)
+    sass_check(_build._target())
 
     phase("2/5 kernels against their plain versions")
     results = phase_kernels(torch, F, fa, rn)
@@ -794,8 +871,8 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        **({"at_head_dim_128": r["at_head_dim_128"]}
-                           if "at_head_dim_128" in r else {})})
+                        **{key: r[key] for key in ("tflops", "two_bmm_ms", "max_abs_err_fp32_p",
+                                                   "at_head_dim_128") if key in r}})
     phase("done")
     print(gpu_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -98,6 +98,13 @@ def build(verbose: bool = False) -> float:
     return time.perf_counter() - t0
 
 
+def aligned(t):
+    """Tensor ``t`` contiguous at a 16-byte aligned address, the rule of
+    TMA's tensor maps (a fresh allocation meets it)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib

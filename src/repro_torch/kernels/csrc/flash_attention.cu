@@ -9,21 +9,46 @@
 //
 // with an online softmax in fp32 over KV tiles, GQA through KV head
 // h / (Hq / Hkv), keys masked by kpos < Skv and, when causal,
-// kpos <= qpos + q_offset.  q is scaled after its fp32 cast, as the TPU
-// kernel does.  Writing lse lets the backward skip a second forward.
+// kpos <= qpos + q_offset.  Writing lse lets the backward skip a second
+// forward.  KV tiles wholly above the causal diagonal are skipped.
 //
-// Bound on the H100: at the training shapes (D = 64, S = 1024) the
-// tensor-core flops of the two products and the bytes of q, k, v, out
-// are of the same order, so the bound is whichever is larger for the
-// call.  This first version runs the products on the CUDA cores in fp32:
-// a block holds BQ = 64 query rows with 4 threads per row (each owns D/4
-// interleaved dims of q and of the accumulator, in registers), stages
-// BK = 32 keys and values in shared memory, and reduces each score
-// across its 4 threads with two shuffles.  KV tiles wholly above the
-// causal diagonal are skipped.  A tensor-core (wgmma) version is later
-// work; PERF.md records how far this one sits from the bound.
+// Bound on the H100: at the training shapes (S = 1024, causal) the bytes
+// of q, k, v, out and lse bound the call (10.1 us at D = 64, 20.1 us at
+// D = 128), the tensor-core flops of the two products close behind.
+//
+// bf16: tensor cores fed by TMA (flash_fwd_wgmma_kernel), D = 64 or 128.
+// A block of 288 threads owns 128 query rows of one (b, h): two consumer
+// warpgroups of 64 rows and one producer warp.  TMA loads the q tile once
+// and streams K and V tiles of BN keys (128 at D = 64, 64 at D = 128)
+// through a 3-stage ring guarded by full and empty mbarriers; 3-D tensor
+// maps over (B*H, S, D) zero-fill the ragged ends of Sq and Skv.  Per tile
+// a warpgroup computes S = q k^T with one chain of wgmma (q and k both
+// K-major in shared memory), runs the online softmax on the accumulator
+// fragments in registers (a row's values sit in a quad of threads: two
+// shuffles for the max), converts P to bf16 in registers and feeds it as
+// the register A operand of the second chain, O += P v, with v read from
+// shared memory as an MN-major operand (the transpose bit): P never goes
+// through shared memory.  Only tiles on the diagonal or past Skv are
+// masked.  Blocks are ordered so that the query blocks with the most KV
+// tiles start first.  Two roundings differ from the TPU kernel, which
+// casts q, k, v to fp32 and scales q before its product: the scale
+// multiplies S in fp32 after the product (exact at D = 64, where it is
+// 1/8; one fp32 rounding apart at D = 128), and P is rounded to bf16
+// before P v (a relative error of at most 2^-9 per weight), while l sums
+// the fp32 P, so lse keeps the fp32 tolerance.  The plain version
+// (flash_attention_fwd_plain) repeats both for bf16 inputs.
+//
+// fp32: the CUDA-core kernel (flash_fwd_kernel), kept because tensor
+// cores take fp32 only as TF32, which would break the fp32 tolerance.  q
+// is scaled after its fp32 cast, as the TPU kernel does.  A block holds
+// BQ = 64 query rows with 4 threads per row (each owns D/4 interleaved
+// dims of q and of the accumulator, in registers), stages BK = 32 keys and
+// values in shared memory, and reduces each score across its 4 threads
+// with two shuffles.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -33,14 +58,12 @@ constexpr int kTPR = 4;       // threads per query row
 constexpr int kThreads = kBQ * kTPR;
 constexpr float kNegInf = -1e30f;
 
+// The CUDA-core kernels are instantiated for fp32 only (bf16 takes the
+// tensor-core kernel below).
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -129,31 +152,249 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse, int b,
-           int hq, int hkv, int sq, int skv, int d, int causal, int q_offset,
-           float scale, cudaStream_t s) {
+int launch_fp32(const void* q, const void* k, const void* v, void* o, void* lse, int b,
+                int hq, int hkv, int sq, int skv, int d, int causal, int q_offset, float scale,
+                cudaStream_t s) {
   const dim3 grid((sq + kBQ - 1) / kBQ, b * hq), block(kThreads);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  T* op = static_cast<T*>(o);
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  float* op = static_cast<float*>(o);
   float* lp = static_cast<float*>(lse);
   if (d == 64) {
-    flash_fwd_kernel<T, 64><<<grid, block, 0, s>>>(qp, kp, vp, op, lp, hq, hkv, sq, skv,
-                                                   causal, q_offset, scale);
+    flash_fwd_kernel<float, 64><<<grid, block, 0, s>>>(qp, kp, vp, op, lp, hq, hkv, sq, skv,
+                                                       causal, q_offset, scale);
   } else if (d == 128) {
-    flash_fwd_kernel<T, 128><<<grid, block, 0, s>>>(qp, kp, vp, op, lp, hq, hkv, sq, skv,
-                                                    causal, q_offset, scale);
+    flash_fwd_kernel<float, 128><<<grid, block, 0, s>>>(qp, kp, vp, op, lp, hq, hkv, sq, skv,
+                                                        causal, q_offset, scale);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- bf16 on the tensor cores
+
+constexpr int kTcBQ = 128;        // query rows per block: two warpgroups of 64
+constexpr int kTcThreads = 288;   // warps 0-7 consume, warp 8 loads
+constexpr int kTcStages = 3;
+
+template <int D>
+struct TcShape {
+  static constexpr int kBN = D == 64 ? 128 : 64;             // keys per tile
+  static constexpr int kChunks = D / 64;                     // 128-byte column blocks
+  static constexpr int kQBytes = kTcBQ * D * 2;
+  static constexpr int kTileBytes = kBN * D * 2;             // a K or a V tile
+  static constexpr int kSmem = kQBytes + kTcStages * 2 * kTileBytes + 1024;
+};
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
+  if constexpr (N == 128) wgmma_ss_n128<0, 0>(d, da, db, acc);
+  else wgmma_ss_n64<0, 0>(d, da, db, acc);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 128) wgmma_rs_n128<1>(d, a, db, 1);
+  else wgmma_rs_n64<1>(d, a, db, 1);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Shared memory: q as [D/64][128 rows][64], then per stage K and V, each
+// [D/64][BN keys][64]; every block of 64 columns is one TMA box.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int hq, int hkv, int sq, int skv, int causal,
+                       int q_offset, float scale) {
+  using T = TcShape<D>;
+  constexpr int BN = T::kBN;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, full[kTcStages], empty[kTcStages];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* kv = smem + T::kQBytes;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcBQ;    // the longest rows first
+  const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  const int rows_end = min(q0 + kTcBQ, sq);
+  const int kv_end = causal ? min(skv, rows_end + q_offset) : skv;
+  const int n_tiles = (kv_end + BN - 1) / BN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&q_full, 1);
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);              // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {                          // producer
+    if (lane == 0) {
+      mbar_expect_tx(&q_full, T::kQBytes);
+      for (int c = 0; c < T::kChunks; ++c)
+        tma_load_3d(smem + c * kTcBQ * 128, &qmap, &q_full, c * 64, q0, bh);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kTcStages;
+        if (i >= kTcStages) mbar_wait(&empty[s], (i / kTcStages - 1) & 1);
+        uint8_t* ks = kv + s * 2 * T::kTileBytes;
+        uint8_t* vs = ks + T::kTileBytes;
+        mbar_expect_tx(&full[s], 2 * T::kTileBytes);
+        for (int c = 0; c < T::kChunks; ++c) {
+          tma_load_3d(ks + c * BN * 128, &kmap, &full[s], c * 64, i * BN, kvh);
+          tma_load_3d(vs + c * BN * 128, &vmap, &full[s], c * 64, i * BN, kvh);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows [wq0, wq0 + 64)
+  const int wg = warp / 4;
+  const int wq0 = q0 + 64 * wg;
+  // tiles past this warpgroup's last visible key are only released
+  const int w_kv_end = wq0 >= sq ? 0 : causal ? min(skv, min(wq0 + 64, sq) + q_offset) : skv;
+  const int n_mine = (w_kv_end + BN - 1) / BN;
+  const int row0 = wq0 + (warp % 4) * 16 + lane / 4;     // and row0 + 8
+  float oacc[D / 2];
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) oacc[j] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const uint32_t qs = smem_u32(smem) + wg * 64 * 128;
+  mbar_wait(&q_full, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kTcStages;
+    mbar_wait(&full[s], (i / kTcStages) & 1);
+    if (i < n_mine) {
+      const uint32_t ks = smem_u32(kv + s * 2 * T::kTileBytes);
+      const uint32_t vs = ks + T::kTileBytes;
+      float sc[BN / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint64_t dq = sw128_desc(qs + (kk / 4) * kTcBQ * 128 + (kk % 4) * 32, 16, 1024);
+        const uint64_t dk = sw128_desc(ks + (kk / 4) * BN * 128 + (kk % 4) * 32, 16, 1024);
+        wgmma_ss<BN>(sc, dq, dk, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      const int k0 = i * BN;
+      const bool edge = k0 + BN > skv || (causal && k0 + BN - 1 > wq0 + q_offset);
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) {
+        float x = sc[j] * scale;
+        if (edge) {
+          const int kpos = k0 + 8 * (j >> 2) + 2 * (lane % 4) + (j & 1);
+          const int qpos = row0 + 8 * ((j >> 1) & 1) + q_offset;
+          if (kpos >= skv || (causal && kpos > qpos)) x = kNegInf;
+        }
+        sc[j] = x;
+        mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], x);
+      }
+      float corr[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        corr[h] = __expf(m[h] - mx[h]);
+        m[h] = mx[h];
+      }
+      uint32_t pa[BN / 16][4];
+#pragma unroll
+      for (int j = 0; j < BN / 2; j += 2) {
+        const int h = (j >> 1) & 1;
+        const float p0 = __expf(sc[j] - m[h]), p1 = __expf(sc[j + 1] - m[h]);
+        psum[h] += p0 + p1;
+        pa[j / 8][(j % 8) / 2] = pack_bf16(p0, p1);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + psum[h];
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) oacc[j] *= corr[(j >> 1) & 1];
+
+      fence_regs(oacc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_rs<D>(oacc, pa[kk], sw128_desc(vs + kk * 2048, BN * 128, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(oacc);
+    }
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  // l is summed per thread over its own columns; the quad holds the row
+  const size_t obase = static_cast<size_t>(bh) * sq;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const float denom = fmaxf(l[h], 1e-30f);
+    const int row = row0 + 8 * h;
+    if (row >= sq) continue;
+    __nv_bfloat16* orow = o + (obase + row) * D + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 2 * h; j < D / 2; j += 4)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * (j >> 2)) =
+          __floats2bfloat162_rn(oacc[j] / denom, oacc[j + 1] / denom);
+    if (lane % 4 == 0) lse[obase + row] = m[h] + logf(denom);
+  }
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, void* lse, int b, int hq,
+                 int hkv, int sq, int skv, int causal, int q_offset, float scale,
+                 cudaStream_t s) {
+  using T = TcShape<D>;
+  CUtensorMap qmap, kmap, vmap;
+  int rc = encode_bf16_3d(&qmap, q, D, sq, static_cast<uint64_t>(b) * hq, 64, kTcBQ);
+  if (!rc) rc = encode_bf16_3d(&kmap, k, D, skv, static_cast<uint64_t>(b) * hkv, 64, T::kBN);
+  if (!rc) rc = encode_bf16_3d(&vmap, v, D, skv, static_cast<uint64_t>(b) * hkv, 64, T::kBN);
+  if (rc) return rc;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(b * hq, (sq + kTcBQ - 1) / kTcBQ);
+  flash_fwd_wgmma_kernel<D><<<grid, kTcThreads, T::kSmem, s>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), hq, hkv, sq,
+      skv, causal, q_offset, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int b, int hq,
+                int hkv, int sq, int skv, int d, int causal, int q_offset, float scale,
+                cudaStream_t s) {
+  if ((sq + kTcBQ - 1) / kTcBQ > 65535 ||
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (d == 64)
+    return launch_wgmma<64>(q, k, v, o, lse, b, hq, hkv, sq, skv, causal, q_offset, scale, s);
+  if (d == 128)
+    return launch_wgmma<128>(q, k, v, o, lse, b, hq, hkv, sq, skv, causal, q_offset, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; d must be 64 or 128.  Returns
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); d must be
+// 64 or 128.  bf16 needs 16-byte aligned q, k, v and out.  Returns
 // cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int b, int hq, int hkv, int sq, int skv,
@@ -163,9 +404,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, o, lse, b, hq, hkv, sq, skv, d, causal, q_offset, scale, s);
+    return launch_fp32(q, k, v, o, lse, b, hq, hkv, sq, skv, d, causal, q_offset, scale, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, lse, b, hq, hkv, sq, skv, d, causal, q_offset,
-                                 scale, s);
+    return launch_bf16(q, k, v, o, lse, b, hq, hkv, sq, skv, d, causal, q_offset, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -4,13 +4,16 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``_flash_fwd_kernel`` / ``flash_attention_fwd_pallas``).  Source:
 ``csrc/flash_attention.cu``.  Unlike the TPU kernel it also returns the
 row logsumexp, so the backward needs no second forward.  Ragged Sq and
-Skv are handled by bounds checks in the kernel; D must be 64 or 128.
+Skv are taken; D must be 64 or 128.
 
-On the H100 the training shapes sit near the ridge between bytes
-(q, k, v, out) and tensor-core flops; this first kernel computes on the
-CUDA cores, so it is far from either bound (PERF.md has the numbers).
+Two hand-written kernels, chosen by dtype: bf16 runs on the tensor cores
+(``wgmma`` fed by TMA), fp32 on the CUDA cores (tensor cores would take
+fp32 only as TF32).  ``tc_refusal`` holds the rules under which the bf16
+kernel takes a call; one it does not take raises.  The bf16 kernel
+rounds P to bf16 before P.v and scales S after the product, and
+``flash_attention_fwd_plain`` repeats both for bf16 inputs.
 
-``flash_attention_fwd`` launches the kernel on CUDA tensors and uses the
+``flash_attention_fwd`` launches a kernel on CUDA tensors and uses the
 plain PyTorch version ``flash_attention_fwd_plain`` on CPU tensors.
 ``launches`` counts kernel launches.
 """
@@ -25,6 +28,8 @@ from . import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
+TC_ROWS = 128            # query rows per block of the bf16 kernel
+GRID_Y = 65535           # CUDA's limit on gridDim.y
 
 launches = 0
 
@@ -45,14 +50,18 @@ def _check(q, k, v, causal, q_offset):
 
 
 def flash_attention_fwd_plain(q, k, v, *, causal: bool = True, q_offset: int = 0):
-    """The kernel's arithmetic in plain PyTorch: q cast to fp32 then
-    scaled, masked scores at -1e30, softmax in fp32.  Returns (out, lse)."""
+    """The kernels' arithmetic in plain PyTorch: masked scores at -1e30,
+    softmax in fp32.  fp32 (the CUDA-core kernel): q cast to fp32 and
+    scaled before the product.  bf16 (the tensor-core kernel): the scale
+    multiplies the fp32 product, and P is rounded to bf16 before P.v while
+    l sums the fp32 P.  Returns (out, lse)."""
     _check(q, k, v, causal, q_offset)
     b, hq, sq, d = q.shape
     skv = k.shape[2]
     n_rep = hq // k.shape[1]
-    q32 = q.float() * d ** -0.5
-    s = q32 @ repeat_kv(k, n_rep).float().transpose(-1, -2)
+    tc = q.dtype == torch.bfloat16
+    k32 = repeat_kv(k, n_rep).float().transpose(-1, -2)
+    s = (q.float() @ k32) * d ** -0.5 if tc else (q.float() * d ** -0.5) @ k32
     if causal:
         qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
         kpos = torch.arange(skv, device=q.device)[None, :]
@@ -60,8 +69,23 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = True, q_offset: int = 0
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
     l = torch.clamp(p.sum(dim=-1), min=1e-30)
-    out = (p @ repeat_kv(v, n_rep).float()) / l[..., None]
+    pv = p.to(torch.bfloat16).float() if tc else p
+    out = (pv @ repeat_kv(v, n_rep).float()) / l[..., None]
     return out.to(q.dtype), m + torch.log(l)
+
+
+def tc_refusal(q_shape) -> str | None:
+    """Why the bf16 tensor-core kernel would not take q (B, Hq, Sq, D), or
+    None if it takes it: the shape rules of that kernel alone, beside the
+    wrapper's checks of devices, dtypes and k's shape.  TMA reads rows of
+    a multiple of 16 bytes, which D in ``HEAD_DIMS`` gives, and gridDim.y
+    counts blocks of ``TC_ROWS`` query rows."""
+    d, sq = q_shape[3], q_shape[2]
+    if d not in HEAD_DIMS:
+        return f"head_dim {d} not in {HEAD_DIMS}"
+    if -(-sq // TC_ROWS) > GRID_Y:
+        return f"Sq = {sq} needs more than {GRID_Y} blocks of {TC_ROWS} query rows"
+    return None
 
 
 def _lib():
@@ -89,11 +113,17 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0):
                         "must share one dtype of float32 / bfloat16")
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash attention kernel: head_dim {d} not in {HEAD_DIMS}")
-    if b * hq > 65535:
-        raise ValueError(f"flash attention kernel: B*Hq = {b * hq} exceeds the grid")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.dtype == torch.bfloat16:
+        why = tc_refusal(q.shape)
+        if why:
+            raise ValueError(f"flash attention kernel: {why}")
+        q, k, v = _build.aligned(q), _build.aligned(k), _build.aligned(v)
+    else:
+        if d not in HEAD_DIMS:
+            raise ValueError(f"flash attention kernel: head_dim {d} not in {HEAD_DIMS}")
+        if b * hq > 65535:
+            raise ValueError(f"flash attention kernel: B*Hq = {b * hq} exceeds the grid")
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),

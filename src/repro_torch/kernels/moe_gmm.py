@@ -6,11 +6,15 @@ Replaces the Pallas TPU kernel ``repro/kernels/moe_gmm.py``
 one kernel for three operand layouts: the forward ``y[e] = x[e] @ w[e]``
 and the backward's ``dx[e] = dy[e] @ w[e].T`` and ``dw[e] = x[e].T @
 dy[e]``, which the TPU kernel does not have.  Accumulation is fp32 and
-every output takes the inputs' dtype; any shape is taken.
+every output takes the inputs' dtype.
 
 At the DeepSeek-MoE-16B training shape a call does 165 GFLOP over 567
-MB, at the ridge of the H100's roofline (~0.17 ms either way); this
-first version computes on the CUDA cores in fp32 (PERF.md has its time).
+MB, at the ridge of the H100's roofline (~0.17 ms either way).  Two
+hand-written kernels, chosen by dtype: bf16 runs on the tensor cores
+(``wgmma`` fed by TMA; the three layouts are descriptor bits), fp32 on
+the CUDA cores (tensor cores would take fp32 only as TF32) and takes any
+shape.  ``tc_refusal`` holds the rules under which the bf16 kernel takes
+a call; one it does not take raises.
 
 ``moe_gmm_fwd`` and ``moe_gmm_bwd`` launch the kernel on CUDA tensors
 and use the plain PyTorch versions ``moe_gmm_plain`` and
@@ -27,7 +31,8 @@ from ..models.layers import moe_gmm_ref as moe_gmm_plain  # the plain version
 from . import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TILE = 128              # rows of C per block (the kernel's kTile)
+TILE = 128              # rows and columns of C per block (both kernels)
+GRID_YZ = 65535         # CUDA's limit on gridDim.y and gridDim.z
 
 launches = 0
 bwd_launches = 0
@@ -57,9 +62,34 @@ def _check_shapes(x, w):
     if x.ndim != 3 or w.ndim != 3 or x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1]:
         raise ValueError(f"moe_gmm: x {tuple(x.shape)} and w {tuple(w.shape)} must be "
                          "(E, M, K) and (E, K, N)")
-    e, m = x.shape[:2]
-    if e > 65535 or -(-m // TILE) > 65535:
-        raise ValueError(f"moe_gmm kernel: {e} experts x {m} rows exceed the grid")
+    e, m, k = x.shape
+    if e > GRID_YZ or -(-max(m, k) // TILE) > GRID_YZ:
+        raise ValueError(f"moe_gmm kernel: {e} experts x {m} rows x {k} exceed the grid")
+
+
+def tc_refusal(x_shape, w_shape) -> str | None:
+    """Why the bf16 tensor-core kernel would not take x (E, M, K) @ w (E,
+    K, N), or its gradients dx and dw, or None if it takes them: the shape
+    rule of that kernel alone, beside the checks of devices, dtypes and the
+    grid.  TMA reads rows of a multiple of 16 bytes, and every operand of
+    the three products has K or N as its contiguous extent: both must be
+    multiples of 8 in bf16."""
+    k, n = x_shape[2], w_shape[2]
+    if k % 8 or n % 8:
+        return f"K = {k} and N = {n} must be multiples of 8 (16-byte rows for TMA)"
+    return None
+
+
+def _admit(x, w, *more):
+    """The checks every launch passes; bf16 operands come back aligned."""
+    _check_kernel(x, w, *more)
+    _check_shapes(x, w)
+    if x.dtype != torch.bfloat16:
+        return (x, w, *more)
+    why = tc_refusal(x.shape, w.shape)
+    if why:
+        raise ValueError(f"moe_gmm kernel: {why}")
+    return tuple(map(_build.aligned, (x, w, *more)))
 
 
 def _fn():
@@ -88,8 +118,7 @@ def moe_gmm_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     global launches
     if _on_cpu(x, w):
         return moe_gmm_plain(x, w)
-    _check_kernel(x, w)
-    _check_shapes(x, w)
+    x, w = _admit(x, w)
     e, m, k = x.shape
     n = w.shape[2]
     y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
@@ -105,8 +134,7 @@ def moe_gmm_bwd(x, w, dy, need_dx: bool = True, need_dw: bool = True):
     global bwd_launches
     if _on_cpu(x, w, dy):
         return moe_gmm_bwd_plain(x, w, dy, need_dx, need_dw)
-    _check_kernel(x, w, dy)
-    _check_shapes(x, w)
+    x, w, dy = _admit(x, w, dy)
     e, m, k = x.shape
     n = w.shape[2]
     if dy.shape != (e, m, n):

@@ -212,3 +212,58 @@ def test_moe_gmm_refuses_what_it_does_not_take(dev):
         mg.moe_gmm_bwd(x, w, _randn((2, 24, 16), torch.float32, dev).transpose(1, 2))
     with pytest.raises(ValueError, match=r"\(E, M, K\)"):
         mg.moe_gmm_fwd(x, w[:, :16].contiguous())                # contraction mismatch
+
+
+# The bf16 tensor-core kernels (wgmma fed by TMA) at the paths' shapes.
+@pytest.mark.parametrize("e,m,k,n", [(64, 448, 2048, 1408), (64, 448, 1408, 2048)])
+def test_moe_gmm_tc_kernel_at_full_expert_count(dev, e, m, k, n):
+    """K3's three layouts in bf16 over all 64 experts of the DeepSeek path,
+    where a per-expert offset fault shows in every expert after the first."""
+    from repro_torch.kernels import moe_gmm as mg
+    x = _randn((e, m, k), torch.bfloat16, dev, seed=0)
+    w = _randn((e, k, n), torch.bfloat16, dev, seed=1, scale=k ** -0.5)
+    dy = _randn((e, m, n), torch.bfloat16, dev, seed=2)
+    before = (mg.launches, mg.bwd_launches)
+    y = mg.moe_gmm_fwd(x, w)
+    dx, dw = mg.moe_gmm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    assert (mg.launches, mg.bwd_launches) == (before[0] + 1, before[1] + 2)
+    want_dx, want_dw = mg.moe_gmm_bwd_plain(x, w, dy)
+    for got, want in ((y, mg.moe_gmm_plain(x, w)), (dx, want_dx), (dw, want_dw)):
+        torch.testing.assert_close(got.float(), want.float(), **GMM_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d", [
+    (4, 16, 16, 1024, 1024, 64), (4, 16, 16, 1024, 1024, 128), (1, 8, 2, 100, 300, 64),
+    (2, 4, 2, 40, 72, 128)])
+def test_flash_tc_kernel_bf16(dev, b, hq, hkv, sq, skv, d):
+    """K2's bf16 kernel, causal: at the paths' shape with q_offset 0, and
+    GQA with ragged Sq and Skv (q_offset = Skv - Sq)."""
+    from repro_torch.kernels import flash_attention as fa
+    q = _randn((b, hq, sq, d), torch.bfloat16, dev)
+    k = _randn((b, hkv, skv, d), torch.bfloat16, dev, seed=1)
+    v = _randn((b, hkv, skv, d), torch.bfloat16, dev, seed=2)
+    before = fa.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True, q_offset=skv - sq)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want, want_lse = fa.flash_attention_fwd_plain(q, k, v, causal=True, q_offset=skv - sq)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+
+
+def test_tc_kernels_refuse_bf16_shapes_they_do_not_take(dev):
+    """A bf16 call the tensor-core kernel does not take raises: it never
+    goes to the CUDA-core kernel or to the plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as mg
+    before = (fa.launches, mg.launches)
+    q = _randn((1, 2, 16, 32), torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_fwd(q, q, q)
+    x = _randn((2, 16, 36), torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        mg.moe_gmm_fwd(x, _randn((2, 36, 24), torch.bfloat16, dev))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        mg.moe_gmm_fwd(x[:, :, :32].contiguous(), _randn((2, 32, 20), torch.bfloat16, dev))
+    assert (fa.launches, mg.launches) == before
