@@ -7,15 +7,18 @@ Run from the repository root on a machine with one NVIDIA GPU:
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 nvcc, checks in the library's SASS (``cuobjdump -sass``) that every
 instantiation of the bf16 K2 and K3 kernels issues tensor-core ``wgmma``
-(HGMMA) and TMA loads (UTMALDG), and holds each kernel against its plain
-PyTorch version at the main paths' shapes and at edge shapes.  Then, for each of the port's
-three training paths, it trains the model at its published widths
-(random weights from a seed, bf16, remat="full") for a few steps
-through the port's own entry points with the kernels installed, checks
-that every kernel of that path was launched exactly as often as the
-path calls it, compares one step with the plain versions (loss and
-every gradient leaf), and profiles where a step's device time goes
-(``torch.profiler``), with the kernels and with their plain versions:
+(HGMMA) and TMA loads (UTMALDG) and that no instantiation of the scan
+kernels K4 and K4-bwd touches local memory (LDL, STL), and holds each
+kernel against its plain PyTorch version at the main paths' shapes and
+at edge shapes (and K4-bwd against itself: two runs, the same bits).
+Then, for each of the port's three training paths, it trains the model
+at its published widths (random weights from a seed, bf16,
+remat="full") for a few steps through the port's own entry points with
+the kernels installed, checks that every kernel of that path was
+launched exactly as often as the path calls it, compares one step with
+the plain versions (loss and every gradient leaf), and profiles where a
+step's device time goes (``torch.profiler``), with the kernels and with
+their plain versions:
 
   - Qwen1.5-0.5B, all 24 layers (kernels K1 rmsnorm, K2 flash forward);
   - Falcon-Mamba-7B, 8 of its 64 layers: one stage of an 8-stage
@@ -239,6 +242,9 @@ def phase_kernels(torch, F, fa, rn) -> dict:
 
 # the bf16 tensor-core kernels and their instantiations (head dims; layouts)
 TC_KERNELS = {"flash_fwd_wgmma_kernel": 2, "moe_gmm_wgmma_kernel": 3}
+# the scan kernels, which must keep their state in registers and shared
+# memory, and their instantiations (fp32 and bf16, N = 4, 8, 16)
+SCAN_KERNELS = {"mamba_scan_fwd_kernel": 6, "mamba_scan_bwd_kernel": 6}
 
 
 def cuobjdump() -> str:
@@ -259,17 +265,22 @@ def cuobjdump() -> str:
 def sass_check(lib: pathlib.Path) -> dict:
     """Count HGMMA (wgmma) and UTMALDG (TMA load) instructions in each
     instantiation of the bf16 tensor-core kernels in the built library's
-    SASS, and fail if one is missing or has none of either."""
+    SASS, and fail if one is missing or has none of either; count local
+    memory loads and stores (LDL, STL: spills or arrays the compiler could
+    not keep in registers) in each instantiation of the scan kernels, and
+    fail if one is missing or has any."""
     out = subprocess.run([cuobjdump(), "-sass", str(lib)], capture_output=True, text=True,
                          check=True, timeout=300).stdout
+    ops = ("HGMMA", "UTMALDG", "LDL", "STL")
     counts, name = {}, None
     for line in out.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            counts[name] = {"HGMMA": 0, "UTMALDG": 0}
+            counts[name] = dict.fromkeys(ops, 0)
         elif name is not None:
-            for op in ("HGMMA", "UTMALDG"):
-                counts[name][op] += op in line
+            words = set(line.replace(";", " ").split())
+            for op in ops:
+                counts[name][op] += any(w.split(".")[0] == op for w in words)
     found = {}
     for kernel, n_inst in TC_KERNELS.items():
         mine = {k: v for k, v in counts.items() if kernel in k}
@@ -278,6 +289,15 @@ def sass_check(lib: pathlib.Path) -> dict:
         if len(mine) != n_inst or not all(v["HGMMA"] and v["UTMALDG"] for v in mine.values()):
             fail(f"SASS check: {kernel} has {len(mine)} of {n_inst} instantiations, "
                  f"counts {list(mine.values())}: each needs HGMMA and UTMALDG")
+        found.update(mine)
+    for kernel, n_inst in SCAN_KERNELS.items():
+        mine = {k: v for k, v in counts.items() if kernel in k}
+        local = {k: v["LDL"] + v["STL"] for k, v in mine.items()}
+        print(f"  SASS {kernel}: {len(mine)} instantiations, local-memory accesses "
+              f"{sorted(local.values())}", flush=True)
+        if len(mine) != n_inst or any(local.values()):
+            fail(f"SASS check: {kernel} has {len(mine)} of {n_inst} instantiations, local "
+                 f"loads and stores {local}: the scan must not use local memory")
         found.update(mine)
     return found
 
@@ -386,7 +406,11 @@ def phase_scan_kernels(torch, ms) -> dict:
     main = (BATCH, SEQ, 8192, 16, torch.bfloat16)     # Falcon-Mamba-7B's d_inner, state
     cases = [(*main, False), (1, 16, 8, 4, torch.float32, False),
              (2, 24, 16, 8, torch.float32, False), (1, 8, 6, 4, torch.float32, False),
-             (2, 1000, 256, 16, torch.float32, True), (2, 1000, 256, 16, torch.bfloat16, True)]
+             (2, 1000, 256, 16, torch.float32, True), (2, 1000, 256, 16, torch.bfloat16, True),
+             # the kernels' tiling edges: C ragged past a 128-channel block
+             # and below a warp, S = 1 and S off the 16- and 8-step tiles
+             (2, 1, 200, 16, torch.float32, True), (2, 77, 200, 16, torch.bfloat16, True),
+             (2, 37, 20, 4, torch.float32, True), (1, 45, 136, 8, torch.bfloat16, True)]
     results = {}
     for b, s, c, n, dtype, with_h0 in cases:
         x, dt, A, B, C, h0 = scan_inputs(torch, g, b, s, c, n, dtype, with_h0)
@@ -405,7 +429,7 @@ def phase_scan_kernels(torch, ms) -> dict:
                       for k, got, w in zip(names, grads, want_g))
         print(f"  {tag} fwd max_abs_err={fwd_err:.3e} bwd max_abs_err={bwd_err:.3e}",
               flush=True)
-        if with_h0:        # continue from the first half's state
+        if with_h0 and s > 1:        # continue from the first half's state
             y1, h1, _ = ms.mamba_scan_fwd(x[:, :s // 2], dt[:, :s // 2], A, B[:, :s // 2],
                                           C[:, :s // 2], h0)
             y2, h2, _ = ms.mamba_scan_fwd(x[:, s // 2:], dt[:, s // 2:], A, B[:, s // 2:],
@@ -444,14 +468,29 @@ def phase_scan_kernels(torch, ms) -> dict:
 
     x, dt, A, B, C, hs, dy = timed
     b, s, c, n = *x.shape, A.shape[1]
+    # K4-bwd twice on the same inputs: the same bits (fixed-order sums)
+    dhT = torch.randn((b, c, n), generator=g, device="cuda")
+    first = ms.mamba_scan_bwd(x, dt, A, B, C, hs, dy, dhT)
+    second = ms.mamba_scan_bwd(x, dt, A, B, C, hs, dy, dhT)
+    torch.cuda.synchronize()
+    if not all(torch.equal(u, v) for u, v in zip(first, second)):
+        fail("mamba_scan_bwd: two runs on the same inputs differ")
+    print(f"  mamba_scan_bwd {(b, s, c, n)} bf16: two runs give the same bits", flush=True)
+    del first, second
     elems, io = b * s * c * n, x.element_size()
-    exp_ms = elems / SFU_EXP_PER_S * 1e3
+    # exps per (b, t, c, n) of each kernel's design at this shape (the note
+    # atop mamba_scan.cu)
+    exps = {"mamba_scan": 1.0, "mamba_scan_bwd": 2.5}
     # forward: reads x, dt, B, C, A; writes y, hT and the chunk states
     fwd_bytes = (3 * b * s * c + 2 * b * s * n) * io + (c * n + b * c * n + hs.numel()) * 4
     # backward: reads x, dt, dy, B, C, A, the chunk states; writes dx, ddt,
     # dB, dC, dA, dh0
     bwd_bytes = ((5 * b * s * c + 4 * b * s * n) * io
                  + (2 * c * n + b * c * n + hs.numel()) * 4)
+    # the chunk states' interval is the design's choice (bytes here against
+    # exps in the backward): the byte time without them is printed too
+    scan_bytes = {"mamba_scan": fwd_bytes - hs.numel() * 4,
+                  "mamba_scan_bwd": bwd_bytes - hs.numel() * 4}
     results["mamba_scan"].update(
         ms=cuda_ms(torch, lambda: ms.mamba_scan_fwd(x, dt, A, B, C, save_states=True)),
         plain_ms=cuda_ms(torch, lambda: ms.mamba_scan_plain(x, dt, A, B, C, save_states=True),
@@ -470,8 +509,10 @@ def phase_scan_kernels(torch, ms) -> dict:
     for name in ("mamba_scan", "mamba_scan_bwd"):
         r = results[name]
         print(f"  {name} {(b, s, c, n)} bf16: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-              f"exps at the SFU rate {exp_ms:.4f} ms", flush=True)
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+              f"{exps[name]} exps per element, at the SFU rate "
+              f"{exps[name] * elems / SFU_EXP_PER_S * 1e3:.4f} ms; bytes without the chunk "
+              f"states {scan_bytes[name] / HBM_BYTES_PER_S * 1e3:.4f} ms", flush=True)
     return results
 
 

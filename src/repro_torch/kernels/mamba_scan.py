@@ -12,10 +12,21 @@ state size, must be 4, 8 or 16 on the card; ragged C and any S are
 handled by bounds checks.
 
 On the H100 the forward at the training shape (4, 1024, 8192, 16) bf16
-moves ~0.2 GB and does 537M exps: its floor is the SFU's exp rate
-(~128 us), above the bytes' 61 us.  The backward recomputes the states
-from the chunk states the forward saves every ``CHUNK`` steps, so it
-does about three times the forward's exps (PERF.md has the numbers).
+moves ~0.34 GB with its saved states (~100 us at 3.35 TB/s; ~61 us
+without them) and takes 537M exps, one per (b, t, c, n): its floor is
+the special-function units' exp rate (~128 us at 16 a clock per SM),
+since each exp comes with only ~4 fp32 operations.  One thread per channel keeps all N states in registers and
+takes each exp as one ``ex2.approx`` on A pre-scaled by log2(e); x and
+dt are read a tile ahead into registers, B and C through double-buffered
+shared memory.  The backward recomputes the states from the ones the
+forward saves every ``CHUNK`` steps, 8-step segments at a time in
+shared memory, and walks them in reverse: 2.5 exps per element (the
+reverse walk's, the segment recompute's, and half a chunk more for the
+segment starts), register sums over n, a warp transpose-reduce for the
+sums over channels, and one partial row of dB and dC per 128-channel
+block, added here with ``torch.sum`` (no atomics: the same bits every
+run).  Measured, neither kernel reaches its exp floor: with one thread
+per channel each warp is latency-bound (PERF.md has the times).
 
 ``mamba_scan_fwd`` and ``mamba_scan_bwd`` launch the kernels on CUDA
 tensors and use the plain PyTorch versions ``mamba_scan_plain`` and
@@ -30,8 +41,8 @@ import torch
 
 from . import _build
 
-CHUNK = 128             # steps between saved states (the kernel's kChunk)
-THREADS = 256           # threads per block (the kernel's kThreads)
+CHUNK = 16              # steps between saved states (the kernel's kChunk)
+THREADS = 128           # channels per block, one thread each (kThreads)
 STATES = (4, 8, 16)     # the state sizes N the kernels are built for
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -160,8 +171,9 @@ def mamba_scan_fwd(x, dt, A, B, C, h0=None, save_states: bool = False):
     _check_kernel(x, dt, A, B, C, h0)
     b, s, c = x.shape
     n = A.shape[1]
-    x, dt, A, B, C = (t.contiguous() for t in (x, dt, A, B, C))
-    h0 = None if h0 is None else h0.float().contiguous()
+    x, dt, B, C = (t.contiguous() for t in (x, dt, B, C))
+    A = _build.aligned(A)             # read as float4s, as are h0 and the states
+    h0 = None if h0 is None else _build.aligned(h0.float())
     y = torch.empty_like(x)
     hT = torch.empty((b, c, n), dtype=torch.float32, device=x.device)
     hs = (torch.empty((b, _n_chunks(s), c, n), dtype=torch.float32, device=x.device)
@@ -192,9 +204,10 @@ def mamba_scan_bwd(x, dt, A, B, C, hs, dy, dhT=None):
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"mamba scan kernel: dy {tuple(dy.shape)} {dy.dtype} must match "
                          f"x {tuple(x.shape)} {x.dtype}")
-    x, dt, A, B, C, hs, dy = (t.contiguous() for t in (x, dt, A, B, C, hs, dy))
-    dhT = None if dhT is None else dhT.float().contiguous()
-    nblk = -(-c // (THREADS // n))
+    x, dt, B, C, dy = (t.contiguous() for t in (x, dt, B, C, dy))
+    A, hs = _build.aligned(A), _build.aligned(hs)
+    dhT = None if dhT is None else _build.aligned(dhT.float())
+    nblk = -(-c // THREADS)             # channel blocks: partial rows of dB, dC
     f32 = dict(dtype=torch.float32, device=x.device)
     dx, ddt = torch.empty_like(x), torch.empty_like(dt)
     dA_part, dh0 = torch.empty((b, c, n), **f32), torch.empty((b, c, n), **f32)

@@ -101,8 +101,14 @@ def _scan_inputs(b, s, c, n, dtype, dev, with_h0=False):
     return x, dt, A, B, C, h0
 
 
+# the JAX test grid, then the kernels' tiling edges (128-channel blocks,
+# 16-step tiles and saved-state chunks, 8-step backward segments): C
+# ragged past a block (200, 136) and below a warp (20), S = 1 and S off
+# every multiple, each N, with h0 (every case also gets a dhT)
 SCAN_CASES = [(1, 16, 8, 4, False), (2, 24, 16, 8, False), (1, 8, 6, 4, False),
-              (2, 1000, 96, 16, True), (1, 300, 40, 8, True)]
+              (2, 1000, 96, 16, True), (1, 300, 40, 8, True),
+              (2, 1, 200, 16, True), (2, 37, 20, 4, True), (1, 45, 136, 8, True),
+              (2, 77, 200, 16, True), (1, 9, 20, 8, False)]
 
 
 @pytest.mark.parametrize("b,s,c,n,with_h0", SCAN_CASES)
@@ -128,6 +134,22 @@ def test_mamba_scan_kernels_match_plain(dev, b, s, c, n, with_h0, dtype):
         assert got.dtype == want.dtype
         tol = TOL[dtype] if got.dtype == torch.bfloat16 else dict(atol=1e-5, rtol=1e-4)
         torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_bwd_is_deterministic(dev, dtype):
+    """Two runs of K4-bwd give the same bits: the sums over channels and
+    batch rows are taken in a fixed order, with no atomics."""
+    from repro_torch.kernels import mamba_scan as ms
+    x, dt, A, B, C, _ = _scan_inputs(2, 300, 200, 16, dtype, dev)
+    _, _, hs = ms.mamba_scan_fwd(x, dt, A, B, C, save_states=True)
+    dy = _randn((2, 300, 200), dtype, dev, seed=6)
+    dhT = _randn((2, 200, 16), torch.float32, dev, seed=7)
+    first = ms.mamba_scan_bwd(x, dt, A, B, C, hs, dy, dhT)
+    second = ms.mamba_scan_bwd(x, dt, A, B, C, hs, dy, dhT)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_mamba_scan_grads_match_reference(dev):
