@@ -30,12 +30,33 @@ their plain versions:
     full-step comparison one MoE block at full width is held to its
     plain version on the same routing.
 
-Last it runs the training CLI at its defaults for the three archs.  It
-prints the card's name and power limit, one JSON line of kernel
-numbers, and as its last line ``{"ok": true, "device": {...}}``.  Any
-failed phase ends the run with a non-zero exit code and no result.
+  - qwen3-1b (Qwen3-1.7B's widths, the paper's own evaluation model),
+    all 28 layers (K1, and K2 at GQA 16/8 and head_dim 128).
+
+The kernel phase runs K2 at every head dim the paths and configs give
+it — 64, 128, qwen3-1b's GQA, granite-20b's MQA, and 32 and 80, which
+run on a padded instantiation — each against its plain version and
+timed beside SDPA.  Then the Piper IR phase traces the qwen3-1b proxy
+at full width on meta tensors (no device memory may move), rewrites it
+for a pp 4 x dp 2, ZeRO-3, 8-microbatch 1F1B plan with the overlap
+engine and holds its chunk and comm counts and dataflow fingerprint to
+the JAX package's (``IR_CASE``); and it runs the F and B chunk
+functions of a region over two real qwen3-1b layers, under remat
+"full" and "none", counting their K1 and K2 launches and holding their
+gradients to autograd's.  Last it runs the training CLI at its defaults
+for the ported archs, qwen3-1b, minicpm-2b (its WSD schedule checked
+step by step) and ``--d-model 128`` (head_dim 32).  It prints the card's
+name and power limit, one JSON line of kernel numbers, and as its last
+line ``{"ok": true, "device": {...}}``.  Any failed phase ends the run
+with a non-zero exit code and no result.
 
 Without a CUDA device, or without the repository beside it, it fails.
+
+    python3 chip_smoke.py --k2-against DIR
+
+instead times the bf16 K2 at head dims 64 and 128 in this checkout and
+in the one at DIR (say, the parent commit unpacked with ``git
+archive``), in turns on the same card.
 """
 from __future__ import annotations
 
@@ -153,6 +174,70 @@ def check_close(torch, name, got, want, dtype: str, tol=None) -> float:
     return err.max().item()
 
 
+# the IR phase's case: the qwen3-1b proxy at full width over a pp 4 x dp 2
+# mesh, ZeRO-3, 8 microbatches of BATCH x SEQ tokens, 1F1B, overlap on
+# (tests/test_torch_ir.py holds the port's DAG of it to the JAX package's)
+IR_CASE = {"arch": "qwen3-1b", "pp": 4, "dp": 2, "zero": 3, "n_mb": 8,
+           "tokens": BATCH * SEQ, "chunks": 64, "comms": 144,
+           "digest": "2d88383f05210da110e6b35d"}
+# the IR phase's region over real decoder layers: each leaf's chunk
+# gradient against autograd through the same layers, relative L2 (the
+# same kernels run the same ops in the same order; 0 is expected)
+IR_GRAD_RTOL = 1e-3
+
+
+def one_f_one_b(rank: int, n_ranks: int, n_mb: int) -> list:
+    """(mb, pass) of one pipeline rank's 1F1B order: warm-up forwards,
+    then one backward and one forward in turn."""
+    warm = min(n_mb, n_ranks - rank)
+    seq = [(i, "F") for i in range(warm)]
+    fwd = warm
+    for bwd in range(n_mb):
+        seq.append((bwd, "B"))
+        if fwd < n_mb:
+            seq.append((fwd, "F"))
+            fwd += 1
+    return seq
+
+
+def pipeline_directives(core, pp: int, dp: int, n_mb: int, zero: int, *,
+                        split_backward: bool = False, ep_stages=()) -> list:
+    """Place stage s of ``pp`` on devices [s*dp, (s+1)*dp), replicate it
+    there at ZeRO stage ``zero`` (0 and 1 alike: gradients all-reduced; 2
+    reduce-scattered; 3 also gathers the parameters), Shard the expert
+    chunks of ``ep_stages`` over the same group, Split into ``n_mb``
+    microbatches and Order each stage 1F1B (a backward is Bi then Bw when
+    ``split_backward``).  ``core`` is a package's core module, so the CPU
+    tests build the same list for the JAX package."""
+    F = core.F
+    groups = [list(range(s * dp, (s + 1) * dp)) for s in range(pp)]
+    out = [core.Place(F(pp=s), devices=groups[s], stream="pp_comm") for s in range(pp)]
+    for s in range(pp):
+        out.append(core.Replicate(F(pp=s, ep="-"), devices=groups[s], reduce_stream="dp",
+                                  gather_stream="ag", shard_grads=zero >= 2,
+                                  shard_params=zero >= 3))
+        if s in ep_stages:
+            out.append(core.Shard(F(pp=s, ep="*"), devices=groups[s], stream="ep"))
+    out.append(core.Split(F(), dim="MB", num_microbatches=n_mb))
+    for s in range(pp):
+        items = []
+        for mb, pas in one_f_one_b(s, pp, n_mb):
+            for tag in (("Bi", "Bw") if split_backward and pas == "B" else (pas,)):
+                items.append(F(pp=s, MB=mb, PASS=tag))
+        out.append(core.Order(items))
+    return out
+
+
+# K2 shapes (B, Hq, Hkv, S, D) timed in bf16, and their keys in the
+# kernels line: Qwen1.5's (the row's own numbers), DeepSeek's head_dim
+# 128, qwen3-1b's GQA, granite-20b's MQA, and the padded head dims
+FLASH_TIMED = {(BATCH, 16, 16, SEQ, 64): None, (BATCH, 16, 16, SEQ, 128): "at_head_dim_128",
+               (BATCH, 16, 8, SEQ, 128): "at_gqa_16_8_head_dim_128",
+               (BATCH, 48, 1, SEQ, 128): "at_mqa_48_1_head_dim_128",
+               (BATCH, 16, 16, SEQ, 32): "at_head_dim_32",
+               (BATCH, 32, 32, SEQ, 80): "at_head_dim_80"}
+
+
 def phase_kernels(torch, F, fa, rn) -> dict:
     """Each kernel against its plain version; times at the main path's shapes."""
     g = torch.Generator(device="cuda").manual_seed(1234)
@@ -160,7 +245,7 @@ def phase_kernels(torch, F, fa, rn) -> dict:
     def randn(shape, dtype, scale=1.0, shift=0.0):
         return (torch.randn(shape, generator=g, device="cuda") * scale + shift).to(dtype)
 
-    results = {}
+    results, p_errs = {}, {}
     # K1 rmsnorm: the model's (B*S, d_model) rows, and 130 rows
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[1]
@@ -187,7 +272,14 @@ def phase_kernels(torch, F, fa, rn) -> dict:
              (2, 4, 1, 64, 64, 64, True),
              (1, 8, 2, 64, 128, 64, True), (1, 8, 2, 100, 300, 64, True),
              (1, 2, 2, 32, 48, 128, False), (2, 4, 2, 40, 72, 128, True),
-             (1, 4, 4, 1000, 1000, 64, True)]
+             (1, 4, 4, 1000, 1000, 64, True),
+             # qwen3-1b's GQA and granite-20b's MQA at head_dim 128; head
+             # dims that run padded: 32 (the CLI at --d-model 128), 80
+             # (zamba2, 2560 / 32), ragged and non-causal
+             (4, 16, 8, 1024, 1024, 128, True), (4, 48, 1, 1024, 1024, 128, True),
+             (4, 16, 16, 1024, 1024, 32, True), (4, 32, 32, 1024, 1024, 80, True),
+             (2, 4, 2, 40, 72, 32, True), (1, 6, 2, 130, 200, 80, True),
+             (1, 4, 1, 50, 90, 80, False)]
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[1]
         for b, hq, hkv, sq, skv, d, causal in cases:
@@ -210,38 +302,47 @@ def phase_kernels(torch, F, fa, rn) -> dict:
                                     dname, FP32_P_TOL)
                 extra = f" against_fp32_P={p_err:.3e}"
             print(f"  {tag} max_abs_err={err:.3e} lse_err={lse_err:.3e}{extra}", flush=True)
-            if dt == torch.bfloat16 and (b, hq, sq, d) == (4, 16, 1024, 64):
+            if dt == torch.bfloat16 and (b, hq, hkv, sq, d) == (4, 16, 16, 1024, 64):
                 results["flash_attention"] = {"max_abs_err": max(err, lse_err),
                                               "max_abs_err_fp32_p": p_err}
-            if dt == torch.bfloat16 and (b, hq, sq, d) == (4, 16, 1024, 128):
-                fp32_p_d128 = p_err
-    def flash_times(d: int) -> dict:
-        q, k, v = (randn((BATCH, 16, SEQ, d), torch.bfloat16) for _ in range(3))
-        pairs = BATCH * 16 * SEQ * (SEQ + 1) // 2      # causal (query, key) pairs computed
-        n_bytes = 4 * q.numel() * q.element_size() + BATCH * 16 * SEQ * 4   # q, k, v, out, lse
+            if dt == torch.bfloat16 and (b, hq, hkv, sq, d) in FLASH_TIMED:
+                p_errs[(hq, hkv, d)] = p_err
+
+    def flash_times(hq: int, hkv: int, d: int) -> dict:
+        """K2, its plain version and SDPA at (BATCH, hq/hkv, SEQ, d) causal
+        bf16.  The bound counts the true d: a padded d's MMA work (80 runs
+        as 128) shows as distance from it."""
+        q = randn((BATCH, hq, SEQ, d), torch.bfloat16)
+        k, v = (randn((BATCH, hkv, SEQ, d), torch.bfloat16) for _ in range(2))
+        pairs = BATCH * hq * SEQ * (SEQ + 1) // 2      # causal (query, key) pairs computed
+        # q, k, v, out, lse
+        n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + BATCH * hq * SEQ * 4
         timed = dict(
             ms=cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal=True)),
             plain_ms=cuda_ms(torch, lambda: fa.flash_attention_fwd_plain(q, k, v, causal=True)),
-            library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v,
-                                                                               is_causal=True)),
+            library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=hq != hkv)),
             **bound(n_bytes, 4 * d * pairs / BF16_FLOPS))
         timed["tflops"] = 4 * d * pairs / timed["ms"] / 1e9
-        print(f"  flash {(BATCH, 16, SEQ, d)} causal bf16: kernel {timed['ms']:.4f} ms "
-              f"({timed['tflops']:.1f} TFLOP/s), plain "
+        timed["max_abs_err_fp32_p"] = p_errs[(hq, hkv, d)]
+        print(f"  flash {(BATCH, f'{hq}/{hkv}', SEQ, d)} causal bf16: kernel "
+              f"{timed['ms']:.4f} ms ({timed['tflops']:.1f} TFLOP/s), plain "
               f"{timed['plain_ms']:.4f} ms, SDPA {timed['library_ms']:.4f} ms "
               f"(kernel/SDPA {timed['ms'] / timed['library_ms']:.2f}x), bound "
               f"{timed['bound_ms']:.4f} ms ({timed['bound_by']})", flush=True)
         return timed
 
-    # Qwen's head_dim 64, and DeepSeek's 128 beside it
-    results["flash_attention"].update(flash_times(64))
-    results["flash_attention"]["at_head_dim_128"] = flash_times(128)
-    results["flash_attention"]["at_head_dim_128"]["max_abs_err_fp32_p"] = fp32_p_d128
+    # Qwen1.5's head_dim 64 first (the row's main numbers), then the rest
+    results["flash_attention"].update(flash_times(16, 16, 64))
+    for (b, hq, hkv, sq, d), key in FLASH_TIMED.items():
+        if key:
+            results["flash_attention"][key] = flash_times(hq, hkv, d)
     return results
 
 
-# the bf16 tensor-core kernels and their instantiations (head dims; layouts)
-TC_KERNELS = {"flash_fwd_wgmma_kernel": 2, "moe_gmm_wgmma_kernel": 3}
+# the bf16 tensor-core kernels and their instantiations (head dims 64 and
+# 128, each exact and padded; layouts)
+TC_KERNELS = {"flash_fwd_wgmma_kernel": 4, "moe_gmm_wgmma_kernel": 3}
 # the scan kernels, which must keep their state in registers and shared
 # memory, and their instantiations (fp32 and bf16, N = 4, 8, 16)
 SCAN_KERNELS = {"mamba_scan_fwd_kernel": 6, "mamba_scan_bwd_kernel": 6}
@@ -745,22 +846,156 @@ def compare_with_plain(torch, cfg, params, step_loss: float | None = None) -> No
 
 
 def phase_cli(torch) -> None:
-    """The CLI at its defaults for the three ported paths (Falcon at 50
-    steps); ``main`` raises unless the loss falls."""
+    """The CLI at its defaults for the ported paths (Falcon at 50 steps),
+    qwen3-1b, minicpm-2b (whose learning rate must follow WSD step by
+    step) and ``--d-model 128`` (4 heads of 32: K2 on a padded head dim);
+    the loss must fall in each."""
     from repro_torch.kernels import ops
     from repro_torch.launch import train
+    from repro_torch.optim import wsd_schedule
     for extra in ([], ["--arch", "falcon-mamba-7b", "--steps", "50"],
-                  ["--arch", "deepseek-moe-16b"]):
+                  ["--arch", "deepseek-moe-16b"], ["--arch", "qwen3-1b"],
+                  ["--arch", "minicpm-2b"], ["--d-model", "128"]):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
             ops.reset_launch_counts()
             t0 = time.perf_counter()
-            rc = train.main(["--ckpt-dir", tmp, *extra])
+            sup, _ = train.run(["--ckpt-dir", tmp, *extra])
             torch.cuda.synchronize()
-            print(f"  CLI {' '.join(extra) or 'at its defaults'}: rc={rc} in "
-                  f"{time.perf_counter() - t0:.1f} s, launches {ops.launch_counts()}",
-                  flush=True)
-        if rc != 0:
-            fail(f"CLI {extra} returned {rc}")
+            counts = ops.launch_counts()
+            print(f"  CLI {' '.join(extra) or 'at its defaults'}: {len(sup.history)} steps in "
+                  f"{time.perf_counter() - t0:.1f} s, launches {counts}", flush=True)
+        losses = [h["loss"] for h in sup.history]
+        if not losses[-1] < losses[0]:
+            fail(f"CLI {extra}: the loss did not fall ({losses[0]} -> {losses[-1]})")
+        if "--arch" not in extra or extra[1] != "falcon-mamba-7b":
+            if not counts["rmsnorm"] or not counts["flash_attention"]:
+                fail(f"CLI {extra}: K1 or K2 never launched: {counts}")
+        if extra[-1:] == ["minicpm-2b"]:
+            lr = wsd_schedule(3e-3, len(losses))
+            want = [float(lr(i)) for i in range(len(losses))]
+            got = [h["lr"] for h in sup.history]
+            if not all(math.isclose(a, b, rel_tol=1e-6, abs_tol=1e-12)
+                       for a, b in zip(got, want)):
+                fail("CLI minicpm-2b: the learning rate does not follow WSD")
+            print(f"  CLI minicpm-2b: lr follows WSD step by step (peak {max(got):.1e}, "
+                  f"last {got[-1]:.3e})", flush=True)
+
+
+def phase_ir(torch) -> dict:
+    """The Piper IR on the card.  (1) The qwen3-1b proxy at full width
+    traced on meta tensors and rewritten by IR_CASE's directives and
+    ``run_all`` with overlap: no byte of device memory moves, and the
+    chunk and comm counts and the fingerprint are IR_CASE's (which
+    tests/test_torch_ir.py holds to the JAX package's).  (2) A region
+    over two real qwen3-1b decoder layers, weights on the card, under
+    remat "full" and "none": its F and B chunk functions launch K1 and K2
+    exactly as the layers call them, and the B chunk's gradients equal
+    autograd's through the same layers (each F and B pair runs twice; the
+    second is timed and counted).  Returns the launch counts."""
+    from repro_torch import core
+    from repro_torch.analysis import dataflow_fingerprint
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init
+    from repro_torch.models.model import _dec_layer, _unstack
+    from repro_torch.tree import tree_flatten_with_path, tree_leaves, tree_map
+    from repro_torch.tune import proxy
+
+    c = IR_CASE
+    cfg = get_config(c["arch"])
+    sm = proxy.decompose(cfg, c["pp"])
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    act = ((c["tokens"], cfg.d_model), proxy.PROXY_DTYPE)
+    dag = core.build_dag(proxy.make_proxy_forward(sm), proxy.make_proxy_params(sm),
+                         {"x": act, "y": act},
+                         pipeline_directives(core, c["pp"], c["dp"], c["n_mb"], c["zero"]),
+                         overlap=core.OverlapConfig())
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    moved = torch.cuda.memory_allocated() - before
+    stats, fp = dag.stats(), dataflow_fingerprint(dag)
+    params = sum(b.param_elems for b in dag.buckets.values())
+    print(f"  {c['arch']} proxy ({params} parameters in {len(dag.buckets)} stage buckets) "
+          f"over pp {c['pp']} x dp {c['dp']}, ZeRO-{c['zero']}, {c['n_mb']} microbatches, "
+          f"1F1B, overlap: built in {build_s:.2f} s; {stats}; fingerprint "
+          f"{fp.digest()}; device memory moved {moved} bytes", flush=True)
+    if moved:
+        fail(f"IR: tracing the proxy moved {moved} bytes of device memory")
+    if (stats["chunks"], stats["comms"], fp.digest()) != (c["chunks"], c["comms"], c["digest"]):
+        fail(f"IR: {stats['chunks']} chunks, {stats['comms']} comms, digest {fp.digest()}; "
+             f"expected {c['chunks']}, {c['comms']}, {c['digest']}")
+
+    lcfg = dataclasses.replace(cfg, n_layers=2, remat="none")
+    layers = init(lcfg, torch.Generator(device="cuda").manual_seed(0), "cuda")["layers"]
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((BATCH, SEQ, cfg.d_model), generator=g, device="cuda").to(lcfg.tdtype)
+    cot = torch.randn(x.shape, generator=g, device="cuda").to(lcfg.tdtype)
+
+    def two_layers(p, h):
+        for lp in _unstack(p, 2):
+            h, _ = _dec_layer(lcfg, lp, h)
+        return h
+
+    def forward(rec, tvs):
+        with rec.annotate("pp"):
+            return rec.region(two_layers, "layers", name="layers")(tvs["x"])
+
+    ops.register_kernels()
+    p = tree_map(lambda t: t.detach().requires_grad_(True), layers)
+    xr = x.detach().requires_grad_(True)
+    want_y = two_layers(p, xr)
+    want = torch.autograd.grad(want_y, tree_leaves(p) + [xr], cot)
+    names = [f"d{'/'.join(path)}" for path, _ in tree_flatten_with_path(layers)]
+    counts = dict.fromkeys(("rmsnorm", "flash_attention"), 0)
+    # per chunk call: each layer runs norm1, norm2 and one attention
+    per_fwd = {"rmsnorm": 2 * lcfg.n_layers, "flash_attention": lcfg.n_layers}
+
+    def chunk_call(fn, *args):
+        """(outputs, device ms, launches) of one chunk call."""
+        ops.reset_launch_counts()
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        res = fn(layers, *args)
+        stop.record()
+        torch.cuda.synchronize()
+        return res, start.elapsed_time(stop), {kk: v for kk, v in
+                                               ops.launch_counts().items() if v}
+
+    for remat in ("full", "none"):
+        dag = core.build_dag(forward, {"layers": layers},
+                             {"x": (tuple(x.shape), lcfg.dtype)}, remat=remat)
+        f = next(n for n in dag.chunks() if n.dims["PASS"] == "F")
+        b = dag.nodes[f.meta["bwd_node"]]
+        k = f.n_outputs - f.meta.get("n_res", 0)
+        for _ in range(2):      # the first F and B warm up; the second are read
+            outs, f_ms, f_launched = chunk_call(f.fn, x)
+            args = (x, cot) if remat == "full" else (*outs[k:], cot)
+            (grads, dx), b_ms, b_launched = chunk_call(b.fn, *args)
+        for kk in counts:
+            counts[kk] += f_launched.get(kk, 0) + b_launched.get(kk, 0)
+        # B re-runs the forward under "full" and reads the stash under "none"
+        exp_b = per_fwd if remat == "full" else {}
+        if f_launched != per_fwd or b_launched != exp_b:
+            fail(f"IR remat={remat}: launches F {f_launched}, B {b_launched}; "
+                 f"expected {per_fwd} and {exp_b}")
+        errs = {"y": rel_l2(outs[0], want_y.detach())}
+        errs.update({n: rel_l2(gg, w) for n, gg, w in
+                     zip(names + ["dx"], tree_leaves(grads) + [dx], want)})
+        res_bytes = sum(t.numel() * t.element_size() for t in outs[k:])
+        worst = max(errs, key=errs.get)
+        print(f"  region over 2 real {c['arch']} layers, remat={remat}: F {f_ms:.2f} ms "
+              f"(launches {f_launched}), B {b_ms:.2f} ms (launches {b_launched}); "
+              f"{f.meta.get('n_res', 0)} residual slots, {res_bytes / 2**20:.1f} MiB; worst "
+              f"relative L2 error against autograd {errs[worst]:.3e} ({worst}, limit "
+              f"{IR_GRAD_RTOL})", flush=True)
+        if not all(math.isfinite(e) for e in errs.values()) or errs[worst] > IR_GRAD_RTOL:
+            fail(f"IR remat={remat}: chunk gradients disagree with autograd: {worst} at "
+                 f"{errs[worst]:.3e}")
+        del outs, args, grads, dx
+    ops.unregister_kernels()
+    return counts
 
 
 # kernel-name substrings -> family, first match wins
@@ -832,7 +1067,43 @@ def phase_profile(torch, train: dict, plain_steps: int = PROFILED_STEPS) -> None
     ops.unregister_kernels()
 
 
+# bf16 K2 shapes timed against another checkout (``--k2-against``)
+K2_AB = [(BATCH, 16, SEQ, 64), (BATCH, 16, SEQ, 128)]
+
+
+def k2_against(other: str) -> int:
+    """Time bf16 K2 in this checkout and in ``other`` (e.g. the parent
+    commit unpacked with ``git archive``) on one card, in turns: other,
+    this, this, other; one process each, each building its own library
+    from its own sources.  Prints the times; the smoke test itself does
+    not run."""
+    code = (
+        "import sys, json, torch\n"
+        f"sys.path[:0] = [sys.argv[1] + '/src', {str(ROOT)!r}]\n"
+        "import chip_smoke\n"
+        "from repro_torch.kernels import flash_attention as fa\n"
+        "g = torch.Generator(device='cuda').manual_seed(0)\n"
+        "out = {}\n"
+        f"for b, h, s, d in {K2_AB!r}:\n"
+        "    q, k, v = (torch.randn((b, h, s, d), generator=g, device='cuda')\n"
+        "               .to(torch.bfloat16) for _ in range(3))\n"
+        "    out[d] = min(chip_smoke.cuda_ms(torch, lambda: fa.flash_attention_fwd(\n"
+        "        q, k, v, causal=True), reps=50) for _ in range(3)) * 1e3\n"
+        "print(json.dumps(out))\n")
+    print(gpu_line(), flush=True)
+    for tree in (other, str(ROOT), str(ROOT), other):
+        run = subprocess.run([sys.executable, "-c", code, tree], capture_output=True,
+                             text=True, timeout=600)
+        if run.returncode:
+            fail(f"K2 timing in {tree}: {run.stderr[-2000:]}")
+        print(f"  K2 bf16 causal, us by head_dim (best of 3 x 50 calls) in {tree}: "
+              f"{run.stdout.strip()}", flush=True)
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--k2-against"]:
+        return k2_against(sys.argv[2])
     src = ROOT / "src"
     if not (src / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {__file__}: run from a checkout of the repository")
@@ -867,6 +1138,7 @@ def main() -> int:
     qwen = get_config("qwen1.5-0.5b")
     falcon = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=FALCON_LAYERS)
     deepseek = dataclasses.replace(get_config("deepseek-moe-16b"), n_layers=DEEPSEEK_LAYERS)
+    qwen3 = get_config("qwen3-1b")
     results.update(phase_gmm_kernels(torch, mg, deepseek))
     # per step with remat="full": each layer's kernels run in the forward
     # and again in its recompute; the final norm runs once.  An MoE layer
@@ -882,8 +1154,10 @@ def main() -> int:
              (deepseek, {**none, "rmsnorm": (4 * deepseek.n_layers + 1) * STEPS,
                          "flash_attention": 2 * deepseek.n_layers * STEPS,
                          "moe_gmm": 6 * deepseek.n_layers * STEPS,
-                         "moe_gmm_bwd": 6 * deepseek.n_layers * STEPS})]
-    for (cfg, want), tag in zip(paths, ("3", "3b", "3c")):
+                         "moe_gmm_bwd": 6 * deepseek.n_layers * STEPS}),
+             (qwen3, {**none, "rmsnorm": (4 * qwen3.n_layers + 1) * STEPS,
+                      "flash_attention": 2 * qwen3.n_layers * STEPS})]
+    for (cfg, want), tag in zip(paths, ("3", "3b", "3c", "3d")):
         phase(f"{tag}/5 full-width training: {cfg.name}, {cfg.n_layers} layers")
         counts[cfg.name], train = phase_train(torch, cfg, want)
         phase(f"5/5 where a full-width {cfg.name} step's device time goes")
@@ -891,6 +1165,11 @@ def main() -> int:
         del train                      # free this path's state before the next one
         gc.collect()
         torch.cuda.empty_cache()
+
+    phase("3e/5 Piper IR: the qwen3-1b proxy traced on meta tensors, chunks of real layers")
+    counts["ir"] = {**none, **phase_ir(torch)}
+    gc.collect()
+    torch.cuda.empty_cache()
 
     phase("4/5 training CLI")
     phase_cli(torch)
@@ -912,8 +1191,8 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        **{key: r[key] for key in ("tflops", "two_bmm_ms", "max_abs_err_fp32_p",
-                                                   "at_head_dim_128") if key in r}})
+                        **{key: r[key] for key in r if key.startswith("at_")
+                           or key in ("tflops", "two_bmm_ms", "max_abs_err_fp32_p")}})
     phase("done")
     print(gpu_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -15,7 +15,8 @@ ARCHS = [
     "qwen3-1b", "qwen3-9b",
 ]
 
-PORTED = ["qwen1.5-0.5b", "falcon-mamba-7b", "deepseek-moe-16b", "dbrx-132b"]
+PORTED = ["minicpm-2b", "qwen1.5-0.5b", "qwen2.5-32b", "granite-20b", "dbrx-132b",
+          "deepseek-moe-16b", "falcon-mamba-7b", "qwen3-1b", "qwen3-9b"]
 
 
 def get_config(name: str):

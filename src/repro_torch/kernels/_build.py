@@ -98,6 +98,16 @@ def build(verbose: bool = False) -> float:
     return time.perf_counter() - t0
 
 
+def takes_plain(*tensors) -> bool:
+    """True when every given tensor (None skipped) lies on the CPU, or
+    every one on the meta device: a kernel's wrapper then runs its plain
+    version, which on meta tensors computes shapes only (the IR traces
+    regions that way).  Anything else goes to the kernel's own checks,
+    which launch on one CUDA device or raise."""
+    devs = {t.device for t in tensors if t is not None}
+    return len(devs) == 1 and next(iter(devs)).type in ("cpu", "meta")
+
+
 def aligned(t):
     """Tensor ``t`` contiguous at a 16-byte aligned address, the rule of
     TMA's tensor maps (a fresh allocation meets it)."""

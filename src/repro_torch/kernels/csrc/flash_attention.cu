@@ -12,11 +12,22 @@
 // kpos <= qpos + q_offset.  Writing lse lets the backward skip a second
 // forward.  KV tiles wholly above the causal diagonal are skipped.
 //
+// Head dims: every D with D % 8 == 0 and 8 <= D <= 128.  Each kernel is
+// instantiated at DPAD = 64 and 128 and runs a D on the next of the two:
+// the columns D..DPAD-1 of q, k and v are zeros (the bf16 tensor maps have
+// D columns and zero-fill the rest of each 64-column box; the fp32 kernel
+// fills them itself), so they add nothing to q k^T and give zero output
+// columns, which are not stored.  A padded D pays DPAD's matmul work (80
+// runs as 128).  D % 8 == 0 keeps TMA's global row stride a multiple of
+// 16 bytes.  The bf16 kernel keeps D = 64 and 128 on instantiations of
+// their own (kPad false): sharing the padded one's runtime row stride and
+// column test made them a few per cent slower on the H100.
+//
 // Bound on the H100: at the training shapes (S = 1024, causal) the bytes
 // of q, k, v, out and lse bound the call (10.1 us at D = 64, 20.1 us at
 // D = 128), the tensor-core flops of the two products close behind.
 //
-// bf16: tensor cores fed by TMA (flash_fwd_wgmma_kernel), D = 64 or 128.
+// bf16: tensor cores fed by TMA (flash_fwd_wgmma_kernel), DPAD = 64 or 128.
 // A block of 288 threads owns 128 query rows of one (b, h): two consumer
 // warpgroups of 64 rows and one producer warp.  TMA loads the q tile once
 // and streams K and V tiles of BN keys (128 at D = 64, 64 at D = 128)
@@ -44,7 +55,8 @@
 // BQ = 64 query rows with 4 threads per row (each owns D/4 interleaved
 // dims of q and of the accumulator, in registers), stages BK = 32 keys and
 // values in shared memory, and reduces each score across its 4 threads
-// with two shuffles.
+// with two shuffles.  Rows of q, k, v and out are D long; the thread's
+// DPAD/4 dims past D are zeros in registers and in the shared tiles.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -69,8 +81,9 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                 int hq, int hkv, int sq, int skv, int causal, int q_offset,
+                 int hq, int hkv, int sq, int skv, int d, int causal, int q_offset,
                  float scale) {
+  // D is the padded head dim (shared tiles and registers), d <= D the true one
   constexpr int DP = D / kTPR;  // dims owned by one thread
   __shared__ T ks[kBK * D];
   __shared__ T vs[kBK * D];
@@ -85,13 +98,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool row_ok = qi < sq;
   const int qpos = qi + q_offset;
 
-  const size_t qbase = (static_cast<size_t>(bh) * sq + (row_ok ? qi : 0)) * D;
-  const size_t kvbase = static_cast<size_t>(b * hkv + h / n_rep) * skv * D;
+  const size_t qbase = (static_cast<size_t>(bh) * sq + (row_ok ? qi : 0)) * d;
+  const size_t kvbase = static_cast<size_t>(b * hkv + h / n_rep) * skv * d;
 
   float qr[DP], acc[DP];
 #pragma unroll
   for (int i = 0; i < DP; ++i) {
-    qr[i] = to_f(q[qbase + i * kTPR + part]) * scale;
+    const int col = i * kTPR + part;
+    qr[i] = col < d ? to_f(q[qbase + col]) * scale : 0.f;
     acc[i] = 0.f;
   }
   float m = kNegInf, l = 0.f;
@@ -103,9 +117,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = 0; k0 < kv_end; k0 += kBK) {
     __syncthreads();  // previous tile fully consumed
     for (int e = tid; e < kBK * D; e += kThreads) {
-      const int kp = k0 + e / D;
-      const bool in = kp < skv;
-      const size_t src = kvbase + static_cast<size_t>(kp) * D + e % D;
+      const int kp = k0 + e / D, col = e % D;
+      const bool in = kp < skv && col < d;
+      const size_t src = kvbase + static_cast<size_t>(kp) * d + col;
       ks[e] = in ? k[src] : from_f<T>(0.f);
       vs[e] = in ? v[src] : from_f<T>(0.f);
     }
@@ -147,7 +161,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (row_ok) {
     const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int i = 0; i < DP; ++i) o[qbase + i * kTPR + part] = from_f<T>(acc[i] / denom);
+    for (int i = 0; i < DP; ++i) {
+      const int col = i * kTPR + part;
+      if (col < d) o[qbase + col] = from_f<T>(acc[i] / denom);
+    }
     if (part == 0) lse[static_cast<size_t>(bh) * sq + qi] = m + logf(denom);
   }
 }
@@ -161,14 +178,12 @@ int launch_fp32(const void* q, const void* k, const void* v, void* o, void* lse,
   const float* vp = static_cast<const float*>(v);
   float* op = static_cast<float*>(o);
   float* lp = static_cast<float*>(lse);
-  if (d == 64) {
+  if (d <= 64) {
     flash_fwd_kernel<float, 64><<<grid, block, 0, s>>>(qp, kp, vp, op, lp, hq, hkv, sq, skv,
-                                                       causal, q_offset, scale);
-  } else if (d == 128) {
-    flash_fwd_kernel<float, 128><<<grid, block, 0, s>>>(qp, kp, vp, op, lp, hq, hkv, sq, skv,
-                                                        causal, q_offset, scale);
+                                                       d, causal, q_offset, scale);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    flash_fwd_kernel<float, 128><<<grid, block, 0, s>>>(qp, kp, vp, op, lp, hq, hkv, sq, skv,
+                                                        d, causal, q_offset, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -207,14 +222,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // Shared memory: q as [D/64][128 rows][64], then per stage K and V, each
-// [D/64][BN keys][64]; every block of 64 columns is one TMA box.
-template <int D>
+// [D/64][BN keys][64]; every block of 64 columns is one TMA box.  D is the
+// padded head dim; with kPad the tensors' rows hold d < D columns, and the
+// boxes' columns past d arrive as zeros.  Without kPad, d == D.
+template <int D, bool kPad>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
-                       float* __restrict__ lse, int hq, int hkv, int sq, int skv, int causal,
-                       int q_offset, float scale) {
+                       float* __restrict__ lse, int hq, int hkv, int sq, int skv, int d,
+                       int causal, int q_offset, float scale) {
   using T = TcShape<D>;
   constexpr int BN = T::kBN;
   extern __shared__ uint8_t smem_raw[];
@@ -348,32 +365,34 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const float denom = fmaxf(l[h], 1e-30f);
     const int row = row0 + 8 * h;
     if (row >= sq) continue;
-    __nv_bfloat16* orow = o + (obase + row) * D + 2 * (lane % 4);
+    __nv_bfloat16* orow = o + (obase + row) * (kPad ? d : D) + 2 * (lane % 4);
 #pragma unroll
-    for (int j = 2 * h; j < D / 2; j += 4)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * (j >> 2)) =
-          __floats2bfloat162_rn(oacc[j] / denom, oacc[j + 1] / denom);
+    for (int j = 2 * h; j < D / 2; j += 4)   // 8-column groups; d % 8 == 0
+      if (!kPad || 8 * (j >> 2) < d)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * (j >> 2)) =
+            __floats2bfloat162_rn(oacc[j] / denom, oacc[j + 1] / denom);
     if (lane % 4 == 0) lse[obase + row] = m[h] + logf(denom);
   }
 }
 
-template <int D>
+template <int D, bool kPad>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, void* lse, int b, int hq,
-                 int hkv, int sq, int skv, int causal, int q_offset, float scale,
+                 int hkv, int sq, int skv, int d, int causal, int q_offset, float scale,
                  cudaStream_t s) {
   using T = TcShape<D>;
+  // maps of d columns: a box's columns past d read as zeros
   CUtensorMap qmap, kmap, vmap;
-  int rc = encode_bf16_3d(&qmap, q, D, sq, static_cast<uint64_t>(b) * hq, 64, kTcBQ);
-  if (!rc) rc = encode_bf16_3d(&kmap, k, D, skv, static_cast<uint64_t>(b) * hkv, 64, T::kBN);
-  if (!rc) rc = encode_bf16_3d(&vmap, v, D, skv, static_cast<uint64_t>(b) * hkv, 64, T::kBN);
+  int rc = encode_bf16_3d(&qmap, q, d, sq, static_cast<uint64_t>(b) * hq, 64, kTcBQ);
+  if (!rc) rc = encode_bf16_3d(&kmap, k, d, skv, static_cast<uint64_t>(b) * hkv, 64, T::kBN);
+  if (!rc) rc = encode_bf16_3d(&vmap, v, d, skv, static_cast<uint64_t>(b) * hkv, 64, T::kBN);
   if (rc) return rc;
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+      flash_fwd_wgmma_kernel<D, kPad>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(b * hq, (sq + kTcBQ - 1) / kTcBQ);
-  flash_fwd_wgmma_kernel<D><<<grid, kTcThreads, T::kSmem, s>>>(
+  flash_fwd_wgmma_kernel<D, kPad><<<grid, kTcThreads, T::kSmem, s>>>(
       qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), hq, hkv, sq,
-      skv, causal, q_offset, scale);
+      skv, d, causal, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -384,23 +403,26 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
       (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (d == 64)
-    return launch_wgmma<64>(q, k, v, o, lse, b, hq, hkv, sq, skv, causal, q_offset, scale, s);
-  if (d == 128)
-    return launch_wgmma<128>(q, k, v, o, lse, b, hq, hkv, sq, skv, causal, q_offset, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+#define FLASH_WGMMA(D, PAD) \
+  launch_wgmma<D, PAD>(q, k, v, o, lse, b, hq, hkv, sq, skv, d, causal, q_offset, scale, s)
+  if (d == 64) return FLASH_WGMMA(64, false);
+  if (d == 128) return FLASH_WGMMA(128, false);
+  if (d < 64) return FLASH_WGMMA(64, true);
+  return FLASH_WGMMA(128, true);
+#undef FLASH_WGMMA
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); d must be
-// 64 or 128.  bf16 needs 16-byte aligned q, k, v and out.  Returns
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); d % 8 == 0
+// and 8 <= d <= 128.  bf16 needs 16-byte aligned q, k, v and out.  Returns
 // cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int b, int hq, int hkv, int sq, int skv,
                                    int d, int causal, int q_offset, float scale,
                                    int dtype, void* stream) {
-  if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv || sq <= 0 || skv <= 0)
+  if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv || sq <= 0 || skv <= 0 || d < 8 || d > 128 ||
+      d % 8)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

@@ -4,7 +4,9 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``_flash_fwd_kernel`` / ``flash_attention_fwd_pallas``).  Source:
 ``csrc/flash_attention.cu``.  Unlike the TPU kernel it also returns the
 row logsumexp, so the backward needs no second forward.  Ragged Sq and
-Skv are taken; D must be 64 or 128.
+Skv are taken, and every head dim D with D % 8 == 0 and 8 <= D <= 128:
+each kernel is built for D = 64 and 128 and runs a D on the next of the
+two, with the columns past D read as zeros (``head_dim_refusal``).
 
 Two hand-written kernels, chosen by dtype: bf16 runs on the tensor cores
 (``wgmma`` fed by TMA), fp32 on the CUDA cores (tensor cores would take
@@ -14,7 +16,8 @@ rounds P to bf16 before P.v and scales S after the product, and
 ``flash_attention_fwd_plain`` repeats both for bf16 inputs.
 
 ``flash_attention_fwd`` launches a kernel on CUDA tensors and uses the
-plain PyTorch version ``flash_attention_fwd_plain`` on CPU tensors.
+plain PyTorch version ``flash_attention_fwd_plain`` on CPU tensors and on
+meta tensors (shapes only, as the IR's tracing runs it).
 ``launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -27,7 +30,7 @@ from ..models.attention import NEG_INF, repeat_kv
 from . import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+PADDED_HEAD_DIMS = (64, 128)   # the kernels' instantiations
 TC_ROWS = 128            # query rows per block of the bf16 kernel
 GRID_Y = 65535           # CUDA's limit on gridDim.y
 
@@ -74,15 +77,26 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = True, q_offset: int = 0
     return out.to(q.dtype), m + torch.log(l)
 
 
+def head_dim_refusal(d: int) -> str | None:
+    """Why neither kernel takes head dim ``d``, or None: d must fit the
+    larger instantiation and be a multiple of 8, so that TMA's rows of d
+    bf16 values are a multiple of 16 bytes."""
+    if d % 8 or not 8 <= d <= PADDED_HEAD_DIMS[-1]:
+        return (f"head_dim {d} is not a multiple of 8 in "
+                f"[8, {PADDED_HEAD_DIMS[-1]}]")
+    return None
+
+
 def tc_refusal(q_shape) -> str | None:
     """Why the bf16 tensor-core kernel would not take q (B, Hq, Sq, D), or
     None if it takes it: the shape rules of that kernel alone, beside the
-    wrapper's checks of devices, dtypes and k's shape.  TMA reads rows of
-    a multiple of 16 bytes, which D in ``HEAD_DIMS`` gives, and gridDim.y
-    counts blocks of ``TC_ROWS`` query rows."""
+    wrapper's checks of devices, dtypes and k's shape.  D follows
+    ``head_dim_refusal``, and gridDim.y counts blocks of ``TC_ROWS`` query
+    rows."""
     d, sq = q_shape[3], q_shape[2]
-    if d not in HEAD_DIMS:
-        return f"head_dim {d} not in {HEAD_DIMS}"
+    why = head_dim_refusal(d)
+    if why:
+        return why
     if -(-sq // TC_ROWS) > GRID_Y:
         return f"Sq = {sq} needs more than {GRID_Y} blocks of {TC_ROWS} query rows"
     return None
@@ -102,7 +116,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0):
     """q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D) with Hq % Hkv == 0.
     Returns (out in q's dtype, lse in fp32 (B, Hq, Sq))."""
     global launches
-    if q.device.type == "cpu":
+    if _build.takes_plain(q, k, v):
         return flash_attention_fwd_plain(q, k, v, causal=causal, q_offset=q_offset)
     _check(q, k, v, causal, q_offset)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
@@ -119,8 +133,9 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0):
             raise ValueError(f"flash attention kernel: {why}")
         q, k, v = _build.aligned(q), _build.aligned(k), _build.aligned(v)
     else:
-        if d not in HEAD_DIMS:
-            raise ValueError(f"flash attention kernel: head_dim {d} not in {HEAD_DIMS}")
+        why = head_dim_refusal(d)
+        if why:
+            raise ValueError(f"flash attention kernel: {why}")
         if b * hq > 65535:
             raise ValueError(f"flash attention kernel: B*Hq = {b * hq} exceeds the grid")
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()

@@ -30,7 +30,7 @@ per channel each warp is latency-bound (PERF.md has the times).
 
 ``mamba_scan_fwd`` and ``mamba_scan_bwd`` launch the kernels on CUDA
 tensors and use the plain PyTorch versions ``mamba_scan_plain`` and
-``mamba_scan_bwd_plain`` on CPU tensors.  ``launches`` and
+``mamba_scan_bwd_plain`` on CPU or meta tensors.  ``launches`` and
 ``bwd_launches`` count kernel launches.
 """
 from __future__ import annotations
@@ -165,7 +165,7 @@ def mamba_scan_fwd(x, dt, A, B, C, h0=None, save_states: bool = False):
     or None.  Returns (y in x's dtype without x*D, hT fp32, chunk states
     (B, ceil(S/CHUNK), C, N) fp32 if ``save_states`` else None)."""
     global launches
-    if x.device.type == "cpu":
+    if _build.takes_plain(x, dt, A, B, C, h0):
         return mamba_scan_plain(x, dt, A, B, C, h0, save_states)
     _check(x, dt, A, B, C, h0)
     _check_kernel(x, dt, A, B, C, h0)
@@ -192,7 +192,7 @@ def mamba_scan_bwd(x, dt, A, B, C, hs, dy, dhT=None):
     states ``hs``: returns (dx, ddt, dA, dB, dC, dh0), each in its
     input's dtype (dA and dh0 fp32)."""
     global bwd_launches
-    if x.device.type == "cpu":
+    if _build.takes_plain(x, dt, A, B, C, hs, dy, dhT):
         return mamba_scan_bwd_plain(x, dt, A, B, C, hs, dy, dhT)
     _check(x, dt, A, B, C, None)
     _check_kernel(x, dt, A, B, C, hs, dy, dhT)

@@ -18,7 +18,7 @@ a call; one it does not take raises.
 
 ``moe_gmm_fwd`` and ``moe_gmm_bwd`` launch the kernel on CUDA tensors
 and use the plain PyTorch versions ``moe_gmm_plain`` and
-``moe_gmm_bwd_plain`` on CPU tensors.  ``launches`` and
+``moe_gmm_bwd_plain`` on CPU or meta tensors.  ``launches`` and
 ``bwd_launches`` count kernel launches.
 """
 from __future__ import annotations
@@ -109,14 +109,10 @@ def _launch(a, b, c, m, n, k, trans_a, trans_b):
         raise RuntimeError(f"moe_gmm kernel launch failed: CUDA error {rc}")
 
 
-def _on_cpu(*tensors) -> bool:
-    return all(t.device.type == "cpu" for t in tensors)
-
-
 def moe_gmm_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (E, M, K) @ w (E, K, N) -> (E, M, N) in x's dtype."""
     global launches
-    if _on_cpu(x, w):
+    if _build.takes_plain(x, w):
         return moe_gmm_plain(x, w)
     x, w = _admit(x, w)
     e, m, k = x.shape
@@ -132,7 +128,7 @@ def moe_gmm_bwd(x, w, dy, need_dx: bool = True, need_dw: bool = True):
     """Gradients of ``moe_gmm_fwd`` from dy (E, M, N): (dx (E, M, K),
     dw (E, K, N)), each one launch, or None where not asked for."""
     global bwd_launches
-    if _on_cpu(x, w, dy):
+    if _build.takes_plain(x, w, dy):
         return moe_gmm_bwd_plain(x, w, dy, need_dx, need_dw)
     x, w, dy = _admit(x, w, dy)
     e, m, k = x.shape

@@ -7,7 +7,10 @@ analytic VJP of ``rmsnorm_ref`` in PyTorch.  ``mamba_scan``: forward
 is kernel K4, backward is kernel K4-bwd from the chunk states K4 saves.
 ``moe_gmm``: forward and backward are kernel K3 (its backward in two
 transposed-operand layouts).  On CPU tensors every kernel uses its
-plain version.
+plain version, and on meta tensors (the IR's tracing) its plain version's
+shapes.  The Piper IR's backward chunks differentiate these Functions
+with ``torch.autograd.grad`` (``core.autodiff``), so a chunk over a
+decoder layer launches K1 and K2 on the card.
 ``register_kernels`` swaps them into the model layers' impl registry.
 """
 from __future__ import annotations
@@ -42,7 +45,7 @@ def flash_attention(q, k, v, *, causal=True, q_offset=0, sm_scale=None,
                     window=None, block_kv=128):
     check_scale(q.shape[-1], sm_scale)
     if window is not None:
-        if q.device.type != "cpu":
+        if q.device.type not in ("cpu", "meta"):
             raise NotImplementedError("the flash kernel has no sliding window yet")
         return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
                                    window=window, block_kv=block_kv)

@@ -7,7 +7,7 @@ and writes y once); the kernel runs one warp per row with 16-byte
 accesses, so each row leaves device memory once.
 
 ``rmsnorm_fwd`` launches the kernel on a CUDA tensor and uses the plain
-PyTorch version on a CPU tensor.  ``launches`` counts kernel launches.
+PyTorch version on a CPU or meta tensor.  ``launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ def _lib():
 def rmsnorm_fwd(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """x: (..., D), w: (D,) of x's dtype."""
     global launches
-    if x.device.type == "cpu":
+    if _build.takes_plain(x, w):
         return rmsnorm_plain(x, w, eps)
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"rmsnorm kernel: x on {x.device}, w on {w.device}")

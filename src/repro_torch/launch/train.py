@@ -7,7 +7,8 @@ the fault-tolerance supervisor — through the CUDA kernels.
       --steps 200 --d-model 256 --layers 4
 
 It runs on ``cuda`` unless ``--device cpu`` is given (the kernels then
-use their plain versions).  A mid-run injected failure (--fail-at)
+use their plain versions).  MiniCPM trains with its WSD schedule, every
+other arch with cosine, as in the JAX driver.  A mid-run injected failure (--fail-at)
 demonstrates checkpoint-restart on the exact same data stream.
 """
 from __future__ import annotations
@@ -26,7 +27,7 @@ from ..data import SyntheticTokenSource, TokenLoader
 from ..ft import FailureInjector, Supervisor
 from ..kernels.ops import register_kernels
 from ..models import init, train_loss
-from ..optim import adamw_init, adamw_update, cosine_schedule
+from ..optim import adamw_init, adamw_update, cosine_schedule, wsd_schedule
 from ..tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -85,7 +86,10 @@ def run(argv=None) -> tuple[Supervisor, dict]:
     params = init(cfg, gen, dev)
     state = {"params": params, "opt": adamw_init(params),
              "step": torch.zeros((), dtype=torch.int32, device=dev)}
-    step_fn = build_step(cfg, cosine_schedule(args.lr, args.steps), dev)
+    lr_fn = (wsd_schedule(args.lr, args.steps)
+             if "minicpm" in args.arch else
+             cosine_schedule(args.lr, args.steps))
+    step_fn = build_step(cfg, lr_fn, dev)
 
     loader = TokenLoader(SyntheticTokenSource(cfg.vocab, seed=17),
                          batch=args.batch, seq=args.seq)

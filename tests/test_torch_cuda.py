@@ -46,6 +46,11 @@ def test_rmsnorm_kernel_matches_plain(dev, shape, dtype):
     (1, 8, 2, 100, 300, 64, True),
     (1, 2, 2, 32, 48, 128, False),
     (2, 4, 2, 40, 72, 128, True),
+    # head dims run on a padded instantiation: 32 and 80 (zamba2), GQA
+    # and MQA, ragged and non-causal
+    (2, 4, 2, 40, 72, 32, True),
+    (1, 4, 4, 130, 130, 80, True),
+    (1, 48, 1, 64, 100, 80, False),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(dev, b, hq, hkv, sq, skv, d, causal, dtype):
@@ -59,6 +64,23 @@ def test_flash_kernel_matches_plain(dev, b, hq, hkv, sq, skv, d, causal, dtype):
     want, want_lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal, q_offset=off)
     torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
     torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])   # fp32 on both sides
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_takes_every_head_dim_of_eight(dev, dtype):
+    """Every d % 8 == 0 up to 128, one launch each, against the plain
+    version: none goes to a library call or to the plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    for d in range(8, 129, 8):
+        q = _randn((1, 4, 70, d), dtype, dev, seed=d)
+        k, v = (_randn((1, 2, 90, d), dtype, dev, seed=d + i) for i in (1, 2))
+        before = fa.launches
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=True, q_offset=20)
+        torch.cuda.synchronize()
+        assert fa.launches == before + 1, d
+        want, want_lse = fa.flash_attention_fwd_plain(q, k, v, causal=True, q_offset=20)
+        torch.testing.assert_close(out.float(), want.float(), **TOL[dtype], msg=str(d))
+        torch.testing.assert_close(lse, want_lse, **TOL[torch.float32], msg=str(d))
 
 
 def test_flash_grads_match_reference(dev):
@@ -83,7 +105,7 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     x = _randn((4, 64), torch.bfloat16, dev)
     with pytest.raises(TypeError):
         rn.rmsnorm_fwd(x, torch.ones(64, device=dev))           # dtype mismatch
-    q = _randn((1, 2, 16, 32), torch.float32, dev)
+    q = _randn((1, 2, 16, 256), torch.float32, dev)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_fwd(q, q, q)
     q = _randn((1, 2, 16, 64), torch.float32, dev)
@@ -280,7 +302,7 @@ def test_tc_kernels_refuse_bf16_shapes_they_do_not_take(dev):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as mg
     before = (fa.launches, mg.launches)
-    q = _randn((1, 2, 16, 32), torch.bfloat16, dev)
+    q = _randn((1, 2, 16, 36), torch.bfloat16, dev)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_fwd(q, q, q)
     x = _randn((2, 16, 36), torch.bfloat16, dev)
@@ -289,3 +311,41 @@ def test_tc_kernels_refuse_bf16_shapes_they_do_not_take(dev):
     with pytest.raises(ValueError, match="multiples of 8"):
         mg.moe_gmm_fwd(x[:, :, :32].contiguous(), _randn((2, 32, 20), torch.bfloat16, dev))
     assert (fa.launches, mg.launches) == before
+
+
+@pytest.mark.parametrize("remat", ["full", "none"])
+def test_ir_chunk_backward_runs_k2(dev, remat):
+    """A Piper chunk over attention: its B chunk differentiates through
+    K2 on the card.  Under remat "full" B re-runs the forward (one K2
+    launch); under "none" it reads the saved q, k, v, out and lse from the
+    stash forward's residual slots (no launch).  Its gradients equal
+    autograd's through the same call."""
+    from repro_torch import core
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    def attn(p, q):
+        return ops.flash_attention(q * p["s"], q, q, causal=True)
+
+    def forward(rec, tvs):
+        return rec.region(attn, "b", name="attn")(tvs["q"])
+
+    s = torch.ones((), dtype=torch.bfloat16, device=dev) * 1.5
+    q = _randn((2, 4, 128, 80), torch.bfloat16, dev)
+    cot = _randn(q.shape, torch.bfloat16, dev, seed=1)
+    dag = core.build_dag(forward, {"b": {"s": s}}, {"q": (tuple(q.shape), "bfloat16")},
+                         remat=remat)
+    f = next(n for n in dag.chunks() if n.dims["PASS"] == "F")
+    b = dag.nodes[f.meta["bwd_node"]]
+    before = fa.launches
+    outs = f.fn({"s": s}, q)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    args = (q, cot) if remat == "full" else (*outs[1:], cot)
+    grads, dq = b.fn({"s": s}, *args)
+    torch.cuda.synchronize()
+    assert fa.launches == before + (2 if remat == "full" else 1)
+    sr, qr = s.clone().requires_grad_(True), q.clone().requires_grad_(True)
+    want = torch.autograd.grad(attn({"s": sr}, qr), [sr, qr], cot)
+    torch.testing.assert_close(grads["s"].float(), want[0].float(), atol=0, rtol=0)
+    torch.testing.assert_close(dq.float(), want[1].float(), atol=0, rtol=0)

@@ -30,9 +30,26 @@ def test_importing_every_module_loads_no_jax():
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k == 'repro' or k.startswith('repro.') or k == 'ml_dtypes')\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 25, mods\n"
+        "assert len(mods) >= 40, mods\n"
         "assert 'repro_torch.kernels.moe_gmm' in mods, mods\n"
         "print(len(mods))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("package", ["repro_torch.core", "repro_torch.analysis",
+                                     "repro_torch.tune"])
+def test_piper_subpackages_load_no_jax(package):
+    """The Piper IR of the port (tracing, autodiff, directives, passes,
+    overlap, the certifier, the proxy) stands alone as well."""
+    code = (f"import sys, importlib\n"
+            f"m = importlib.import_module({package!r})\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+            "             or k == 'repro' or k.startswith('repro.'))\n"
+            "assert not bad, bad\n"
+            "assert m.__all__\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)

@@ -111,17 +111,24 @@ class TestAdmission:
         assert fa.tc_refusal((b, hq, sq, d)) is None
 
     def test_flash_refuses(self):
-        assert "head_dim" in fa.tc_refusal((1, 2, 16, 32))
-        assert "head_dim" in fa.tc_refusal((1, 2, 16, 96))
+        for d in (4, 36, 136, 256):
+            assert "head_dim" in fa.tc_refusal((1, 2, 16, d))
         assert "blocks" in fa.tc_refusal((1, 1, 128 * 65536, 64))
-        # mixed devices and dtypes fail the wrapper's checks before any launch
+        # mixed devices fail the wrapper's checks before any launch
         q, k = _meta((1, 2, 16, 64)), _meta((1, 2, 16, 64))
         with pytest.raises(ValueError, match="q on meta, k on meta, v on cpu"):
             fa.flash_attention_fwd(q, k, torch.zeros(k.shape, dtype=torch.bfloat16))
-        with pytest.raises(ValueError, match="q on meta"):
-            fa.flash_attention_fwd(q, k, _meta(k.shape))
+        # all on meta: the plain version's shapes, as the IR's tracing sees them
+        out, lse = fa.flash_attention_fwd(q, k, _meta(k.shape))
+        assert (out.device.type, out.shape, out.dtype) == ("meta", q.shape, q.dtype)
+        assert (lse.shape, lse.dtype) == ((1, 2, 16), torch.float32)
         with pytest.raises(ValueError, match="head grouping"):
             fa.flash_attention_fwd(q, _meta((1, 2, 16, 32)), _meta((1, 2, 16, 32)))
+
+    @pytest.mark.parametrize("d", [8, 32, 72, 80, 120, 128])
+    def test_flash_takes_every_head_dim_of_eight(self, d):
+        assert fa.head_dim_refusal(d) is None
+        assert fa.tc_refusal((4, 16, 1024, d)) is None
 
     @pytest.mark.parametrize("e,m,k,n", _gmm_shapes())
     def test_gmm_takes_model_and_jax_grid_shapes(self, e, m, k, n):
@@ -137,5 +144,5 @@ class TestAdmission:
             mg.moe_gmm_fwd(x, w)
         with pytest.raises(ValueError, match="one CUDA device"):
             mg.moe_gmm_bwd(x, _meta(w.shape), torch.zeros((4, 32, 128)))
-        with pytest.raises(ValueError, match="one CUDA device"):
-            mg.moe_gmm_fwd(x, _meta(w.shape))
+        # all on meta: the plain version's shapes
+        assert mg.moe_gmm_fwd(x, _meta(w.shape)).shape == (4, 32, 128)
