@@ -36,14 +36,23 @@ their plain versions:
 The kernel phase runs K2 at every head dim the paths and configs give
 it — 64, 128, qwen3-1b's GQA, granite-20b's MQA, and 32 and 80, which
 run on a padded instantiation — each against its plain version and
-timed beside SDPA.  Then the Piper IR phase traces the qwen3-1b proxy
-at full width on meta tensors (no device memory may move), rewrites it
-for a pp 4 x dp 2, ZeRO-3, 8-microbatch 1F1B plan with the overlap
-engine and holds its chunk and comm counts and dataflow fingerprint to
-the JAX package's (``IR_CASE``); and it runs the F and B chunk
-functions of a region over two real qwen3-1b layers, under remat
-"full" and "none", counting their K1 and K2 launches and holding their
-gradients to autograd's.  Last it runs the training CLI at its defaults
+timed beside SDPA, and the fp32 K2 at head_dim 128 beside fp32 SDPA.
+Then the Piper IR phase traces the qwen3-1b proxy at full width on meta
+tensors (no device memory may move), compiles it from a Strategy
+document (pp 4 x dp 2, ZeRO-3, 8-microbatch 1F1B, the overlap engine)
+and holds its chunk and comm counts and dataflow fingerprint to the JAX
+package's (``IR_CASE``); and it runs the F and B chunk functions of a
+region over two real qwen3-1b layers, under remat "full" and "none",
+counting their K1 and K2 launches and holding their gradients to
+autograd's.  The Piper runtime phase (3f) runs that Strategy's program
+on the ``reference`` executor with real draws for the proxy's weights,
+then trains qwen3-1b's 28 layers in bf16 (and 4 layers in fp32) as a
+Piper forward of four stage regions through a pp 4 x dp 2 1F1B ZeRO-3
+Strategy on the interpreter, one card simulating the eight logical
+devices, under remat "full" and "none": the loss and every gradient
+leaf held to ``train_loss``'s autograd, exact K1 and K2 launch counts,
+the replayed dispatch order equal to the run's, and a profile of one
+stash forward and backward.  Last it runs the training CLI at its defaults
 for the ported archs, qwen3-1b, minicpm-2b (its WSD schedule checked
 step by step) and ``--d-model 128`` (head_dim 32).  It prints the card's
 name and power limit, one JSON line of kernel numbers, and as its last
@@ -186,6 +195,18 @@ IR_CASE = {"arch": "qwen3-1b", "pp": 4, "dp": 2, "zero": 3, "n_mb": 8,
 IR_GRAD_RTOL = 1e-3
 
 
+def ir_strategy(core):
+    """IR_CASE as a Strategy document: one stage per pipeline rank (the
+    Pipeline fragment's default is two), 1F1B, ZeRO-3, the overlap engine
+    at its defaults.  ``core`` is a package's core module.  It lowers to
+    the plan of ``pipeline_directives``, which the CPU tests hold (the
+    same fingerprint)."""
+    c = IR_CASE
+    return core.Strategy(core.Mesh(pp=c["pp"], dp=c["dp"]),
+                         core.Pipeline("1f1b", n_mb=c["n_mb"], n_stages=c["pp"])
+                         | core.ZeRO(stage=c["zero"]) | core.Overlap())
+
+
 def one_f_one_b(rank: int, n_ranks: int, n_mb: int) -> list:
     """(mb, pass) of one pipeline rank's 1F1B order: warm-up forwards,
     then one backward and one forward in turn."""
@@ -202,8 +223,10 @@ def one_f_one_b(rank: int, n_ranks: int, n_mb: int) -> list:
 
 def pipeline_directives(core, pp: int, dp: int, n_mb: int, zero: int, *,
                         split_backward: bool = False, ep_stages=()) -> list:
-    """Place stage s of ``pp`` on devices [s*dp, (s+1)*dp), replicate it
-    there at ZeRO stage ``zero`` (0 and 1 alike: gradients all-reduced; 2
+    """The hand-written directive list the CPU tests hold beside the
+    Strategy spelling (``ir_strategy``).  Place stage s of ``pp`` on
+    devices [s*dp, (s+1)*dp), replicate it there at ZeRO stage ``zero``
+    (0 and 1 alike: gradients all-reduced; 2
     reduce-scattered; 3 also gathers the parameters), Shard the expert
     chunks of ``ep_stages`` over the same group, Split into ``n_mb``
     microbatches and Order each stage 1F1B (a backward is Bi then Bw when
@@ -307,25 +330,32 @@ def phase_kernels(torch, F, fa, rn) -> dict:
                                               "max_abs_err_fp32_p": p_err}
             if dt == torch.bfloat16 and (b, hq, hkv, sq, d) in FLASH_TIMED:
                 p_errs[(hq, hkv, d)] = p_err
+            if dt == torch.float32 and (b, hq, hkv, sq, d) == (BATCH, 16, 16, SEQ, 128):
+                fp32_err = max(err, lse_err)
 
-    def flash_times(hq: int, hkv: int, d: int) -> dict:
+    def flash_times(hq: int, hkv: int, d: int, dt=torch.bfloat16) -> dict:
         """K2, its plain version and SDPA at (BATCH, hq/hkv, SEQ, d) causal
-        bf16.  The bound counts the true d: a padded d's MMA work (80 runs
-        as 128) shows as distance from it."""
-        q = randn((BATCH, hq, SEQ, d), torch.bfloat16)
-        k, v = (randn((BATCH, hkv, SEQ, d), torch.bfloat16) for _ in range(2))
+        in ``dt``.  The bound counts the true d: a padded d's MMA work (80
+        runs as 128) shows as distance from it.  fp32 K2 runs on the CUDA
+        cores, so its bound takes the fp32 rate."""
+        q = randn((BATCH, hq, SEQ, d), dt)
+        k, v = (randn((BATCH, hkv, SEQ, d), dt) for _ in range(2))
         pairs = BATCH * hq * SEQ * (SEQ + 1) // 2      # causal (query, key) pairs computed
         # q, k, v, out, lse
         n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + BATCH * hq * SEQ * 4
+        rate = BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS
         timed = dict(
             ms=cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal=True)),
             plain_ms=cuda_ms(torch, lambda: fa.flash_attention_fwd_plain(q, k, v, causal=True)),
             library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=hq != hkv)),
-            **bound(n_bytes, 4 * d * pairs / BF16_FLOPS))
+            **bound(n_bytes, 4 * d * pairs / rate))
         timed["tflops"] = 4 * d * pairs / timed["ms"] / 1e9
-        timed["max_abs_err_fp32_p"] = p_errs[(hq, hkv, d)]
-        print(f"  flash {(BATCH, f'{hq}/{hkv}', SEQ, d)} causal bf16: kernel "
+        if dt == torch.bfloat16:
+            timed["max_abs_err_fp32_p"] = p_errs[(hq, hkv, d)]
+        else:
+            timed["max_abs_err"] = fp32_err
+        print(f"  flash {(BATCH, f'{hq}/{hkv}', SEQ, d)} causal {str(dt)[6:]}: kernel "
               f"{timed['ms']:.4f} ms ({timed['tflops']:.1f} TFLOP/s), plain "
               f"{timed['plain_ms']:.4f} ms, SDPA {timed['library_ms']:.4f} ms "
               f"(kernel/SDPA {timed['ms'] / timed['library_ms']:.2f}x), bound "
@@ -337,6 +367,9 @@ def phase_kernels(torch, F, fa, rn) -> dict:
     for (b, hq, hkv, sq, d), key in FLASH_TIMED.items():
         if key:
             results["flash_attention"][key] = flash_times(hq, hkv, d)
+    # the fp32 instantiation phase 3f's fp32 check launches
+    results["flash_attention"]["at_fp32_head_dim_128"] = flash_times(16, 16, 128,
+                                                                     torch.float32)
     return results
 
 
@@ -883,10 +916,11 @@ def phase_cli(torch) -> None:
 
 def phase_ir(torch) -> dict:
     """The Piper IR on the card.  (1) The qwen3-1b proxy at full width
-    traced on meta tensors and rewritten by IR_CASE's directives and
-    ``run_all`` with overlap: no byte of device memory moves, and the
-    chunk and comm counts and the fingerprint are IR_CASE's (which
-    tests/test_torch_ir.py holds to the JAX package's).  (2) A region
+    traced on meta tensors and compiled from IR_CASE's Strategy document
+    (``ir_strategy``, through ``to_json``/``from_json``; the same plan as
+    ``pipeline_directives``, which the CPU tests hold): no byte of device
+    memory moves, and the chunk and comm counts and the fingerprint are
+    IR_CASE's (which tests/test_torch_ir.py holds to the JAX package's).  (2) A region
     over two real qwen3-1b decoder layers, weights on the card, under
     remat "full" and "none": its F and B chunk functions launch K1 and K2
     exactly as the layers call them, and the B chunk's gradients equal
@@ -903,23 +937,18 @@ def phase_ir(torch) -> dict:
 
     c = IR_CASE
     cfg = get_config(c["arch"])
-    sm = proxy.decompose(cfg, c["pp"])
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    act = ((c["tokens"], cfg.d_model), proxy.PROXY_DTYPE)
-    dag = core.build_dag(proxy.make_proxy_forward(sm), proxy.make_proxy_params(sm),
-                         {"x": act, "y": act},
-                         pipeline_directives(core, c["pp"], c["dp"], c["n_mb"], c["zero"]),
-                         overlap=core.OverlapConfig())
+    strategy = core.Strategy.from_json(ir_strategy(core).to_json())
+    dag = proxy.build_strategy_program(cfg, strategy, c["tokens"])[0].dag
     build_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     moved = torch.cuda.memory_allocated() - before
     stats, fp = dag.stats(), dataflow_fingerprint(dag)
     params = sum(b.param_elems for b in dag.buckets.values())
-    print(f"  {c['arch']} proxy ({params} parameters in {len(dag.buckets)} stage buckets) "
-          f"over pp {c['pp']} x dp {c['dp']}, ZeRO-{c['zero']}, {c['n_mb']} microbatches, "
-          f"1F1B, overlap: built in {build_s:.2f} s; {stats}; fingerprint "
+    print(f"  {c['arch']} proxy ({params} parameters in {len(dag.buckets)} stage buckets), "
+          f"strategy {strategy.to_json()}: compiled in {build_s:.2f} s; {stats}; fingerprint "
           f"{fp.digest()}; device memory moved {moved} bytes", flush=True)
     if moved:
         fail(f"IR: tracing the proxy moved {moved} bytes of device memory")
@@ -996,6 +1025,371 @@ def phase_ir(torch) -> dict:
         del outs, args, grads, dx
     ops.unregister_kernels()
     return counts
+
+
+# the Piper runtime phase (3f): a Strategy compiled to per-rank programs
+# and run on the reference interpreter, one card simulating every logical
+# device.  Part (b) trains qwen3-1b's 28 layers through the 1F1B ZeRO-3
+# plan of RUNTIME_CASE on one global batch of the synthetic stream.
+RUNTIME_CASE = {"pp": 4, "dp": 2, "n_mb": 8, "zero": 3, "batch": 16, "seq": 1024,
+                "seed": 17, "fp32_layers": 4}
+# interpreted step against ``train_loss``'s autograd on the same batch and
+# weights: (loss relative error, relative L2 error of each gradient leaf).
+# bf16 at phase 3d's limits (the two sum the microbatches' bf16 gradients
+# in different orders); fp32 at 4 layers, one per stage
+RUNTIME_RTOL = {"bfloat16": PLAIN_RTOL["bfloat16"], "float32": (1e-5, 1e-4)}
+
+
+def runtime_launches(n_layers: int, n_stages: int, n_mb: int, dp: int, remat: str) -> dict:
+    """K1 and K2 launches of one interpreted step, counted from the code:
+    the forward chunk of a stage with L_s layers runs 2·L_s rmsnorms (+1,
+    the final norm, on the last stage) and L_s attentions; under remat
+    "full" its backward chunk re-runs that forward (the flash and rmsnorm
+    backwards launch nothing), under "none" it reads the stash and
+    launches nothing.  Each chunk runs once per (microbatch, dp device)."""
+    per_stage = n_layers // n_stages
+    k1 = sum(2 * per_stage + (s == n_stages - 1) for s in range(n_stages))
+    k2 = n_layers
+    runs = n_mb * dp * (2 if remat == "full" else 1)
+    return {"rmsnorm": runs * k1, "flash_attention": runs * k2}
+
+
+# written down before the first run: 2·8·2·(2·28+1) and 2·8·2·28 under
+# "full", half of each under "none"
+assert runtime_launches(28, 4, 8, 2, "full") == {"rmsnorm": 1824, "flash_attention": 896}
+assert runtime_launches(28, 4, 8, 2, "none") == {"rmsnorm": 912, "flash_attention": 448}
+
+
+def qwen3_piper(cfg, n_stages: int):
+    """The decoder as a Piper forward over ``n_stages`` regions, each under
+    ``rec.annotate("pp")``: stage 0 the embedding and its layers, the last
+    stage its layers, the final rmsnorm, the tied logits and the
+    cross-entropy.  Returns (forward, buckets): ``buckets(params)`` slices
+    the stacked layers per stage; the tied embedding sits in stage 0's and
+    the last stage's buckets, so its gradient is the sum of theirs.  Each
+    region runs its layers without checkpointing: the Strategy's Remat
+    fragment decides what the backward chunk recomputes."""
+    from repro_torch.models.model import _ce_loss, _dec_layer, _unstack
+    from repro_torch.tree import tree_map
+    per = cfg.n_layers // n_stages
+    lcfg = dataclasses.replace(cfg, remat="none")
+
+    def layers(p, h):
+        for lp in _unstack(p["layers"], per):
+            h, _ = _dec_layer(lcfg, lp, h)
+        return h
+
+    def first(p, tokens):
+        return layers(p, p["embed"][tokens])
+
+    def last(p, h, labels):
+        return _ce_loss(lcfg, p, layers(p, h), labels)
+
+    def forward(rec, tvs):
+        with rec.annotate("pp"):
+            h = rec.region(first, "stage0", name="stage0")(tvs["tokens"])
+        for s in range(1, n_stages - 1):
+            with rec.annotate("pp"):
+                h = rec.region(layers, f"stage{s}", name=f"stage{s}")(h)
+        with rec.annotate("pp"):
+            return rec.region(last, f"stage{n_stages - 1}",
+                              name=f"stage{n_stages - 1}")(h, tvs["labels"])
+
+    def buckets(params):
+        out = {f"stage{s}": {"layers": tree_map(lambda t: t[s * per:(s + 1) * per],
+                                                params["layers"])}
+               for s in range(n_stages)}
+        out["stage0"]["embed"] = params["embed"]
+        out[f"stage{n_stages - 1}"].update(embed=params["embed"],
+                                           final_norm=params["final_norm"])
+        return out
+    return forward, buckets
+
+
+def merged_grads(torch, grads: dict, n_stages: int) -> dict:
+    """The interpreter's per-bucket gradients in the model's tree: the
+    stage slices of each layer leaf concatenated, the tied embedding's two
+    bucket gradients summed."""
+    from repro_torch.tree import tree_map
+    last = grads[f"stage{n_stages - 1}"]
+    layers = tree_map(lambda *xs: torch.cat(xs), *[grads[f"stage{s}"]["layers"]
+                                                 for s in range(n_stages)])
+    return {"embed": grads["stage0"]["embed"] + last["embed"],
+            "final_norm": last["final_norm"], "layers": layers}
+
+
+def event_ms(torch, fn):
+    """(result, device milliseconds) of one call, by CUDA events."""
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def ledger_line(res) -> str:
+    return ", ".join(f"dev{d} {b / 2**30:.3f}" for d, b in sorted(res.peak_bytes().items()))
+
+
+def check_ledgers(res, what: str) -> None:
+    peaks = res.peak_bytes()
+    if not peaks or not all(0 < v < float("inf") for v in peaks.values()):
+        fail(f"{what}: ledger peaks {peaks} not all positive and finite")
+
+
+def phase_runtime_proxy(torch) -> None:
+    """(a) The CLI's strategy path at full width: IR_CASE's Strategy
+    through ``to_json``/``from_json``, ``build_strategy_program`` on the
+    full qwen3-1b proxy, real draws for its parameters and batch on the
+    card, and one step on the ``reference`` executor."""
+    from repro_torch import core, runtime
+    from repro_torch.analysis import dataflow_fingerprint
+    from repro_torch.configs import get_config
+    from repro_torch.tune import build_strategy_program, materialize_params, synth_batch
+    c = IR_CASE
+    strategy = core.Strategy.from_json(ir_strategy(core).to_json())
+    prog, _ = build_strategy_program(get_config(c["arch"]), strategy, c["tokens"])
+    stats, digest = prog.dag.stats(), dataflow_fingerprint(prog.dag).digest()
+    if (stats["chunks"], stats["comms"], digest) != (c["chunks"], c["comms"], c["digest"]):
+        fail(f"runtime (a): {stats['chunks']} chunks, {stats['comms']} comms, digest "
+             f"{digest}; expected {c['chunks']}, {c['comms']}, {c['digest']}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = materialize_params(prog.params, seed=0, device="cuda")
+    batch = synth_batch(prog, seed=1, device="cuda")
+    (res, ms) = event_ms(torch, lambda: runtime.make_executor("reference", prog, params)
+                         .run(batch))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  (a) {c['arch']} proxy, {strategy.label()}: {stats['chunks']} chunks, "
+          f"{stats['comms']} comms, digest {digest}; reference executor: loss {res.loss:.6f}, "
+          f"{res.stats['tasks']} tasks in {ms:.1f} ms; ledger peaks (GiB) {ledger_line(res)}; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB (one card holds all "
+          f"{len(res.ledgers)} logical devices and every replica's gradients, so it is not "
+          "comparable to a ledger peak)", flush=True)
+    if not math.isfinite(res.loss):
+        fail(f"runtime (a): loss {res.loss}")
+    check_ledgers(res, "runtime (a)")
+
+
+def phase_runtime_model(torch, cfg, timed: bool = True) -> dict:
+    """(b) ``cfg``'s decoder as a Piper forward (``qwen3_piper``), compiled
+    with RUNTIME_CASE's Strategy under each remat policy and run on the
+    reference executor on one global batch, weights from the port's
+    ``init`` (seed 0) on the card.  Held against ``train_loss``'s autograd
+    on the same batch and weights (``RUNTIME_RTOL``), with exact K1 and K2
+    launch counts (``runtime_launches``) and the replayed dispatch order
+    equal to the run's.  With ``timed``, the interpreted step and the plain
+    step are timed warm (median of 3).  Returns the launch counts by
+    policy."""
+    from repro_torch import core, runtime
+    from repro_torch.data import SyntheticTokenSource, TokenLoader
+    from repro_torch.kernels import ops
+    from repro_torch.models import init, train_loss
+    from repro_torch.tree import tree_flatten_with_path, tree_map
+    rc = RUNTIME_CASE
+    n_st = rc["pp"]
+    params = init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    first = TokenLoader(SyntheticTokenSource(cfg.vocab, seed=rc["seed"]), batch=rc["batch"],
+                        seq=rc["seq"]).next_batch()
+    batch = {k: torch.as_tensor(v, device="cuda").long() for k, v in first.items()}
+    ops.register_kernels()
+
+    def plain_step():
+        p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss = train_loss(cfg, p, batch)
+        leaves = [leaf for _, leaf in tree_flatten_with_path(p)]
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    want_loss, want = plain_step()
+    paths = ["/".join(path) for path, _ in tree_flatten_with_path(params)]
+    plain_ms = None
+    if timed:
+        plain_ms = statistics.median(event_ms(torch, plain_step)[1] for _ in range(3))
+    forward, buckets = qwen3_piper(cfg, n_st)
+    bparams = buckets(params)
+    shape = ((rc["batch"], rc["seq"]), "int64")
+    loss_rtol, grad_rtol = RUNTIME_RTOL[cfg.dtype]
+    counts = {}
+    for remat in ("full", "none"):
+        strategy = core.Strategy(core.Mesh(pp=n_st, dp=rc["dp"]),
+                                 core.Pipeline("1f1b", n_mb=rc["n_mb"], n_stages=n_st)
+                                 | core.ZeRO(stage=rc["zero"]) | core.Remat(remat))
+        prog = core.compile_training(forward, bparams, {"tokens": shape, "labels": shape},
+                                     strategy=strategy)
+        ex = runtime.make_executor("reference", prog, bparams)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        res = ex.run(batch)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in ops.launch_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        expect = runtime_launches(cfg.n_layers, n_st, rc["n_mb"], rc["dp"], remat)
+        counts[remat] = launched
+        replayed = runtime.replay_schedule(prog, batch).exec_order
+        got = merged_grads(torch, res.grads, n_st)
+        got_leaves = [leaf for _, leaf in tree_flatten_with_path(got)]
+        errs = {name: rel_l2(g, w) for name, g, w in zip(paths, got_leaves, want)}
+        worst = max(errs, key=errs.get)
+        loss_err = abs(res.loss - want_loss) / abs(want_loss)
+        res.grads = None
+        del got, got_leaves
+        line = (f"  (b) {cfg.name} {cfg.n_layers} layers {cfg.dtype}, {strategy.label()}: "
+                f"{prog.stats['chunks']} chunks, {res.stats['tasks']} tasks; loss "
+                f"{res.loss:.6f} against train_loss {want_loss:.6f} (rel {loss_err:.3e}, "
+                f"limit {loss_rtol}); worst leaf {worst} rel L2 {errs[worst]:.3e} (limit "
+                f"{grad_rtol}); launches {launched}, expected {expect}; replayed order "
+                f"{'equal' if replayed == res.exec_order else 'DIFFERENT'} "
+                f"({len(res.exec_order)} tasks); ledger peaks (GiB) {ledger_line(res)}; "
+                f"max_memory_allocated {peak / 2**30:.2f} GiB (all 8 logical devices on one "
+                "card: not comparable to a ledger peak)")
+        if timed:
+            ms = [event_ms(torch, lambda: ex.run(batch))[1] for _ in range(3)]
+            line += (f"; interpreted step {statistics.median(ms):.1f} ms (median of "
+                     f"{[round(m, 1) for m in ms]}), plain step {plain_ms:.1f} ms")
+        print(line, flush=True)
+        for name, err in errs.items():
+            print(f"    {name:24s} {err:.3e}", flush=True)
+        if launched != expect:
+            fail(f"runtime (b) remat={remat}: launches {launched} != {expect}")
+        if replayed != res.exec_order:
+            fail(f"runtime (b) remat={remat}: the replayed exec_order differs from the run's")
+        if not math.isfinite(res.loss) or loss_err > loss_rtol:
+            fail(f"runtime (b) remat={remat}: loss {res.loss} against {want_loss}")
+        if not all(math.isfinite(e) for e in errs.values()) or errs[worst] > grad_rtol:
+            fail(f"runtime (b) remat={remat}: {worst} at {errs[worst]:.3e}")
+        check_ledgers(res, f"runtime (b) remat={remat}")
+        if timed:
+            step_profile(torch, f"interpreted step, remat {remat}", lambda: ex.run(batch))
+        if timed and remat == "none":
+            stash_profile(torch, prog, bparams, batch, forward, shape)
+        del ex, res, prog
+        gc.collect()
+    ops.unregister_kernels()
+    return counts
+
+
+def step_profile(torch, label: str, fn) -> None:
+    """One warm call of ``fn`` under torch.profiler (device activity):
+    the wall time, the device's busy time and share, the launches, and
+    the device time by kernel family (``FAMILIES``)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, ms = event_ms(torch, fn)
+    kernels = [(e.name(), e.duration_ns() / 1e6) for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA]
+    busy = sum(t for _, t in kernels)
+    fam: dict[str, float] = {}
+    for name, t in kernels:
+        fam[_family(name)] = fam.get(_family(name), 0.0) + t
+    top = ", ".join(f"{f} {t:.1f}" for f, t in sorted(fam.items(), key=lambda kv: -kv[1])[:6])
+    print(f"  profiled {label}: {ms:.1f} ms, device busy {busy:.1f} ms ({busy / ms:.1%}), "
+          f"{len(kernels)} launches; ms by family: {top}", flush=True)
+
+
+def stash_profile(torch, prog, bparams, batch, forward, shape) -> None:
+    """Where a warm Remat("none") stash forward's time goes (phase 3e's
+    two-layer stash F can read ten times the plain F's time).  Stage 0's forward chunk (embedding and 7 layers) on one microbatch of
+    one dp device, each call warm and timed by CUDA events:
+      plain      the remat "full" F (no autograd recorded);
+      recorded   the same region recording autograd (bucket leaves that
+                 require grad) with no hooks: what recording through K1's
+                 and K2's Functions costs;
+      stash      the stash F, the previous stash freed before it;
+      stash+1    the stash F while the previous stash is alive (a second
+                 stash to allocate, as in phase 3e's loop);
+      cold       the same after ``empty_cache``: every residual a fresh
+                 ``cudaMalloc``, as phase 3e meets it after the training
+                 phases;
+    and their B chunks; then one warm stash F/B pair under torch.profiler
+    (CPU and CUDA): the allocator's cudaMalloc calls, the device's busy
+    time and the top host ops."""
+    from repro_torch import core
+    from repro_torch.core import passes
+    from repro_torch.tree import tree_map
+    f = next(n for n in prog.dag.chunks()
+             if n.dims.get("pp") == 0 and n.dims["PASS"] == "F" and n.dims.get("MB", 0) == 0)
+    b = prog.dag.nodes[f.meta["bwd_node"]]
+    k = f.n_outputs - f.meta["n_res"]
+    full = core.build_dag(forward, bparams, {"tokens": shape, "labels": shape})
+    f_full = next(n for n in full.chunks() if n.dims.get("pp") == 0 and n.dims["PASS"] == "F")
+    b_full = full.nodes[f_full.meta["bwd_node"]]
+    bucket = bparams["stage0"]
+    x = batch["tokens"][:1]
+    cot = torch.randn((1, x.shape[1], bucket["embed"].shape[1]), device=x.device,
+                      generator=torch.Generator(device=x.device).manual_seed(5)).to(
+                          bucket["embed"].dtype)
+
+    def run_f(key):
+        with torch.no_grad(), passes.microbatch(key):
+            return f.fn(bucket, x)
+
+    def run_b(key, outs):
+        with torch.no_grad(), passes.microbatch(key):
+            return b.fn(bucket, *outs[k:], cot)
+
+    def pair(key):
+        outs, f_ms = event_ms(torch, lambda: run_f(key))
+        _, b_ms = event_ms(torch, lambda: run_b(key, outs))
+        return outs, f_ms, b_ms
+
+    def plain():
+        with torch.no_grad():
+            return f_full.fn(bucket, x)
+
+    def recorded():
+        with torch.enable_grad():
+            return f_full.fn(tree_map(lambda t: t.detach().requires_grad_(
+                t.is_floating_point()), bucket), x)
+
+    act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def mallocs(prof) -> tuple:
+        """(cudaMalloc calls, their host ms) in a profile."""
+        found = [e for e in prof.key_averages() if e.key == "cudaMalloc"]
+        return sum(e.count for e in found), sum(e.cpu_time_total for e in found) / 1e3
+
+    pair("warm-up")
+    gc.collect()
+    outs_a, f_freed, b_stash = pair("a")
+    res_bytes = sum(t.numel() * t.element_size() for t in outs_a[k:])
+    outs_b, f_alive, _ = pair("b")
+    # as phase 3e meets it: earlier stashes alive and the allocator's cache
+    # emptied (each training phase ends with empty_cache), so every
+    # residual of the new stash is a fresh cudaMalloc
+    torch.cuda.empty_cache()
+    with torch.profiler.profile(activities=act) as prof:
+        outs_c, f_cold = event_ms(torch, lambda: run_f("c"))
+    n_cold, cold_ms = mallocs(prof)
+    run_b("c", outs_c)
+    del outs_a, outs_b, outs_c
+    gc.collect()
+    times = {}
+    for name, fn in (("plain", plain), ("recorded", recorded)):
+        event_ms(torch, fn)
+        times[name] = event_ms(torch, fn)[1]
+    event_ms(torch, lambda: b_full.fn(bucket, x, cot))
+    b_recompute = event_ms(torch, lambda: b_full.fn(bucket, x, cot))[1]
+    with torch.profiler.profile(activities=act) as prof:
+        _, f_prof, b_prof = pair("profiled")
+    device_ms = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == torch.autograd.DeviceType.CUDA) / 1e6
+    avgs = prof.key_averages()
+    n_malloc, malloc_ms = mallocs(prof)
+    print(f"  stash profile, stage 0 (the embedding and its layers; {f.meta['n_res']} "
+          f"residuals, {res_bytes / 2**20:.1f} MiB) on (1, {x.shape[1]}) "
+          f"tokens, warm: F plain {times['plain']:.2f} ms, F recording autograd "
+          f"{times['recorded']:.2f} ms, stash F {f_freed:.2f} ms (previous stash freed), "
+          f"{f_alive:.2f} ms (previous stash alive), {f_cold:.2f} ms (previous stashes alive, "
+          f"the allocator's cache emptied: {n_cold} cudaMalloc calls, {cold_ms:.2f} ms of host "
+          f"time); B reading the stash {b_stash:.2f} ms, B recomputing (remat full) "
+          f"{b_recompute:.2f} ms", flush=True)
+    print(f"  profiled stash pair: F {f_prof:.2f} ms, B {b_prof:.2f} ms, device busy "
+          f"{device_ms:.2f} ms; cudaMalloc {n_malloc} calls, {malloc_ms:.2f} ms of host time",
+          flush=True)
+    for e in sorted(avgs, key=lambda e: -e.self_cpu_time_total)[:10]:
+        print(f"    host {e.self_cpu_time_total / 1e3:8.3f} ms {e.count:6d}x  {e.key[:90]}",
+              flush=True)
 
 
 # kernel-name substrings -> family, first match wins
@@ -1168,6 +1562,19 @@ def main() -> int:
 
     phase("3e/5 Piper IR: the qwen3-1b proxy traced on meta tensors, chunks of real layers")
     counts["ir"] = {**none, **phase_ir(torch)}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("3f/5 Piper runtime on the card: Strategy -> per-rank programs -> reference interpreter")
+    phase_runtime_proxy(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for remat, launched in phase_runtime_model(torch, qwen3).items():
+        counts[f"piper runtime, remat {remat}"] = {**none, **launched}
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_runtime_model(torch, dataclasses.replace(qwen3, n_layers=RUNTIME_CASE["fp32_layers"],
+                                                   dtype="float32"), timed=False)
     gc.collect()
     torch.cuda.empty_cache()
 

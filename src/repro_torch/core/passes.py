@@ -45,15 +45,17 @@ splits it in two:
     ordinary edges.
   - *the graph*: the autograd graph, now tensor-free (each saved tensor is
     packed to its residual index), travels out of band, in the table
-    ``residual_graphs()`` keyed by (forward node id, microbatch).  The
+    ``residual_graphs()`` keyed by (forward node id, instance).  The
     backward chunk looks its graph up, points the unpack hook at the
     residuals arriving on its own input slots and applies
     ``torch.autograd.grad``.  The graph reaches the forward's inputs
     through a zero-size anchor (``_Entry``), not the input tensors, so it
     keeps no activation alive; it holds the bucket parameters, which are
-    resident anyway.  The runtime names the microbatch with
-    ``microbatch(mb)`` around both chunks (the reference interpreter that
-    does so comes with a later slice); it is 0 by default.
+    resident anyway.  The runtime names the instance with
+    ``microbatch(...)`` around both chunks: the reference interpreter
+    (``runtime.interpreter``) passes (microbatch, device), since the
+    data-parallel replicas of a microbatch share the forward node; it is
+    0 by default.
 
 The residual slots therefore differ from the JAX package's in number and
 spec (autograd saves other tensors than XLA), while everything else of
@@ -161,10 +163,14 @@ _GRAPHS: dict[tuple[int, int], "_Graph"] = {}
 
 
 @contextlib.contextmanager
-def microbatch(mb: int):
-    """Name the microbatch the stash chunk calls inside run for: the
-    second half of their graph's key in ``residual_graphs()``."""
-    token = _MICROBATCH.set(int(mb))
+def microbatch(mb):
+    """Name the instance the stash chunk calls inside run for: the second
+    half of their graph's key in ``residual_graphs()``.  A microbatch
+    index will do where each forward node runs once per microbatch; the
+    interpreter passes ``(microbatch, device)``, because the data-parallel
+    replicas of a microbatch run the same forward node.  Any hashable
+    value serves."""
+    token = _MICROBATCH.set(mb)
     try:
         yield
     finally:
@@ -172,7 +178,7 @@ def microbatch(mb: int):
 
 
 def residual_graphs() -> dict:
-    """(forward node id, microbatch) -> the tensor-free autograd graph a
+    """(forward node id, instance) -> the tensor-free autograd graph a
     stash forward left for its backward chunks (dropped once every one of
     them has run)."""
     return _GRAPHS
@@ -259,7 +265,14 @@ def _run_stash(base_fn, bucket, ins, pending=()):
         graph = _Graph([_edge(o) for o in outs], [_edge(x) for x in xs],
                        [_edge(p) for p in p_leaves],
                        [(x.shape, x.dtype, x.device) for x in xs], frame, pending)
-    return ([o.detach() for o in outs], [t.detach() for t in saved], graph)
+    residuals = [t.detach() for t in saved]
+    # the graph's saved-tensor hooks keep ``pack`` alive, and with it this
+    # list: a saved tensor's grad_fn is part of the graph, so the list
+    # would close a reference cycle through autograd's C++ nodes, which
+    # the garbage collector cannot break, and every stash would stay
+    # alive for good.  The detached residuals do not reference the graph.
+    saved.clear()
+    return [o.detach() for o in outs], residuals, graph
 
 
 def _stash_residuals(dag: TrainingDAG, fwd, bwd_ids: list[int],

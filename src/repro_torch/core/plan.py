@@ -50,10 +50,6 @@ class DevicePlan:
 
 @dataclass
 class GlobalPlan:
-    """The scheduler's output.  ``rank_signature`` (the typed per-rank
-    communication interface, which the JAX package delegates to
-    ``analysis.types``) is left out until the port brings ``types`` with
-    the scheduler and the compiler."""
     device_plans: dict[int, DevicePlan]
     priorities: dict[int, int]          # node -> #descendants
     devices: list[int]
@@ -90,6 +86,16 @@ class GlobalPlan:
         return sorted(p.tasks.values(),
                       key=lambda t: (pos.get(t.node, len(pos)),
                                      role_rank.get(t.role, 9)))
+
+    def rank_signature(self, device: int, dag) -> dict:
+        """The typed communication interface of ``rank_program(device)``
+        — per-peer p2p send/recv specs and per-group collective
+        dispatch sequences.  Pairwise agreement of these signatures
+        across ranks is the MPMD-readiness condition; the analysis
+        layer checks it as PIPER025 (``analysis.types.rank_signature``
+        is the implementation, delegated to keep core import-light)."""
+        from ..analysis.types import rank_signature
+        return rank_signature(dag, self, device)
 
     def summary(self) -> str:
         lines = []

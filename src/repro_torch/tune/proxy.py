@@ -1,6 +1,7 @@
-"""The stage-granular proxy of an ArchConfig (the model half of
-``repro.tune.proxy``; its candidate and strategy half waits for the
-port's Strategy, scheduler and compiler).
+"""The stage-granular proxy of an ArchConfig (port of
+``repro.tune.proxy``: the model half and ``build_strategy_program``; the
+candidate helpers and the analytic chunk cost wait for the search space
+and the cost model).
 
 The Piper path never traces the real model per candidate — that would
 lower every architecture at full size for every point in the search
@@ -29,6 +30,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..core.compiler import compile_training
 from ..models.model import params_count
 from ..tree import tree_map
 
@@ -155,3 +157,26 @@ def make_proxy_forward(sm: StageModel):
         return loss
 
     return forward
+
+
+# ---------------------------------------------------------------------------
+# strategy + compile
+# ---------------------------------------------------------------------------
+
+def build_strategy_program(cfg, strategy, tokens: int):
+    """Compile the stage-granular proxy program for a declarative
+    ``Strategy`` (the ``--strategy strategy.json`` replay path).
+    Returns (CompiledProgram, StageModel); the program's params are meta
+    tensors (``tune.measured.materialize_params`` draws real ones)."""
+    strategy.validate()
+    pipe = strategy.pipeline
+    if pipe is None:
+        raise ValueError("strategy has no Pipeline fragment; the proxy "
+                         "decomposition needs a stage count")
+    sm = decompose(cfg, pipe.stages(strategy.mesh))
+    params = make_proxy_params(sm)
+    fwd = make_proxy_forward(sm)
+    inputs = {"x": ((tokens, sm.d_model), PROXY_DTYPE),
+              "y": ((tokens, sm.d_model), PROXY_DTYPE)}
+    prog = compile_training(fwd, params, inputs, strategy=strategy)
+    return prog, sm

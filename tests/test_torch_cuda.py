@@ -349,3 +349,55 @@ def test_ir_chunk_backward_runs_k2(dev, remat):
     want = torch.autograd.grad(attn({"s": sr}, qr), [sr, qr], cot)
     torch.testing.assert_close(grads["s"].float(), want[0].float(), atol=0, rtol=0)
     torch.testing.assert_close(dq.float(), want[1].float(), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("remat", ["full", "none"])
+def test_interpreter_on_the_card(dev, remat):
+    """The reference interpreter given CUDA params keeps every tensor on
+    the card, launches K1 and K2 exactly as phase 3f of chip_smoke.py
+    counts them, and gives the CPU run's loss and gradients (the kernels'
+    plain versions) to the fp32 tolerance."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch import core, runtime
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init
+    from repro_torch.tree import tree_flatten_with_path, tree_map
+    cfg = get_config("qwen3-1b").reduced(n_layers=4, d_model=128, d_ff=256, vocab=512,
+                                         n_heads=4, n_kv_heads=2)
+    forward, buckets = chip_smoke.qwen3_piper(cfg, 2)
+    params = init(cfg, torch.Generator().manual_seed(0), "cpu")
+    g = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (8, 64), generator=g) for k in ("tokens", "labels")}
+    shape = ((8, 64), "int64")
+    strategy = core.Strategy(core.Mesh(pp=2, dp=2), core.Pipeline("1f1b", n_mb=4, n_stages=2)
+                             | core.ZeRO(stage=3) | core.Remat(remat))
+
+    def run(p):
+        # compiled under the layers' current implementations: a stash
+        # forward's residuals are those its implementations save
+        prog = core.compile_training(forward, buckets(p), {"tokens": shape, "labels": shape},
+                                     strategy=strategy)
+        return runtime.make_executor("reference", prog, buckets(p)).run(batch)
+
+    want = run(params)
+    ops.register_kernels()
+    try:
+        ops.reset_launch_counts()
+        got = run(tree_map(lambda t: t.to(dev), params))
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in ops.launch_counts().items() if v}
+    finally:
+        ops.unregister_kernels()
+    assert launched == chip_smoke.runtime_launches(cfg.n_layers, 2, 4, 2, remat)
+    assert got.loss == pytest.approx(want.loss, rel=1e-5)
+    assert got.exec_order == want.exec_order
+    if remat == "full":     # under "none" the kernels save other residuals
+        assert got.peak_bytes() == want.peak_bytes()
+    for (path, a), (_, b) in zip(tree_flatten_with_path(got.grads),
+                                 tree_flatten_with_path(want.grads)):
+        assert a.device.type == "cuda", path
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=1e-4, msg=str(path))

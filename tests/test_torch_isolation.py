@@ -40,10 +40,13 @@ def test_importing_every_module_loads_no_jax():
 
 
 @pytest.mark.parametrize("package", ["repro_torch.core", "repro_torch.analysis",
-                                     "repro_torch.tune"])
+                                     "repro_torch.tune", "repro_torch.runtime",
+                                     "repro_torch.core.strategy"])
 def test_piper_subpackages_load_no_jax(package):
     """The Piper IR of the port (tracing, autodiff, directives, passes,
-    overlap, the certifier, the proxy) stands alone as well."""
+    overlap, the certifier, the proxy), its Strategy API (pure Python, a
+    copy of the JAX package's, not an import of it) and its runtime stand
+    alone as well."""
     code = (f"import sys, importlib\n"
             f"m = importlib.import_module({package!r})\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
