@@ -52,7 +52,23 @@ Strategy on the interpreter, one card simulating the eight logical
 devices, under remat "full" and "none": the loss and every gradient
 leaf held to ``train_loss``'s autograd, exact K1 and K2 launch counts,
 the replayed dispatch order equal to the run's, and a profile of one
-stash forward and backward.  Last it runs the training CLI at its defaults
+stash forward and backward.  The scoring, tuning and verification phase
+(3g) runs the training CLI's ``--autotune`` for the full qwen3-1b on a
+pp 4 x dp 2 mesh (the tuner's search on the H100 constants, then the
+reduced model trains and its loss must fall), replays the winner's
+``strategy.json`` with ``--backend reference`` on the card (K1 and K2
+launch on this path, counted from (a) to (b)), and lints the grid of the
+ported configs at ``deep`` (every cell clean); then it holds
+the cost model against the card: each distinct stage chunk of phase 3f's
+program (F and B), counted on meta tensors (the forward's FLOPs within 1%
+of the closed form) and predicted on the H100 constants, beside its
+device time with the kernels (exact K1 and K2 launches); ``calibrate``
+folds the ratios in, the calibrated model simulates the plan, its
+memory estimate stands beside phase 3f's ledger peaks, and it scores the
+tuned winner on the analytic and on the counted chunk cost.  It also checks
+that the plans compile clean under the default ``analyze="quick"`` and
+analyses phase 3f's program and phase 3e's proxy at ``deep``.  Last it
+runs the training CLI at its defaults
 for the ported archs, qwen3-1b, minicpm-2b (its WSD schedule checked
 step by step) and ``--d-model 128`` (head_dim 32).  It prints the card's
 name and power limit, one JSON line of kernel numbers, and as its last
@@ -74,6 +90,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import pathlib
 import shutil
 import statistics
@@ -1180,8 +1197,8 @@ def phase_runtime_model(torch, cfg, timed: bool = True) -> dict:
     on the same batch and weights (``RUNTIME_RTOL``), with exact K1 and K2
     launch counts (``runtime_launches``) and the replayed dispatch order
     equal to the run's.  With ``timed``, the interpreted step and the plain
-    step are timed warm (median of 3).  Returns the launch counts by
-    policy."""
+    step are timed warm (median of 3).  Returns the launch counts and the
+    ledger peaks (bytes per logical device), each by policy."""
     from repro_torch import core, runtime
     from repro_torch.data import SyntheticTokenSource, TokenLoader
     from repro_torch.kernels import ops
@@ -1210,7 +1227,7 @@ def phase_runtime_model(torch, cfg, timed: bool = True) -> dict:
     bparams = buckets(params)
     shape = ((rc["batch"], rc["seq"]), "int64")
     loss_rtol, grad_rtol = RUNTIME_RTOL[cfg.dtype]
-    counts = {}
+    counts, peaks = {}, {}
     for remat in ("full", "none"):
         strategy = core.Strategy(core.Mesh(pp=n_st, dp=rc["dp"]),
                                  core.Pipeline("1f1b", n_mb=rc["n_mb"], n_stages=n_st)
@@ -1227,6 +1244,7 @@ def phase_runtime_model(torch, cfg, timed: bool = True) -> dict:
         peak = torch.cuda.max_memory_allocated()
         expect = runtime_launches(cfg.n_layers, n_st, rc["n_mb"], rc["dp"], remat)
         counts[remat] = launched
+        peaks[remat] = res.peak_bytes()
         replayed = runtime.replay_schedule(prog, batch).exec_order
         got = merged_grads(torch, res.grads, n_st)
         got_leaves = [leaf for _, leaf in tree_flatten_with_path(got)]
@@ -1267,7 +1285,7 @@ def phase_runtime_model(torch, cfg, timed: bool = True) -> dict:
         del ex, res, prog
         gc.collect()
     ops.unregister_kernels()
-    return counts
+    return counts, peaks
 
 
 def step_profile(torch, label: str, fn) -> None:
@@ -1393,6 +1411,273 @@ def stash_profile(torch, prog, bparams, batch, forward, shape) -> None:
 
 
 # kernel-name substrings -> family, first match wins
+# the scoring, tuning and verification phase (3g): the training CLI's
+# --autotune and --strategy paths and the lint CLI at full width, then the
+# cost model's chunk predictions held against real-layer chunks on the card
+TUNE_CASE = {"arch": "qwen3-1b", "pp": 4, "dp": 2, "steps": 30}
+# every forward chunk's counted FLOPs against the closed form (relative)
+FLOP_RTOL = 1e-2
+
+
+@contextlib.contextmanager
+def captured():
+    """Standard output of the block, as a list of lines once it ends."""
+    import io
+    buf, lines = io.StringIO(), []
+    with contextlib.redirect_stdout(buf):
+        yield lines
+    lines.extend(buf.getvalue().splitlines())
+
+
+def phase_tune_cli(torch, tmp: str) -> tuple:
+    """(a) ``--autotune`` for the full qwen3-1b on a pp 4 x dp 2 mesh at
+    ``tune.DEFAULT_TOKENS`` on the H100 constants (a fresh plan cache),
+    then training of the reduced config, whose loss must fall.  (b) The
+    winner's ``strategy.json`` replayed with ``--backend reference`` on
+    the card: the ``strategy[...]`` and ``backend[...]`` lines, a finite
+    loss.  (c) ``lint --grid --depth deep`` over the ported configs: exit
+    code 0, every cell clean.  Returns the launches of (a) and (b), the
+    winning Strategy and the numbers for the summary line."""
+    from repro_torch import core
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import lint, train
+    c = TUNE_CASE
+    ops.reset_launch_counts()
+    ckpt = pathlib.Path(tmp) / "ckpt"
+    argv = ["--arch", c["arch"], "--autotune", "--tune-pp", str(c["pp"]), "--tune-dp",
+            str(c["dp"]), "--steps", str(c["steps"]), "--ckpt-dir", str(ckpt)]
+    t0 = time.perf_counter()
+    with captured() as out:
+        rc = train.plan_phase(argv)
+    search_s = time.perf_counter() - t0
+    plan_dir = ckpt / get_config(c["arch"]).name
+    if rc is not None or not (plan_dir / "strategy.json").exists():
+        fail(f"3g (a): --autotune returned {rc}: {out}")
+    plan = json.loads((plan_dir / "plan.json").read_text())
+    for line in out:
+        print(f"  (a) {line}", flush=True)
+    print(f"  (a) search: {plan['n_evaluated']} candidates ({plan['n_rejected']} over budget) "
+          f"in {search_s:.1f} s; winner {(plan_dir / 'strategy.json').read_text()}", flush=True)
+    t0 = time.perf_counter()
+    sup, _ = train.run(argv)
+    torch.cuda.synchronize()
+    losses = [h["loss"] for h in sup.history]
+    print(f"  (a) reduced {c['arch']} trained {len(losses)} steps in "
+          f"{time.perf_counter() - t0:.1f} s: loss {losses[0]:.4f} -> {losses[-1]:.4f}",
+          flush=True)
+    if not losses[-1] < losses[0]:
+        fail(f"3g (a): the loss did not fall ({losses[0]} -> {losses[-1]})")
+
+    t0 = time.perf_counter()
+    with captured() as out:
+        rc = train.main(["--arch", c["arch"], "--strategy", str(plan_dir / "strategy.json"),
+                         "--backend", "reference", "--ckpt-dir", str(pathlib.Path(tmp) / "b")])
+    for line in out:
+        print(f"  (b) {line}", flush=True)
+    backend = [x for x in out if x.startswith("backend[reference] loss=")]
+    if rc != 0 or not backend or not any(x.startswith("strategy[") for x in out):
+        fail(f"3g (b): --strategy --backend reference returned {rc}: {out}")
+    loss = float(backend[0].split("loss=")[1].split()[0])
+    print(f"  (b) replayed in {time.perf_counter() - t0:.1f} s", flush=True)
+    if not math.isfinite(loss):
+        fail(f"3g (b): loss {loss}")
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    print(f"  (a)-(b) launches {launched}", flush=True)
+    if not launched.get("rmsnorm") or not launched.get("flash_attention"):
+        fail(f"3g (a)-(b): K1 or K2 never launched: {launched}")
+
+    report = pathlib.Path(tmp) / "lint.json"
+    t0 = time.perf_counter()
+    with captured() as out:
+        rc = lint.main(["--grid", "--depth", "deep", "--out", str(report)])
+    result = json.loads(report.read_text())
+    dirty = [cell for cell in result["cells"] if not cell["ok"] or cell["codes"]]
+    print(f"  (c) lint --grid --depth deep: exit {rc}, {len(result['cells'])} cells in "
+          f"{time.perf_counter() - t0:.1f} s, {len(dirty)} not clean; {out[-1]}", flush=True)
+    if rc != 0 or dirty or len(result["cells"]) != 81:
+        fail(f"3g (c): lint exit {rc}, cells not clean: {dirty}")
+    winner = core.Strategy.from_json((plan_dir / "strategy.json").read_text())
+    summary = {"search_s": search_s, "n_evaluated": plan["n_evaluated"],
+               "winner": winner.label(), "predicted_step_ms": plan["predicted_step_seconds"] * 1e3,
+               "loss": [losses[0], losses[-1]], "reference_loss": loss,
+               "lint_cells": len(result["cells"]), "lint_s": time.perf_counter() - t0}
+    return launched, winner, summary
+
+
+def layer_flops(cfg, b: int, s: int) -> int:
+    """FLOPs of one decoder layer's forward as ``FlopCounterMode`` counts
+    it (the matmul family only): the q, k, v and o projections, the SwiGLU
+    MLP, and the plain flash forward's two products over the full S x S
+    scores, masked blocks included."""
+    t, d, hd = b * s, cfg.d_model, cfg.head_dim
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    return (2 * t * d * (hq + 2 * hkv) * hd + 2 * t * hq * hd * d + 2 * t * 3 * d * cfg.d_ff
+            + 2 * 2 * b * hq * s * s * hd)
+
+
+def chunk_closed_form(cfg, n_layers: int, last: bool, b: int, s: int, pass_: str) -> int:
+    """The closed form of a stage chunk of ``qwen3_piper``.  F: its layers,
+    plus the tied logits on the last stage.  B (remat "full"): F again,
+    then twice F's products for the input and weight gradients, except
+    attention, whose plain backward runs five S x S products (the score
+    recompute, dV, dP, dQ, dK) where the forward runs two."""
+    head = 2 * b * s * cfg.d_model * cfg.vocab if last else 0
+    attn = 2 * 2 * b * cfg.n_heads * s * s * cfg.head_dim
+    f = n_layers * layer_flops(cfg, b, s) + head
+    if pass_ == "F":
+        return f
+    return f + 2 * (f - n_layers * attn) + n_layers * attn * 5 // 2
+
+
+def phase_cost_model(torch, cfg, ledger_peaks: dict, winner) -> tuple:
+    """(d) RUNTIME_CASE's program (phase 3f's, remat "full"): for each
+    distinct stage chunk, F and B, ``analyze_fn``'s count on meta tensors
+    and the H100 constants' prediction beside the chunk's device time on
+    the card (CUDA events, warm, median of 3) on the inputs one device
+    runs (the simulator's sample inputs, made real); the chunks launch K1
+    and K2, counted exactly.  ``calibrate`` folds the ratios into the cost
+    model, and the calibrated model simulates the plan; its
+    ``timeline_peak_bytes`` stand beside phase 3f's ledger peaks.  (e) The
+    program as compiled (``analyze="quick"``, the default) and again at
+    ``deep``: the PIPER codes and seconds of each depth.  Last, (a)'s
+    ``winner`` scored on the calibrated model, on the analytic chunk cost
+    and on the counted one.  Returns the K1 and K2 launches of the timed
+    chunks (calls made to time them, not steps) and the summary's
+    numbers."""
+    from repro_torch import core
+    from repro_torch.analysis import analyze
+    from repro_torch.kernels import ops
+    from repro_torch.models import init
+    from repro_torch.runtime import CostModel, TimelineSimulator, timeline_peak_bytes
+    from repro_torch.runtime.costmodel import analyze_fn
+    from repro_torch import tune
+    from repro_torch.tune import MeasuredCell, calibrate
+    rc = RUNTIME_CASE
+    n_st = rc["pp"]
+    per = cfg.n_layers // n_st
+    forward, buckets = qwen3_piper(cfg, n_st)
+    bparams = buckets(init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"))
+    shape = ((rc["batch"], rc["seq"]), "int64")
+    strategy = core.Strategy(core.Mesh(pp=n_st, dp=rc["dp"]),
+                             core.Pipeline("1f1b", n_mb=rc["n_mb"], n_stages=n_st)
+                             | core.ZeRO(stage=rc["zero"]))
+    t0 = time.perf_counter()
+    prog = core.compile_training(forward, bparams, {"tokens": shape, "labels": shape},
+                                 strategy=strategy)
+    compile_s = time.perf_counter() - t0
+    print(f"  (e) {cfg.name} {cfg.n_layers} layers, {strategy.label()}: compiled in "
+          f"{compile_s:.1f} s with the default analyze='quick': {prog.stats['analysis']}",
+          flush=True)
+    for depth in ("quick", "deep"):
+        t0 = time.perf_counter()
+        report = analyze(prog, depth=depth)
+        print(f"  (e) analyze(depth={depth!r}): {time.perf_counter() - t0:.2f} s, codes "
+              f"{sorted(set(report.codes()))}, {report.meta}", flush=True)
+        if report.errors():
+            fail(f"3g (e): {depth} analysis found errors: {report.format_text()}")
+    ir = IR_CASE
+    from repro_torch.configs import get_config
+    from repro_torch.tune import build_strategy_program
+    t0 = time.perf_counter()
+    proxy = build_strategy_program(get_config(ir["arch"]), ir_strategy(core), ir["tokens"])[0]
+    deep = analyze(proxy, depth="deep")
+    print(f"  (e) phase 3e's proxy: compiled with {proxy.stats['analysis']}; deep (with the "
+          f"memory cross-check on the simulator) {sorted(set(deep.codes()))} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if deep.errors():
+        fail(f"3g (e): the proxy's deep analysis found errors: {deep.format_text()}")
+
+    sim = TimelineSimulator(prog, CostModel())
+    cost = CostModel()
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def real(t):
+        if t is None:
+            return None
+        if t.dtype == torch.int64:
+            return torch.randint(0, cfg.vocab, tuple(t.shape), generator=g, device="cuda")
+        return torch.randn(tuple(t.shape), generator=g, device="cuda").to(t.dtype)
+
+    ops.register_kernels()
+    ops.reset_launch_counts()
+    cells, rows, gate = [], [], []
+    launched_total = {}
+    for s in range(n_st):
+        for pass_ in ("F", "B"):
+            node = next(n for n in prog.dag.chunks()
+                        if n.dims.get("pp") == s and n.dims.get("PASS") == pass_)
+            sample = sim.sample_inputs(node)
+            flops, nbytes = analyze_fn(node.fn, bparams[node.bucket], sample, name=node.name)
+            predicted = cost.chunk_seconds(node, bparams, sample)
+            ins = [real(t) for t in sample]
+            b, sq = next(t.shape[:2] for t in sample if t is not None and t.dim() >= 2)
+            closed = chunk_closed_form(cfg, per, s == n_st - 1, b, sq, pass_)
+            call = lambda: node.fn(bparams[node.bucket], *ins)  # noqa: E731
+            before = ops.launch_counts()
+            call()
+            ms = statistics.median(event_ms(torch, call)[1] for _ in range(3))
+            after = ops.launch_counts()
+            launched = {k: after[k] - before.get(k, 0) for k in after
+                        if after[k] - before.get(k, 0)}
+            want = {"rmsnorm": 4 * (2 * per + (s == n_st - 1)), "flash_attention": 4 * per}
+            for k, v in launched.items():
+                launched_total[k] = launched_total.get(k, 0) + v
+            ratio = ms * 1e-3 / predicted
+            label = f"stage{s} {pass_}"
+            cells.append(MeasuredCell(label, predicted, ms * 1e-3))
+            rows.append((label, b, sq, flops, closed, nbytes, predicted, ms, ratio, launched))
+            print(f"  (d) {label} ({b} x {sq} tokens a device): counted {flops:.6e} FLOP, "
+                  f"closed form {closed:.6e} ({flops / closed - 1:+.2e}), {nbytes / 2**20:.1f} "
+                  f"MiB; predicted {predicted * 1e3:.3f} ms, measured {ms:.3f} ms, ratio "
+                  f"{ratio:.3f}; launches {launched} (4 calls, expected {want})", flush=True)
+            if launched != want:
+                fail(f"3g (d) {label}: launches {launched} != {want}")
+            if not (math.isfinite(ratio) and ratio > 0):
+                fail(f"3g (d) {label}: ratio {ratio}")
+            if pass_ == "F":
+                gate.append(abs(flops / closed - 1))
+                if abs(flops / closed - 1) > FLOP_RTOL:
+                    fail(f"3g (d) {label}: counted {flops} against the closed form {closed}")
+            del ins
+    ops.unregister_kernels()
+    cal = calibrate(cost, cells)
+    print(f"  (d) calibrate over {len(cells)} chunks: scale {cal.scale:.4f}, dispersion "
+          f"{cal.dispersion:.4f}, mfu {cost.mfu} -> {cal.cost.mfu:.6f} (recorded, not "
+          f"adopted); worst F FLOP gap {max(gate):.2e} (limit {FLOP_RTOL})", flush=True)
+    t0 = time.perf_counter()
+    res = TimelineSimulator(prog, cal.cost).run()
+    est = timeline_peak_bytes(prog, res.records)
+    ledger = ledger_peaks["full"]
+    print(f"  (d) the plan on the calibrated model: makespan {res.makespan * 1e3:.3f} ms "
+          f"(simulated in {time.perf_counter() - t0:.1f} s); per device timeline_peak_bytes "
+          f"against phase 3f's interpreter ledger peak (GiB): "
+          + ", ".join(f"dev{d} {est[d] / 2**30:.3f} / {ledger[d] / 2**30:.3f}"
+                      for d in sorted(est)), flush=True)
+    print("  (d) " + json.dumps({"cost_model_cells": [
+        {"chunk": r[0], "tokens": [int(r[1]), int(r[2])], "flops": r[3], "closed_form": r[4],
+         "bytes": r[5], "predicted_ms": r[6] * 1e3, "measured_ms": r[7], "ratio": r[8]}
+        for r in rows], **cal.to_dict(), "makespan_ms": res.makespan * 1e3}), flush=True)
+    mesh = tune.MeshSpec(pp=TUNE_CASE["pp"], dp=TUNE_CASE["dp"])
+    cand = tune.Candidate.from_strategy(winner)
+    t0 = time.perf_counter()
+    analytic = tune.score_candidate(cfg, mesh, cand, cost=cal.cost)
+    counted = tune.score_candidate(cfg, mesh, cand, cost=cal.cost, use_counted_cost=True)
+    print(f"  (d) (a)'s winner {cand.label()} on the calibrated model: step "
+          f"{analytic.step_seconds * 1e3:.3f} ms on the analytic chunk cost, "
+          f"{counted.step_seconds * 1e3:.3f} ms on the counted one (scored in "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    for s in (analytic, counted):
+        if not (math.isfinite(s.step_seconds) and s.step_seconds > 0):
+            fail(f"3g (d): the winner's score {s}")
+    summary = {"scale": cal.scale, "dispersion": cal.dispersion, "mfu": cal.cost.mfu,
+               "worst_f_flop_gap": max(gate), "makespan_ms": res.makespan * 1e3,
+               "winner_step_ms": {"analytic": analytic.step_seconds * 1e3,
+                                  "counted": counted.step_seconds * 1e3},
+               "ratios": {r[0]: r[8] for r in rows}}
+    return launched_total, summary
+
+
 FAMILIES = [("moe_gmm_wgmma_kernel", "K3 grouped mm"), ("moe_gmm_kernel", "K3 grouped mm"),
             ("flash_fwd_wgmma_kernel", "K2 flash fwd"),
             ("rmsnorm_kernel", "K1 rmsnorm"), ("flash_fwd_kernel", "K2 flash fwd"),
@@ -1569,12 +1854,30 @@ def main() -> int:
     phase_runtime_proxy(torch)
     gc.collect()
     torch.cuda.empty_cache()
-    for remat, launched in phase_runtime_model(torch, qwen3).items():
+    runtime_counts, ledger_peaks = phase_runtime_model(torch, qwen3)
+    for remat, launched in runtime_counts.items():
         counts[f"piper runtime, remat {remat}"] = {**none, **launched}
     gc.collect()
     torch.cuda.empty_cache()
     phase_runtime_model(torch, dataclasses.replace(qwen3, n_layers=RUNTIME_CASE["fp32_layers"],
                                                    dtype="float32"), timed=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("3g/5 scoring, tuning and verification: --autotune, --strategy, lint, the cost model")
+    cache_var = "REPRO_TORCH_TUNE_CACHE"
+    prev_cache = os.environ.get(cache_var)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as tmp:
+        os.environ[cache_var] = str(pathlib.Path(tmp) / "plan-cache")
+        try:
+            launched, winner, summary_3g = phase_tune_cli(torch, tmp)
+        finally:
+            if prev_cache is None:
+                del os.environ[cache_var]
+            else:
+                os.environ[cache_var] = prev_cache
+    counts["tune CLI (3g a-b)"] = {**none, **launched}
+    chunk_calls, summary_3g["cost_model"] = phase_cost_model(torch, qwen3, ledger_peaks, winner)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1595,12 +1898,15 @@ def main() -> int:
                         "source": f"src/repro_torch/kernels/csrc/{source}",
                         "replaces": replaces, "launches": sum(by_path.values()),
                         "launches_by_path": by_path,
+                        **({"cost_model_calls": chunk_calls[name]} if name in chunk_calls
+                           else {}),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         **{key: r[key] for key in r if key.startswith("at_")
                            or key in ("tflops", "two_bmm_ms", "max_abs_err_fp32_p")}})
     phase("done")
+    print("3g " + json.dumps(summary_3g), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

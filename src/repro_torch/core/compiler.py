@@ -12,10 +12,8 @@ DAG to the centralized scheduler.
 
 ``build_dag`` stops before the scheduler and takes the directives as a
 plain list; ``compile_training`` is the front door that takes a
-``Strategy`` and returns a ``CompiledProgram``.  The static verifier
-(``analyze="quick"``/``"deep"``) is not ported yet, so the port's
-``compile_training`` runs with ``analyze="off"`` and refuses the other
-depths rather than skip the verification they ask for.
+``Strategy`` and returns a ``CompiledProgram``, verified by the static
+plan verifier (``analysis.analyze``) at the depth ``analyze`` names.
 """
 from __future__ import annotations
 
@@ -166,9 +164,6 @@ def build_dag(forward: Callable, params: dict[str, Any], inputs: dict[str, tuple
     return dag
 
 
-ANALYZE_DEPTHS = ("off", "quick", "deep")
-
-
 def compile_training(
     forward: Callable[[Recorder, dict], Any],
     params: dict[str, Any],
@@ -178,7 +173,7 @@ def compile_training(
     split_backward: bool = False,
     overlap=None,
     strategy: Optional[Strategy] = None,
-    analyze: str = "off",
+    analyze: str = "quick",
 ) -> CompiledProgram:
     """``forward(rec, tvs)`` builds the model using ``rec.annotate`` /
     ``rec.region`` and returns the loss TracedValue.  ``inputs`` maps
@@ -199,15 +194,13 @@ def compile_training(
     ``Offload`` fragment splices host round-trip nodes in the
     finalization passes (``passes.apply_offload``).
 
-    ``analyze`` must be ``"off"``: the static verifier behind
-    ``"quick"`` and ``"deep"`` is not ported yet, and asking for it
-    raises ``NotImplementedError`` instead of skipping it."""
-    if analyze not in ANALYZE_DEPTHS:
-        raise ValueError(f"analyze must be one of {ANALYZE_DEPTHS}, got {analyze!r}")
-    if analyze != "off":
-        raise NotImplementedError(
-            f"compile_training(analyze={analyze!r}): the static plan verifier is not "
-            "ported yet (ROADMAP Queue 1, item 8); pass analyze='off'")
+    ``analyze`` selects the static-verifier depth run on the finished
+    plan (``analysis.analyze``): ``"quick"`` (default) runs the cheap
+    graph passes — interface consistency, comm ordering, stream races,
+    the typechecker; ``"deep"`` additionally replays the whole plan
+    through the abstract executor (deadlock + buffer-lifetime analysis);
+    ``"off"`` skips verification.  Error-severity diagnostics raise
+    ``PlanVerificationError`` (a ``ScheduleRejected``)."""
     if strategy is not None:
         if schedule or split_backward or overlap is not None:
             raise ValueError(
@@ -253,4 +246,13 @@ def compile_training(
                   "fused_gathers": dag.meta.get("fused_gathers", 0),
                   "fused_reduce_scatters":
                       dag.meta.get("fused_reduce_scatters", 0)}
+    if analyze != "off":
+        # function-local import: core stays importable on its own and
+        # the analysis package imports core freely
+        from ..analysis import analyze as analyze_plan
+        report = analyze_plan(prog, depth=analyze)
+        prog.stats["analysis"] = {"depth": analyze,
+                                  "diagnostics": len(report.diagnostics),
+                                  "codes": sorted(set(report.codes()))}
+        report.raise_if_errors()
     return prog

@@ -187,7 +187,7 @@ def timeline_peak_bytes(prog, records) -> dict:
 def node_out_bytes(n) -> int:
     """Per-device activation bytes a node's outputs pin — the sizing rule
     shared by the static timeline estimator above and the verifier's
-    abstract executor (``analysis.abstract``, a later slice), so their ledgers
+    abstract executor (``analysis.abstract``), so their ledgers
     are comparable buffer for buffer."""
     total = sum(s.nbytes for s in n.out_specs)
     if n.is_comm and n.op == "p2p":

@@ -1,21 +1,36 @@
-"""Real tensors for the proxy programs (the part of
-``repro.tune.measured`` the runtime needs so far).
+"""The ``measured`` proxy column: real tensors for the proxy programs,
+measured step times next to the simulator's prediction, and a CostModel
+calibration from the ratio.  Port of ``repro.tune.measured``.
 
 The proxy programs compile against meta tensors; real execution needs
-bits.  Both functions draw N(0, 1) values (scaled) from a seeded
-``torch.Generator`` on an explicit device, ``cuda`` unless the caller
-asks for the CPU; the draws differ from the JAX package's.  The
-calibration against measured step times (``calibrate``,
-``measure_program``) comes with the cost model and the simulator
-(ROADMAP Queue 1, item 5).
+bits.  ``materialize_params`` and ``synth_batch`` draw N(0, 1) values
+(scaled) from a seeded ``torch.Generator`` on an explicit device,
+``cuda`` unless the caller asks for the CPU; the draws differ from the
+JAX package's.
+
+Per cell, ``ratio = measured_seconds / predicted_seconds``.  What matters
+is that the ratio is STABLE across cells: a schedule the simulator ranks
+1.3x faster should measure ~1.3x faster too.  ``calibrate`` folds the
+median ratio into the cost model's ``mfu`` so predicted step times land
+on the measured scale; the spread (``CalibrationResult.dispersion``) is
+the honest error bar of the simulator on this hardware.  The JAX package
+measures a whole step on its ``spmd`` executor; the port has no such
+runtime yet (ROADMAP Queue 1, item 7), so ``measure_program`` refuses
+rather than time another backend in its place, and cells come from the
+caller's own timings (``chip_smoke.py`` times real-layer chunks with CUDA
+events).
 """
 from __future__ import annotations
 
-from typing import Any
+import dataclasses
+import statistics
+from dataclasses import dataclass
+from typing import Any, Optional, Sequence
 
 import torch
 
 from .. import resolve_device
+from ..runtime.costmodel import CostModel
 from ..tree import tree_flatten_with_path, tree_unflatten
 
 
@@ -46,3 +61,64 @@ def synth_batch(prog, seed: int = 1, device="cuda") -> dict[str, Any]:
     g = _generator(seed, dev)
     return {name: torch.randn(shape, generator=g, device=dev).to(getattr(torch, dtype))
             for name, (shape, dtype) in sorted(prog.input_shapes().items())}
+
+
+def measure_program(prog, batch: Optional[dict] = None,
+                    params: Optional[dict] = None, reps: int = 3) -> float:
+    """Measured wall-clock seconds/step of ``prog`` on a whole-mesh
+    executor.  The port has none yet: this raises rather than measure on
+    the reference interpreter, whose dispatch is not the runtime being
+    modelled."""
+    raise NotImplementedError(
+        "measure_program needs the whole-mesh spmd executor, which the port "
+        "does not have yet (ROADMAP Queue 1, item 7); the reference "
+        "interpreter is not measured in its place")
+
+
+@dataclass(frozen=True)
+class MeasuredCell:
+    label: str
+    predicted_seconds: float
+    measured_seconds: float
+
+    @property
+    def ratio(self) -> float:
+        return self.measured_seconds / max(self.predicted_seconds, 1e-12)
+
+    def to_dict(self) -> dict:
+        return {"label": self.label,
+                "predicted_seconds": self.predicted_seconds,
+                "measured_seconds": self.measured_seconds,
+                "ratio": self.ratio}
+
+
+@dataclass(frozen=True)
+class CalibrationResult:
+    cells: tuple
+    scale: float               # median measured/predicted ratio
+    dispersion: float          # max/min cell ratio (1.0 = perfect model)
+    cost: CostModel            # calibrated copy
+
+    def to_dict(self) -> dict:
+        # summary only — the per-cell table is the caller's to record
+        return {"scale": self.scale, "dispersion": self.dispersion,
+                "mfu": self.cost.mfu, "n_cells": len(self.cells)}
+
+
+def calibrate(cost: CostModel,
+              cells: Sequence[MeasuredCell]) -> CalibrationResult:
+    """Fold the measured/predicted ratio into the cost model.
+
+    Chunk time scales as ``1/(peak_flops * mfu)``; dividing ``mfu`` by
+    the median ratio rescales every compute-bound prediction onto the
+    measured clock without touching the comm constants.  ``mfu`` is
+    clamped to (1e-4, 1.0]."""
+    if not cells:
+        raise ValueError("calibrate needs at least one measured cell")
+    ratios = [c.ratio for c in cells]
+    scale = statistics.median(ratios)
+    mfu = min(max(cost.mfu / max(scale, 1e-12), 1e-4), 1.0)
+    return CalibrationResult(
+        cells=tuple(cells), scale=scale,
+        dispersion=max(ratios) / max(min(ratios), 1e-12),
+        cost=dataclasses.replace(cost, mfu=mfu))

@@ -1,7 +1,5 @@
-"""The stage-granular proxy of an ArchConfig (port of
-``repro.tune.proxy``: the model half and ``build_strategy_program``; the
-candidate helpers and the analytic chunk cost wait for the search space
-and the cost model).
+"""Candidate strategy -> compiled proxy program (port of
+``repro.tune.proxy``; DESIGN.md §8).
 
 The Piper path never traces the real model per candidate — that would
 lower every architecture at full size for every point in the search
@@ -22,7 +20,9 @@ proxy:
 Boundary activations are (tokens, d_model) bf16, so the p2p /
 all-to-all wire bytes are the real ones.  This is how a full-width
 config (qwen3-1b: 1.72 B parameters) enters the IR without a byte of
-device memory.
+device memory.  Chunk compute cost comes from the analytic roofline in
+``make_chunk_cost`` (the counted path, ``runtime.costmodel.analyze_fn``,
+stays available by not passing the override).
 """
 from __future__ import annotations
 
@@ -31,10 +31,16 @@ from dataclasses import dataclass
 import torch
 
 from ..core.compiler import compile_training
+from ..core.overlap import OverlapConfig
+from ..core.strategy import Overlap, Strategy
 from ..models.model import params_count
+from ..runtime.costmodel import CostModel
 from ..tree import tree_map
+from .space import Candidate, MeshSpec
 
 PROXY_DTYPE = "bfloat16"
+# floor on a chunk's modelled runtime (dispatch / kernel-launch overhead)
+MIN_CHUNK_SECONDS = 1e-6
 
 
 @dataclass(frozen=True)
@@ -163,6 +169,37 @@ def make_proxy_forward(sm: StageModel):
 # strategy + compile
 # ---------------------------------------------------------------------------
 
+def candidate_strategy(cfg, mesh: MeshSpec, cand: Candidate) -> Strategy:
+    """The declarative Strategy a candidate denotes (the serialized /
+    cached artifact).  ``cfg`` is accepted for signature symmetry —
+    expert placement is derived from the traced proxy DAG at compile
+    time, not from the config here."""
+    return cand.to_strategy(mesh)
+
+
+def candidate_directives(cfg, mesh: MeshSpec, cand: Candidate,
+                         sm: StageModel) -> list:
+    """The full directive list (Place/Replicate/Shard/Split/Order) a
+    candidate compiles to — ``candidate_strategy`` lowered with the
+    expert stages the config decomposition places."""
+    expert_stages = {s for s in range(sm.n_stages)
+                     if sm.expert_resident[s]}
+    return candidate_strategy(cfg, mesh, cand).lower(
+        expert_stages=expert_stages)
+
+
+def candidate_overlap(cand: Candidate):
+    """The overlap-engine config a candidate's axes select (None keeps
+    the legacy just-in-time plan)."""
+    if cand.prefetch <= 0:
+        return None
+    return OverlapConfig(enabled=True, prefetch=cand.prefetch,
+                         bucket_bytes=cand.bucket_mb << 20)
+
+
+_UNSET = object()
+
+
 def build_strategy_program(cfg, strategy, tokens: int):
     """Compile the stage-granular proxy program for a declarative
     ``Strategy`` (the ``--strategy strategy.json`` replay path).
@@ -180,3 +217,58 @@ def build_strategy_program(cfg, strategy, tokens: int):
               "y": ((tokens, sm.d_model), PROXY_DTYPE)}
     prog = compile_training(fwd, params, inputs, strategy=strategy)
     return prog, sm
+
+
+def build_candidate_program(cfg, mesh: MeshSpec, cand: Candidate,
+                            tokens: int, overlap=_UNSET):
+    """Compile the proxy program for one candidate through the Strategy
+    front door.  Returns (CompiledProgram, StageModel).  ``overlap``
+    overrides the candidate's own overlap axes with an explicit
+    ``OverlapConfig`` or None."""
+    strat = candidate_strategy(cfg, mesh, cand)
+    if overlap is not _UNSET:
+        strat = (strat.without(Overlap) if overlap is None
+                 else strat.replacing(Overlap.from_config(overlap)))
+    return build_strategy_program(cfg, strat, tokens)
+
+
+# ---------------------------------------------------------------------------
+# analytic chunk cost
+# ---------------------------------------------------------------------------
+
+def make_chunk_cost(sm: StageModel, tokens: int, n_mb: int,
+                    cost: CostModel):
+    """Closed-form roofline for proxy chunks: FLOPs = 2 · P_active ·
+    local_tokens, scaled per pass to match the chunk's residual policy
+    (DESIGN.md §2/§11).  Under ``Remat(policy="full")`` — the historical
+    default — a joint backward re-runs the forward then computes both
+    grads (3×F), and the ZeroBubble Bi/Bw halves each redo the remat
+    (2×F apiece — the split's price is one extra forward).  A
+    remat-stashed chunk (``policy="none"``, marked ``meta["remat"]``)
+    skips the re-run: B = 2×F, Bi/Bw = 1×F each.  HBM bytes = weights
+    once + ~3 boundary-sized activation tensors."""
+    active = {}
+    for s in range(sm.n_stages):
+        active[f"stage{s}"] = sm.dense_active[s]
+        if sm.expert_resident[s]:
+            active[f"exp{s}"] = sm.expert_active[s]
+    pass_mult = {"F": 1.0, "B": 3.0, "Bi": 2.0, "Bw": 2.0}
+    stash_mult = {"F": 1.0, "B": 2.0, "Bi": 1.0, "Bw": 1.0}
+
+    def chunk_seconds(node) -> float:
+        p_active = active.get(node.bucket, 0)
+        t = tokens / max(n_mb, 1)
+        k = len(node.devices or ()) or 1
+        if k > 1 and node.meta.get("placement_mode") in (
+                "replicate", "shard_expert"):
+            t /= k
+        table = (stash_mult if node.meta.get("remat") == "none"
+                 else pass_mult)
+        mult = table.get(node.dims.get("PASS", "F"), 1.0)
+        flops = 2.0 * p_active * t * mult
+        t_c = flops / (cost.peak_flops * cost.mfu)
+        bytes_ = 2.0 * p_active + 3 * 2.0 * t * sm.d_model
+        t_m = bytes_ / cost.hbm_bw
+        return max(t_c, t_m, MIN_CHUNK_SECONDS)
+
+    return chunk_seconds

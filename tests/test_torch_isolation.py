@@ -59,6 +59,34 @@ def test_piper_subpackages_load_no_jax(package):
     assert out.returncode == 0, out.stderr
 
 
+# the scoring, tuning and verification slice: each module on its own
+SLICE_MODULES = ["repro_torch.runtime.costmodel", "repro_torch.runtime.simulator",
+                 "repro_torch.tune.space", "repro_torch.tune.proxy", "repro_torch.tune.cache",
+                 "repro_torch.tune.search", "repro_torch.tune.rebalance",
+                 "repro_torch.tune.measured", "repro_torch.analysis.interfaces",
+                 "repro_torch.analysis.races", "repro_torch.analysis.abstract",
+                 "repro_torch.analysis.deadlock", "repro_torch.analysis.lifetime",
+                 "repro_torch.analysis.verifier", "repro_torch.launch.lint",
+                 "repro_torch.launch.train"]
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_scoring_tuning_and_verification_modules_load_no_jax(module):
+    """Even the modules that are pure Python in the JAX package (the
+    search space, the cache, the rebalancer, the verifier's passes) are the
+    port's own copies, and none of them pulls in JAX or the JAX package."""
+    code = (f"import sys, importlib\n"
+            f"m = importlib.import_module({module!r})\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+            "             or k == 'repro' or k.startswith('repro.'))\n"
+            "assert not bad, bad\n"
+            f"assert m.__name__ == {module!r}\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def _port_files():
     return sorted(p for p in PORT.rglob("*") if p.suffix in (".py", ".cu", ".cuh"))
 

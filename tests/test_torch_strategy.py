@@ -288,15 +288,6 @@ def test_strategy_and_legacy_schedule_together_raise():
                                strategy=strat)
 
 
-@pytest.mark.parametrize("depth", ["quick", "deep"])
-def test_analyze_other_than_off_raises(depth):
-    """The verifier is not ported: asking for it raises, never skips."""
-    fwd, params = _mlp(S)
-    strat = tcore.Strategy(tcore.Mesh(pp=R), tcore.Pipeline("1f1b", n_mb=2))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tcore.compile_training(fwd, params, INPUTS, strategy=strat, analyze=depth)
-
-
 def test_recompile_and_input_shapes():
     fwd, params = _mlp(S)
     prog = tcore.compile_training(fwd, params, INPUTS, strategy=tcore.Strategy(
