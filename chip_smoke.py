@@ -67,7 +67,20 @@ folds the ratios in, the calibrated model simulates the plan, its
 memory estimate stands beside phase 3f's ledger peaks, and it scores the
 tuned winner on the analytic and on the counted chunk cost.  It also checks
 that the plans compile clean under the default ``analyze="quick"`` and
-analyses phase 3f's program and phase 3e's proxy at ``deep``.  Last it
+analyses phase 3f's program and phase 3e's proxy at ``deep``.  The
+multi-rank runtimes phase (3h) holds the ``spmd`` lane (one controller,
+a CUDA stream per rank) and the ``mpmd`` lane (a thread per rank over
+the ``inproc`` or ``tcp`` transport) to the interpreter on the card, bit
+for bit, after checking that two interpreter runs give the same bits:
+(a) the CPU tests' grids of toy cases in fp64; (b) phase 3f's 28-layer
+bf16 program under remat "full" and "none" on both lanes, with exact K1
+and K2 launches, the interpreter's order, each lane's warm step beside
+the interpreter's, its busy share, ``max_memory_allocated`` and the
+bytes it moved between ranks (p2p, gathers, reductions); (c) the 4-layer
+fp32 program on ``tcp``, its bytes and seconds; (d) ``tune.measure_program``
+on ``spmd`` for phase 3g's winner and 1F1B baseline beside their
+predicted steps (recorded, not gated); (e) the CLI's ``--strategy`` with
+``--backend`` spmd and mpmd, each loss bit-equal to reference's.  Last it
 runs the training CLI at its defaults
 for the ported archs, qwen3-1b, minicpm-2b (its WSD schedule checked
 step by step) and ``--d-model 128`` (head_dim 32).  It prints the card's
@@ -1437,7 +1450,8 @@ def phase_tune_cli(torch, tmp: str) -> tuple:
     the card: the ``strategy[...]`` and ``backend[...]`` lines, a finite
     loss.  (c) ``lint --grid --depth deep`` over the ported configs: exit
     code 0, every cell clean.  Returns the launches of (a) and (b), the
-    winning Strategy and the numbers for the summary line."""
+    winning Strategy, the search's 1F1B baseline and the numbers for the
+    summary line."""
     from repro_torch import core
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -1498,11 +1512,14 @@ def phase_tune_cli(torch, tmp: str) -> tuple:
     if rc != 0 or dirty or len(result["cells"]) != 81:
         fail(f"3g (c): lint exit {rc}, cells not clean: {dirty}")
     winner = core.Strategy.from_json((plan_dir / "strategy.json").read_text())
-    summary = {"search_s": search_s, "n_evaluated": plan["n_evaluated"],
+    baseline = core.Strategy.from_dict(plan["baseline"]["strategy"])
+    summary = {"search_s": search_s, "n_evaluated": plan["n_evaluated"], "tokens": plan["tokens"],
                "winner": winner.label(), "predicted_step_ms": plan["predicted_step_seconds"] * 1e3,
+               "baseline": baseline.label(),
+               "baseline_predicted_step_ms": plan["baseline"]["step_seconds"] * 1e3,
                "loss": [losses[0], losses[-1]], "reference_loss": loss,
                "lint_cells": len(result["cells"]), "lint_s": time.perf_counter() - t0}
-    return launched, winner, summary
+    return launched, winner, baseline, summary
 
 
 def layer_flops(cfg, b: int, s: int) -> int:
@@ -1678,6 +1695,335 @@ def phase_cost_model(torch, cfg, ledger_peaks: dict, winner) -> tuple:
     return launched_total, summary
 
 
+# the multi-rank runtimes phase (3h): the ``spmd`` and ``mpmd`` lanes held
+# to the interpreter bit for bit on the card, first on the CPU tests' grids
+# (the toy MLP in fp64), then on phase 3f's full-width program
+TOY = {"stages": 8, "batch": 16, "d": 16}
+LANE_GRIDS = {
+    "spmd": ["1f1b-z0-full", "1f1b-z3-none", "gpipe-z1-full", "gpipe-z3-overlap",
+             "dualpipev-z1-none", "dualpipev-z3-full", "zb1f1b-z1-full", "1f1b-z2-offload",
+             "1f1b-z1-ep"],
+    "mpmd": ["1f1b-z0-full", "1f1b-z3-full", "gpipe-z0-full", "gpipe-z3-full",
+             "dualpipev-z0-full", "dualpipev-z3-full"],
+    "mpmd/tcp": ["1f1b-z3-full"],
+}
+
+
+def lane_strategy(core, name: str):
+    """``<schedule>-z<stage>-<extra>`` as the CPU tests spell their cases."""
+    kind, zero, extra = name.split("-")
+    frags = core.Pipeline(kind, n_mb=8 if kind == "dualpipev" else 4) \
+        | core.ZeRO(stage=int(zero[1:]))
+    more = {"none": lambda: core.Remat(policy="none"),
+            "overlap": lambda: core.Overlap(prefetch=2, bucket_mb=32),
+            "offload": lambda: core.Offload(depth=2), "ep": core.ExpertParallel}.get(extra)
+    return core.Strategy(core.Mesh(pp=4, dp=2), frags | more() if more else frags)
+
+
+def toy_program(torch, name: str):
+    """The CPU tests' toy MLP (``tests/test_torch_spmd.py``) in fp64 on the
+    card: TOY["stages"] tanh-MLP stages (an expert region after stages 1,
+    3 and 5 for the EP case), weights and batch from numpy seed 0."""
+    import numpy as np
+    from repro_torch import core
+    n, bsz, d = TOY["stages"], TOY["batch"], TOY["d"]
+    experts = (1, 3, 5) if name.endswith("-ep") else ()
+
+    def stage_fn(p, x):
+        return torch.tanh(torch.tanh(x @ p["w1"]) @ p["w2"])
+
+    def loss_fn(p, x, y):
+        return torch.mean((stage_fn(p, x) - y) ** 2)
+
+    def forward(rec, tvs):
+        h = tvs["x"]
+        for i in range(n - 1):
+            with rec.annotate("pp"):
+                h = rec.region(stage_fn, f"stage{i}", name=f"s{i}")(h)
+                if i in experts:
+                    with rec.annotate("ep"):
+                        h = rec.region(stage_fn, f"exp{i}", name=f"e{i}")(h)
+        with rec.annotate("pp"):
+            return rec.region(loss_fn, f"stage{n - 1}", name="head")(h, tvs["y"])
+    rng = np.random.default_rng(0)
+    names = [f"stage{i}" for i in range(n)] + [f"exp{i}" for i in experts]
+    params = {b: {w: torch.from_numpy(rng.standard_normal((d, d)) * 0.1).cuda()
+                  for w in ("w1", "w2")} for b in names}
+    batch = {k: torch.from_numpy(rng.standard_normal((bsz, d))).cuda() for k in ("x", "y")}
+    prog = core.compile_training(forward, params, {"x": ((bsz, d), "float64"),
+                                                   "y": ((bsz, d), "float64")},
+                                 strategy=lane_strategy(core, name))
+    return prog, params, batch
+
+
+def same_bits(torch, a, b) -> bool:
+    a, b = a.detach().contiguous().reshape(-1), b.detach().contiguous().reshape(-1)
+    if a.device != b.device:
+        a = a.to(b.device)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.view(torch.uint8), b.view(torch.uint8))
+
+
+def result_diff(torch, got, ref) -> str | None:
+    """None when ``got`` is ``ref`` bit for bit (loss and every grad
+    leaf), else what differs first."""
+    from repro_torch.tree import tree_flatten_with_path
+    if got.loss.hex() != ref.loss.hex():
+        return f"loss {got.loss!r} != {ref.loss!r}"
+    if sorted(got.grads) != sorted(ref.grads):
+        return f"buckets {sorted(got.grads)} != {sorted(ref.grads)}"
+    for bkt in ref.grads:
+        mine = dict(tree_flatten_with_path(got.grads[bkt]))
+        for path, leaf in tree_flatten_with_path(ref.grads[bkt]):
+            if not same_bits(torch, mine[path], leaf):
+                err = rel_l2(mine[path].float().to(leaf.device), leaf.float())
+                return f"{bkt}/{'/'.join(path)} differs (relative L2 {err:.3e})"
+    return None
+
+
+def lane_order_diff(lane: str, got, ref) -> str | None:
+    """None when the lane ran the interpreter's order: ``exec_order`` for
+    ``spmd``; for ``mpmd``, each rank's compute and collective order, the
+    interpreter's restricted to the rank, with every one of its tasks."""
+    if lane == "spmd":
+        return None if got.exec_order == ref.exec_order else "exec_order differs"
+    for r, order in got.stats["rank_orders"].items():
+        want = [(n, role) for (n, d, role) in ref.exec_order
+                if d == r and role not in ("send", "recv")]
+        if [(n, role) for (n, role) in order if role not in ("send", "recv")] != want:
+            return f"rank {r}'s compute/collective order differs"
+        if len(order) != sum(1 for k in ref.exec_order if k[1] == r):
+            return f"rank {r} ran {len(order)} tasks"
+    return None
+
+
+def gb(n: int) -> str:
+    return f"{n / 1e9:.3f} GB"
+
+
+def moved_line(res) -> str:
+    m = res.stats["bytes_moved"]
+    return ("moved p2p " + gb(m["p2p"]) + ", gathers " + gb(m["gather"]) + ", reductions "
+            + gb(m["reduce"]) + (f", all-to-all {gb(m['all_to_all'])}" if m["all_to_all"] else ""))
+
+
+def phase_lanes_grid(torch) -> None:
+    """(a) The CPU tests' grids on the card in fp64: nine ``spmd`` cases,
+    six ``mpmd`` ones and one on ``tcp``.  The interpreter runs each
+    twice (the same bits, or the comparison means nothing), then the lane
+    must return its result bit for bit, in its order."""
+    from repro_torch import runtime
+    for lane, names in LANE_GRIDS.items():
+        backend, _, transport = lane.partition("/")
+        t0 = time.perf_counter()
+        for name in names:
+            prog, params, batch = toy_program(torch, name)
+            ref = runtime.make_executor("reference", prog, params).run(batch)
+            diff = result_diff(torch, runtime.make_executor("reference", prog, params)
+                               .run(batch), ref)
+            if diff:
+                fail(f"3h (a) {name}: the interpreter is not reproducible on the card: {diff}")
+            opts = {"transport": transport} if transport else {}
+            ex = runtime.make_executor(backend, prog, params, **opts)
+            got = ex.run(batch)
+            getattr(ex, "close", lambda: None)()
+            diff = result_diff(torch, got, ref) or lane_order_diff(backend, got, ref)
+            if diff:
+                fail(f"3h (a) {lane} {name}: {diff}")
+            if any(t.device.type != "cuda" for g in got.grads.values() for t in g.values()):
+                fail(f"3h (a) {lane} {name}: a gradient left the card")
+        print(f"  (a) {lane}: {len(names)} cases bit-equal to the interpreter on the card, "
+              f"fp64, in {time.perf_counter() - t0:.1f} s ({', '.join(names)})", flush=True)
+
+
+def phase_lanes_model(torch, cfg, lanes=("spmd", "mpmd"), remats=("full", "none"),
+                      timed: bool = True, tag: str = "(b)", **opts) -> dict:
+    """(b) Phase 3f's program (``cfg``'s decoder as a Piper forward,
+    RUNTIME_CASE's pp 4 x dp 2 1F1B ZeRO-3 Strategy, one global batch,
+    weights from seed 0) on each lane under each remat policy.  The
+    interpreter runs twice first (the same bits: trap 5); each lane must
+    then return the interpreter's loss and every gradient leaf bit for
+    bit, launch K1 and K2 exactly ``runtime_launches`` times and run the
+    interpreter's order.  With ``timed``: the warm step (median of 3)
+    beside the interpreter's, the device's busy share (torch.profiler),
+    ``max_memory_allocated`` and the bytes moved.  Returns the launches
+    by lane and policy."""
+    from repro_torch import core, runtime
+    from repro_torch.data import SyntheticTokenSource, TokenLoader
+    from repro_torch.kernels import ops
+    from repro_torch.models import init
+    from repro_torch.tree import tree_map
+    rc = RUNTIME_CASE
+    n_st = rc["pp"]
+    params = init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    first = TokenLoader(SyntheticTokenSource(cfg.vocab, seed=rc["seed"]), batch=rc["batch"],
+                        seq=rc["seq"]).next_batch()
+    batch = {k: torch.as_tensor(v, device="cuda").long() for k, v in first.items()}
+    forward, buckets = qwen3_piper(cfg, n_st)
+    bparams = buckets(params)
+    shape = ((rc["batch"], rc["seq"]), "int64")
+    ops.register_kernels()
+    counts = {}
+    for remat in remats:
+        strategy = core.Strategy(core.Mesh(pp=n_st, dp=rc["dp"]),
+                                 core.Pipeline("1f1b", n_mb=rc["n_mb"], n_stages=n_st)
+                                 | core.ZeRO(stage=rc["zero"]) | core.Remat(remat))
+        prog = core.compile_training(forward, bparams, {"tokens": shape, "labels": shape},
+                                     strategy=strategy)
+        expect = runtime_launches(cfg.n_layers, n_st, rc["n_mb"], rc["dp"], remat)
+        interp = runtime.make_executor("reference", prog, bparams)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ref, ref_ms = event_ms(torch, lambda: interp.run(batch))
+        ref_peak = torch.cuda.max_memory_allocated()
+        # the reference grads wait on the host: the lanes need the card's memory
+        ref.grads = tree_map(lambda t: t.cpu(), ref.grads)
+        again, again_ms = event_ms(torch, lambda: interp.run(batch))
+        diff = result_diff(torch, again, ref)
+        del again
+        if diff:
+            fail(f"3h {tag} remat={remat}: the interpreter is not reproducible on the card: {diff}")
+        ref_times = [ref_ms, again_ms]
+        if timed:
+            ref_times.append(event_ms(torch, lambda: interp.run(batch))[1])
+        print(f"  {tag} {cfg.name} {cfg.n_layers} layers {cfg.dtype}, {strategy.label()}: the "
+              f"interpreter twice, the same bits; step {statistics.median(ref_times):.1f} ms "
+              f"(median of {[round(m, 1) for m in ref_times]}), max_memory_allocated "
+              f"{ref_peak / 2**30:.2f} GiB", flush=True)
+        for lane in lanes:
+            backend, _, transport = lane.partition("/")
+            lane_opts = dict(opts, transport=transport) if transport else dict(opts)
+            t0 = time.perf_counter()
+            ex = runtime.make_executor(backend, prog, bparams, **lane_opts)
+            built_s = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res, ms = event_ms(torch, lambda: ex.run(batch))
+            first_s = time.perf_counter() - t0
+            launched = {k: v for k, v in ops.launch_counts().items() if v}
+            peak = torch.cuda.max_memory_allocated()
+            diff = result_diff(torch, res, ref)
+            order = lane_order_diff(backend, res, ref)
+            line = (f"  {tag} {lane} remat {remat}: {'bit-equal to the interpreter' if not diff else diff}; "
+                    f"launches {launched}, expected {expect}; order "
+                    f"{'equal' if not order else order}; {moved_line(res)}; built in "
+                    f"{built_s:.1f} s, first step {first_s:.1f} s; max_memory_allocated "
+                    f"{peak / 2**30:.2f} GiB (the interpreter's {ref_peak / 2**30:.2f})")
+            print(line, flush=True)
+            res.grads = None
+            if timed:
+                times = []
+                for _ in range(3):
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    times.append(event_ms(torch, lambda: ex.run(batch).loss)[1])
+                print(f"  {tag} {lane} remat {remat}: step {statistics.median(times):.1f} ms "
+                      f"(median of {[round(m, 1) for m in times]}) against the interpreter's "
+                      f"{statistics.median(ref_times):.1f}", flush=True)
+                step_profile(torch, f"{lane} step, remat {remat}", lambda: ex.run(batch).loss)
+            getattr(ex, "close", lambda: None)()
+            counts[f"3h {lane}, remat {remat}"] = launched
+            if diff:
+                fail(f"3h {tag} {lane} remat={remat}: {diff}")
+            if order:
+                fail(f"3h {tag} {lane} remat={remat}: {order}")
+            if launched != expect:
+                fail(f"3h {tag} {lane} remat={remat}: launches {launched} != {expect}")
+            del ex, res
+        del interp, ref, prog
+        gc.collect()
+    ops.unregister_kernels()
+    return counts
+
+
+def phase_lanes_measured(torch, winner, baseline, summary_3g: dict) -> dict:
+    """(d) The first measured step cell: ``tune.measure_program`` on the
+    ``spmd`` lane for phase 3g's tuned winner and for the 1F1B baseline
+    of the same search (the qwen3-1b proxy at the search's tokens, real
+    draws on the card), each beside its predicted step on the H100
+    constants (the search's) and on 3g (d)'s calibration.  Recorded, not
+    gated, apart from finite and positive."""
+    from repro_torch import tune
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import CostModel
+    cfg = get_config(TUNE_CASE["arch"])
+    mesh = tune.MeshSpec(pp=TUNE_CASE["pp"], dp=TUNE_CASE["dp"])
+    cal = dataclasses.replace(CostModel(), mfu=summary_3g["cost_model"]["mfu"])
+    tokens = summary_3g["tokens"]
+    rows = {}
+    for label, strat, predicted in (("winner", winner, summary_3g["predicted_step_ms"] / 1e3),
+                                    ("baseline", baseline,
+                                     summary_3g["baseline_predicted_step_ms"] / 1e3)):
+        prog, _ = tune.build_strategy_program(cfg, strat, tokens)
+        t0 = time.perf_counter()
+        measured = tune.measure_program(prog, reps=1)
+        wall = time.perf_counter() - t0
+        calibrated = tune.score_candidate(cfg, mesh, tune.Candidate.from_strategy(strat),
+                                          tokens=tokens, cost=cal).step_seconds
+        rows[label] = {"strategy": strat.label(), "measured_s": measured,
+                       "predicted_s": predicted, "calibrated_s": calibrated}
+        print(f"  (d) {label} {strat.label()} ({tokens} tokens): measured on spmd "
+              f"{measured:.4f} s a step (2 steps in {wall:.1f} s), predicted {predicted:.4f} s "
+              f"on the H100 constants and {calibrated:.4f} s on 3g (d)'s calibration (mfu "
+              f"{cal.mfu:.6f})", flush=True)
+        if not (math.isfinite(measured) and measured > 0):
+            fail(f"3h (d) {label}: measured {measured}")
+        del prog
+        gc.collect()
+        torch.cuda.empty_cache()
+    w, b = rows["winner"], rows["baseline"]
+    agree = (w["measured_s"] < b["measured_s"]) == (w["predicted_s"] < b["predicted_s"])
+    print(f"  (d) measured order {'winner first' if w['measured_s'] < b['measured_s'] else 'baseline first'}"
+          f", predicted {'winner first' if w['predicted_s'] < b['predicted_s'] else 'baseline first'}:"
+          f" {'they agree' if agree else 'they DISAGREE'} (measured/predicted "
+          f"{w['measured_s'] / w['predicted_s']:.2f} and {b['measured_s'] / b['predicted_s']:.2f})",
+          flush=True)
+    return {**rows, "order_agrees": agree}
+
+
+def phase_lanes_cli(torch, strategy_json: str, tmp: str) -> None:
+    """(e) The training CLI: ``--strategy`` with 3g's winner and
+    ``--backend`` reference, spmd and mpmd on the card; each takes one
+    step, and the lanes' losses must equal the reference's bit for bit
+    (read from the executors the CLI made)."""
+    from repro_torch.launch import train
+    from repro_torch.runtime import executor
+    make, losses = executor.make_executor, {}
+
+    def recording(name, prog, params=None, **kw):
+        ex = make(name, prog, params=params, **kw)
+        run = ex.run
+
+        def run_and_keep(batch):
+            res = run(batch)
+            losses[name] = res.loss
+            return res
+        ex.run = run_and_keep
+        return ex
+    executor.make_executor = recording
+    try:
+        for name in ("reference", "spmd", "mpmd"):
+            t0 = time.perf_counter()
+            with captured() as out:
+                rc = train.main(["--arch", TUNE_CASE["arch"], "--strategy", strategy_json,
+                                 "--backend", name, "--ckpt-dir",
+                                 str(pathlib.Path(tmp) / name)])
+            line = next((x for x in out if x.startswith(f"backend[{name}] loss=")), None)
+            print(f"  (e) --backend {name}: {line} ({time.perf_counter() - t0:.1f} s)",
+                  flush=True)
+            if rc != 0 or line is None or "cuda" not in line:
+                fail(f"3h (e) --backend {name} returned {rc}: {out}")
+    finally:
+        executor.make_executor = make
+    if not (losses["spmd"].hex() == losses["mpmd"].hex() == losses["reference"].hex()):
+        fail(f"3h (e): losses {losses} are not bit-equal")
+    print(f"  (e) the three losses are bit-equal ({losses['reference'].hex()})", flush=True)
+
+
 FAMILIES = [("moe_gmm_wgmma_kernel", "K3 grouped mm"), ("moe_gmm_kernel", "K3 grouped mm"),
             ("flash_fwd_wgmma_kernel", "K2 flash fwd"),
             ("rmsnorm_kernel", "K1 rmsnorm"), ("flash_fwd_kernel", "K2 flash fwd"),
@@ -1787,6 +2133,12 @@ def main() -> int:
     if not (src / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {__file__}: run from a checkout of the repository")
     sys.path.insert(0, str(src))
+    # phase 3h runs eight rank streams on one card; the caching
+    # allocator keeps a pool per stream, and in fixed-size segments those
+    # pools fragmented until an mpmd remat-"none" step ran out of memory
+    # with about as much reserved but unallocated as allocated (PERF.md,
+    # section 6, PR 19)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
     import torch.nn.functional as F
     if not torch.cuda.is_available():
@@ -1870,7 +2222,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as tmp:
         os.environ[cache_var] = str(pathlib.Path(tmp) / "plan-cache")
         try:
-            launched, winner, summary_3g = phase_tune_cli(torch, tmp)
+            launched, winner, baseline, summary_3g = phase_tune_cli(torch, tmp)
         finally:
             if prev_cache is None:
                 del os.environ[cache_var]
@@ -1878,6 +2230,26 @@ def main() -> int:
                 os.environ[cache_var] = prev_cache
     counts["tune CLI (3g a-b)"] = {**none, **launched}
     chunk_calls, summary_3g["cost_model"] = phase_cost_model(torch, qwen3, ledger_peaks, winner)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("3h/5 the multi-rank runtimes: the spmd and mpmd lanes against the interpreter")
+    phase_lanes_grid(torch)
+    for path, launched in phase_lanes_model(torch, qwen3).items():
+        counts[path] = {**none, **launched}
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp32 = dataclasses.replace(qwen3, n_layers=RUNTIME_CASE["fp32_layers"], dtype="float32")
+    for path, launched in phase_lanes_model(torch, fp32, lanes=("mpmd/tcp",), remats=("full",),
+                                            timed=False, tag="(c)", timeout=900.0).items():
+        counts[path] = {**none, **launched}
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary_3h = phase_lanes_measured(torch, winner, baseline, summary_3g)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lanes_") as tmp:
+        strategy_json = pathlib.Path(tmp) / "strategy.json"
+        strategy_json.write_text(winner.to_json())
+        phase_lanes_cli(torch, str(strategy_json), tmp)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1907,6 +2279,7 @@ def main() -> int:
                            or key in ("tflops", "two_bmm_ms", "max_abs_err_fp32_p")}})
     phase("done")
     print("3g " + json.dumps(summary_3g), flush=True)
+    print("3h " + json.dumps(summary_3h), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

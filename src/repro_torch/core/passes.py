@@ -50,12 +50,12 @@ splits it in two:
     residuals arriving on its own input slots and applies
     ``torch.autograd.grad``.  The graph reaches the forward's inputs
     through a zero-size anchor (``_Entry``), not the input tensors, so it
-    keeps no activation alive; it holds the bucket parameters, which are
-    resident anyway.  The runtime names the instance with
-    ``microbatch(...)`` around both chunks: the reference interpreter
-    (``runtime.interpreter``) passes (microbatch, device), since the
-    data-parallel replicas of a microbatch share the forward node; it is
-    0 by default.
+    keeps no activation alive, and its bucket leaves give up their
+    storage once the forward has run.  The runtime names the instance with
+    ``microbatch(...)`` around both chunks: the runtimes
+    (``runtime.interpreter``, ``.spmd``, ``.mpmd``) pass (microbatch,
+    device), since the data-parallel replicas of a microbatch share the
+    forward node; it is 0 by default, and in every new thread.
 
 The residual slots therefore differ from the JAX package's in number and
 spec (autograd saves other tensors than XLA), while everything else of
@@ -65,6 +65,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import threading
 
 import torch
 
@@ -160,6 +161,9 @@ def _chunk_in_avals(dag: TrainingDAG, nid: int, m: int):
 
 _MICROBATCH = contextvars.ContextVar("repro_torch_microbatch", default=0)
 _GRAPHS: dict[tuple[int, int], "_Graph"] = {}
+# the multi-rank runtimes run chunks from a thread per rank: entries are
+# added and dropped under this lock
+_GRAPHS_LOCK = threading.Lock()
 
 
 @contextlib.contextmanager
@@ -265,6 +269,13 @@ def _run_stash(base_fn, bucket, ins, pending=()):
         graph = _Graph([_edge(o) for o in outs], [_edge(x) for x in xs],
                        [_edge(p) for p in p_leaves],
                        [(x.shape, x.dtype, x.device) for x in xs], frame, pending)
+    # the graph reaches the bucket leaves only through their gradient
+    # edges (a backward unpacks the parameters from its own bucket
+    # argument), so the leaves let go of their storage: a bucket gathered
+    # for this chunk alone (ZeRO-3 on the multi-rank runtimes) is then not
+    # kept alive until the backward
+    for p in p_leaves:
+        p.data = p.data.new_empty((0,))
     residuals = [t.detach() for t in saved]
     # the graph's saved-tensor hooks keep ``pack`` alive, and with it this
     # list: a saved tensor's grad_fn is part of the graph, so the list
@@ -326,7 +337,8 @@ def _stash_residuals(dag: TrainingDAG, fwd, bwd_ids: list[int],
             raise RuntimeError(
                 f"stash forward of {fwd.name!r} saved {len(res)} tensors, "
                 f"{n_res} at build time")
-        _GRAPHS[(fid, _MICROBATCH.get())] = graph
+        with _GRAPHS_LOCK:
+            _GRAPHS[(fid, _MICROBATCH.get())] = graph
         return tuple(outs) + tuple(res)
     fwd_stash.__name__ = f"stash_{getattr(base_fn, '__name__', 'chunk')}"
 
@@ -358,9 +370,10 @@ def _stash_residuals(dag: TrainingDAG, fwd, bwd_ids: list[int],
                 [e for e, _ in pairs], wrt, [c for _, c in pairs], retain_graph=True,
                 allow_unused=True) if pairs and wrt else [None] * len(wrt))
             graph.frame.residuals, graph.frame.params = [], []
-            graph.pending.discard(pass_tag)
-            if not graph.pending:
-                del _GRAPHS[key]
+            with _GRAPHS_LOCK:
+                graph.pending.discard(pass_tag)
+                if not graph.pending:
+                    del _GRAPHS[key]
             in_cots = [None] * m
             if want_ins:
                 for j, (e, (shape, dtype, dev)) in enumerate(zip(graph.ins, graph.in_meta)):

@@ -11,6 +11,10 @@ interface and include no PyTorch header, so a build takes seconds.
 
 Nothing here runs at import: the CPU tests import every module, and
 there is no ``nvcc`` on a machine without the CUDA toolkit.
+
+The multi-rank runtimes call kernels from several threads at once, so
+the first-use build (``library``) and the wrappers' launch counters
+(``count_launch``) each take a lock.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -28,6 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 _lib: ctypes.CDLL | None = None
+_LIB_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def sources() -> list[pathlib.Path]:
@@ -116,9 +123,19 @@ def aligned(t):
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library, built on first use: threads that reach
+    their first kernel together wait for one build."""
     global _lib
-    if _lib is None:
-        build()
-        _lib = ctypes.CDLL(str(_target()))
+    with _LIB_LOCK:
+        if _lib is None:
+            build()
+            _lib = ctypes.CDLL(str(_target()))
     return _lib
+
+
+def count_launch(counters: dict, name: str) -> None:
+    """Add one to the launch counter ``counters[name]`` (a wrapper
+    module's ``globals()``) under a lock, so that launches from several
+    threads are all counted."""
+    with _COUNT_LOCK:
+        counters[name] += 1

@@ -115,7 +115,6 @@ def _lib():
 def flash_attention_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0):
     """q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D) with Hq % Hkv == 0.
     Returns (out in q's dtype, lse in fp32 (B, Hq, Sq))."""
-    global launches
     if _build.takes_plain(q, k, v):
         return flash_attention_fwd_plain(q, k, v, causal=causal, q_offset=q_offset)
     _check(q, k, v, causal, q_offset)
@@ -146,5 +145,5 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0):
                 DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {rc}")
-    launches += 1
+    _build.count_launch(globals(), "launches")
     return out, lse

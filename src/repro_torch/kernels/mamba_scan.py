@@ -164,7 +164,6 @@ def mamba_scan_fwd(x, dt, A, B, C, h0=None, save_states: bool = False):
     """x, dt: (B, S, C); A: (C, N) fp32; B, C: (B, S, N); h0: (B, C, N)
     or None.  Returns (y in x's dtype without x*D, hT fp32, chunk states
     (B, ceil(S/CHUNK), C, N) fp32 if ``save_states`` else None)."""
-    global launches
     if _build.takes_plain(x, dt, A, B, C, h0):
         return mamba_scan_plain(x, dt, A, B, C, h0, save_states)
     _check(x, dt, A, B, C, h0)
@@ -183,7 +182,7 @@ def mamba_scan_fwd(x, dt, A, B, C, h0=None, save_states: bool = False):
                    DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     if rc:
         raise RuntimeError(f"mamba scan kernel launch failed: CUDA error {rc}")
-    launches += 1
+    _build.count_launch(globals(), "launches")
     return y, hT, hs
 
 
@@ -191,7 +190,6 @@ def mamba_scan_bwd(x, dt, A, B, C, hs, dy, dhT=None):
     """Gradients of ``mamba_scan_fwd``'s (y, hT) from the saved chunk
     states ``hs``: returns (dx, ddt, dA, dB, dC, dh0), each in its
     input's dtype (dA and dh0 fp32)."""
-    global bwd_launches
     if _build.takes_plain(x, dt, A, B, C, hs, dy, dhT):
         return mamba_scan_bwd_plain(x, dt, A, B, C, hs, dy, dhT)
     _check(x, dt, A, B, C, None)
@@ -219,6 +217,6 @@ def mamba_scan_bwd(x, dt, A, B, C, hs, dy, dhT=None):
                    torch.cuda.current_stream(x.device).cuda_stream)
     if rc:
         raise RuntimeError(f"mamba scan backward kernel launch failed: CUDA error {rc}")
-    bwd_launches += 1
+    _build.count_launch(globals(), "bwd_launches")
     return (dx, ddt, dA_part.sum(0), dB_part.sum(1).to(B.dtype),
             dC_part.sum(1).to(C.dtype), dh0)

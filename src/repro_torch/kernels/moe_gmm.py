@@ -111,7 +111,6 @@ def _launch(a, b, c, m, n, k, trans_a, trans_b):
 
 def moe_gmm_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (E, M, K) @ w (E, K, N) -> (E, M, N) in x's dtype."""
-    global launches
     if _build.takes_plain(x, w):
         return moe_gmm_plain(x, w)
     x, w = _admit(x, w)
@@ -120,14 +119,13 @@ def moe_gmm_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
     if y.numel():
         _launch(x, w, y, m, n, k, False, False)
-        launches += 1
+        _build.count_launch(globals(), "launches")
     return y
 
 
 def moe_gmm_bwd(x, w, dy, need_dx: bool = True, need_dw: bool = True):
     """Gradients of ``moe_gmm_fwd`` from dy (E, M, N): (dx (E, M, K),
     dw (E, K, N)), each one launch, or None where not asked for."""
-    global bwd_launches
     if _build.takes_plain(x, w, dy):
         return moe_gmm_bwd_plain(x, w, dy, need_dx, need_dw)
     x, w, dy = _admit(x, w, dy)
@@ -140,10 +138,10 @@ def moe_gmm_bwd(x, w, dy, need_dx: bool = True, need_dw: bool = True):
         dx = torch.empty_like(x)
         if dx.numel():
             _launch(dy, w, dx, m, k, n, False, True)
-            bwd_launches += 1
+            _build.count_launch(globals(), "bwd_launches")
     if need_dw:
         dw = torch.empty_like(w)
         if dw.numel():
             _launch(x, dy, dw, k, n, m, True, False)
-            bwd_launches += 1
+            _build.count_launch(globals(), "bwd_launches")
     return dx, dw

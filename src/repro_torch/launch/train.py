@@ -19,9 +19,10 @@ Before training, the Piper path, as in the JAX driver:
                       ``strategy[...]`` line; exit 2 if it does not parse
                       or compile, or its estimated peak exceeds
                       ``--memory-budget``;
-  --backend reference with --strategy: run one real step of the reduced
+  --backend NAME with --strategy: run one real step of the reduced
                       config's proxy under the same document on the
-                      named backend, on ``--device``, and exit;
+                      named backend (``reference``, ``spmd`` or ``mpmd``,
+                      from the registry), on ``--device``, and exit;
   --autotune          search the strategy space for the full config
                       (``tune.search``) and save ``plan.json`` and
                       ``strategy.json`` under ``--ckpt-dir/<arch>/``.

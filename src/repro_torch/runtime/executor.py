@@ -14,12 +14,14 @@ by comparing backend names:
                                shape: ``(prog, params, devices) -> ex``
   ``@register_backend(name)``  add a backend (third-party runtimes too)
 
-The port registers one builtin so far, ``reference`` (the interpreter:
-simulated devices, oracle numerics and memory ledgers); the per-rank
-``mpmd`` and whole-mesh ``spmd`` runtimes of the JAX package come with
-later slices (ROADMAP Queue 1, items 6-7).  The JAX package's
-trace-size counter (an equation count of a traced program) has no
-counterpart here: the port's chunks run eagerly and trace nothing.
+The port registers the JAX package's three builtins, in its order:
+``reference`` (the interpreter: simulated devices, oracle numerics and
+memory ledgers), ``spmd`` (one controller drives every rank, each on a
+stream of its own) and ``mpmd`` (a controller thread per rank, each
+running only its own program, over an asynchronous message transport).
+The JAX package's trace-size counter (an equation count of a traced
+program) has no counterpart here: the port's chunks run eagerly and
+trace nothing, so the lanes count the operations of their programs.
 
 Every backend implements the same protocol (``Executor``):
 
@@ -60,7 +62,8 @@ class BackendCapabilities:
 
     ``real_xla``        executes each logical rank on a real device of
                         its own (the name is the JAX package's; no port
-                        backend sets it yet);
+                        backend sets it: the lanes place their ranks
+                        round-robin, eight of them on one card);
     ``memory_ledgers``  ``RunResult.ledgers`` is populated (per-device
                         peak-memory accounting);
     ``measured_time``   ``measure(batch)`` returns meaningful wall-clock
@@ -118,6 +121,18 @@ _builtin(
                         measured_time=False, per_rank_trace=False,
                         multi_controller=False, elastic=True),
     "oracle interpreter on simulated devices (numerics + memory ledgers)")
+_builtin(
+    "spmd", "repro_torch.runtime.spmd:SpmdExecutor",
+    BackendCapabilities(real_xla=False, memory_ledgers=False,
+                        measured_time=True, per_rank_trace=False,
+                        multi_controller=False, elastic=True),
+    "one controller drives every rank, a stream each (whole-mesh program)")
+_builtin(
+    "mpmd", "repro_torch.runtime.mpmd:MpmdExecutor",
+    BackendCapabilities(real_xla=False, memory_ledgers=False,
+                        measured_time=True, per_rank_trace=True,
+                        multi_controller=True, elastic=True),
+    "per-rank programs, multi-controller dispatch, async transport")
 
 
 def register_backend(name: str,

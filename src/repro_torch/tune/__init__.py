@@ -15,8 +15,7 @@ simulator + cost model, reject over-budget candidates, cache the winner.
     strategy = plan.strategy()   # feed to compile_training(strategy=...)
 
 Everything of the JAX package's ``tune`` is exported.  ``measure_program``
-raises until the port has a whole-mesh runtime to measure on (ROADMAP
-Queue 1, item 7).
+times a step on the whole-mesh ``spmd`` runtime, as in the JAX package.
 """
 from .cache import PlanCache, fingerprint
 from .measured import (CalibrationResult, MeasuredCell, calibrate,

@@ -13,12 +13,10 @@ is that the ratio is STABLE across cells: a schedule the simulator ranks
 1.3x faster should measure ~1.3x faster too.  ``calibrate`` folds the
 median ratio into the cost model's ``mfu`` so predicted step times land
 on the measured scale; the spread (``CalibrationResult.dispersion``) is
-the honest error bar of the simulator on this hardware.  The JAX package
-measures a whole step on its ``spmd`` executor; the port has no such
-runtime yet (ROADMAP Queue 1, item 7), so ``measure_program`` refuses
-rather than time another backend in its place, and cells come from the
-caller's own timings (``chip_smoke.py`` times real-layer chunks with CUDA
-events).
+the honest error bar of the simulator on this hardware.  As in the JAX
+package, ``measure_program`` times a whole step on the whole-mesh
+``spmd`` runtime; cells may also come from the caller's own timings
+(``chip_smoke.py`` times real-layer chunks with CUDA events).
 """
 from __future__ import annotations
 
@@ -64,15 +62,18 @@ def synth_batch(prog, seed: int = 1, device="cuda") -> dict[str, Any]:
 
 
 def measure_program(prog, batch: Optional[dict] = None,
-                    params: Optional[dict] = None, reps: int = 3) -> float:
-    """Measured wall-clock seconds/step of ``prog`` on a whole-mesh
-    executor.  The port has none yet: this raises rather than measure on
-    the reference interpreter, whose dispatch is not the runtime being
-    modelled."""
-    raise NotImplementedError(
-        "measure_program needs the whole-mesh spmd executor, which the port "
-        "does not have yet (ROADMAP Queue 1, item 7); the reference "
-        "interpreter is not measured in its place")
+                    params: Optional[dict] = None, reps: int = 3,
+                    device="cuda") -> float:
+    """Measured wall-clock seconds/step of ``prog`` on the whole-mesh
+    ``spmd`` runtime (min over ``reps`` after one warm-up step), with
+    ``materialize_params`` and ``synth_batch`` drawing the params and the
+    batch on ``device`` where the caller gives none."""
+    from ..runtime.executor import make_executor
+    if params is None:
+        params = materialize_params(prog.params, device=device)
+    if batch is None:
+        batch = synth_batch(prog, device=device)
+    return make_executor("spmd", prog, params=params).measure(batch, reps=reps)
 
 
 @dataclass(frozen=True)

@@ -309,12 +309,14 @@ def test_replay_equals_the_run(name, monkeypatch):
 
 
 def test_registry():
-    assert runtime.list_backends() == ("reference",)
+    assert runtime.list_backends() == ("reference", "spmd", "mpmd")
     assert runtime.get_backend("reference") is runtime.Interpreter
+    assert runtime.get_backend("spmd") is runtime.SpmdExecutor
+    assert runtime.get_backend("mpmd") is runtime.MpmdExecutor
     caps = runtime.get_backend("reference").capabilities
     assert caps.memory_ledgers and not caps.real_xla
-    with pytest.raises(runtime.UnknownBackendError, match="reference"):
-        runtime.get_backend("spmd")
+    with pytest.raises(runtime.UnknownBackendError, match="reference, spmd, mpmd"):
+        runtime.get_backend("smpd")
     prog, _ = run_port("dp")
     p = prog.params
     ex = runtime.executor_factory("reference")(prog, p, None)

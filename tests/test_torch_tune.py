@@ -591,11 +591,6 @@ def test_calibrate_equals_the_jax_package():
         tune.calibrate(tc, [])
 
 
-def test_measure_program_refuses_without_a_whole_mesh_runtime():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tune.measure_program(None)
-
-
 # ---------------------------------------------------------------------------
 # the training CLI
 # ---------------------------------------------------------------------------
