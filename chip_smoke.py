@@ -75,12 +75,23 @@ for bit, after checking that two interpreter runs give the same bits:
 (a) the CPU tests' grids of toy cases in fp64; (b) phase 3f's 28-layer
 bf16 program under remat "full" and "none" on both lanes, with exact K1
 and K2 launches, the interpreter's order, each lane's warm step beside
-the interpreter's, its busy share, ``max_memory_allocated`` and the
-bytes it moved between ranks (p2p, gathers, reductions); (c) the 4-layer
+the interpreter's and its busy share (remat "full"),
+``max_memory_allocated`` and the bytes it moved between ranks (p2p, gathers, reductions); (c) the 4-layer
 fp32 program on ``tcp``, its bytes and seconds; (d) ``tune.measure_program``
 on ``spmd`` for phase 3g's winner and 1F1B baseline beside their
 predicted steps (recorded, not gated); (e) the CLI's ``--strategy`` with
-``--backend`` spmd and mpmd, each loss bit-equal to reference's.  Last it
+``--backend`` spmd and mpmd, each loss bit-equal to reference's.  The
+elastic phase (3i) runs the ``ElasticSupervisor`` through faults: (a) the
+CPU tests' kill-a-rank grid on ``spmd`` and ``mpmd`` and their 24-step
+chaos soak on ``spmd`` (the toy MLP in fp64), bit-equal to uninterrupted
+or piecewise fault-free references; (b) phase 3f's 28-layer bf16 program
+on ``spmd`` through a kill (world 8 -> 4, ZeRO shards 2 -> 1) and the
+slot's arrival (back to 8 from the plan cache), every kept loss and final
+param leaf bit-equal to the piecewise fault-free reference, with exact K1
+and K2 launches over the steps each world ran, and its recovery,
+recompile, checkpoint and reshard seconds, checkpoint bytes, peak memory
+and step times; (c) the CLI's ``--elastic`` on ``spmd`` and ``--chaos``
+with ``--chaos-report`` on ``mpmd`` for phase 3g's winner.  Last it
 runs the training CLI at its defaults
 for the ported archs, qwen3-1b, minicpm-2b (its WSD schedule checked
 step by step) and ``--d-model 128`` (head_dim 32).  It prints the card's
@@ -1837,17 +1848,17 @@ def phase_lanes_grid(torch) -> None:
 
 
 def phase_lanes_model(torch, cfg, lanes=("spmd", "mpmd"), remats=("full", "none"),
-                      timed: bool = True, tag: str = "(b)", **opts) -> dict:
+                      timed: tuple = ("full", "none"), tag: str = "(b)", **opts) -> dict:
     """(b) Phase 3f's program (``cfg``'s decoder as a Piper forward,
     RUNTIME_CASE's pp 4 x dp 2 1F1B ZeRO-3 Strategy, one global batch,
     weights from seed 0) on each lane under each remat policy.  The
     interpreter runs twice first (the same bits: trap 5); each lane must
     then return the interpreter's loss and every gradient leaf bit for
     bit, launch K1 and K2 exactly ``runtime_launches`` times and run the
-    interpreter's order.  With ``timed``: the warm step (median of 3)
-    beside the interpreter's, the device's busy share (torch.profiler),
-    ``max_memory_allocated`` and the bytes moved.  Returns the launches
-    by lane and policy."""
+    interpreter's order.  For the policies in ``timed``: the warm step
+    (median of 3) beside the interpreter's and the device's busy share
+    (torch.profiler); for every policy ``max_memory_allocated`` and the
+    bytes moved.  Returns the launches by lane and policy."""
     from repro_torch import core, runtime
     from repro_torch.data import SyntheticTokenSource, TokenLoader
     from repro_torch.kernels import ops
@@ -1885,7 +1896,7 @@ def phase_lanes_model(torch, cfg, lanes=("spmd", "mpmd"), remats=("full", "none"
         if diff:
             fail(f"3h {tag} remat={remat}: the interpreter is not reproducible on the card: {diff}")
         ref_times = [ref_ms, again_ms]
-        if timed:
+        if remat in timed:
             ref_times.append(event_ms(torch, lambda: interp.run(batch))[1])
         print(f"  {tag} {cfg.name} {cfg.n_layers} layers {cfg.dtype}, {strategy.label()}: the "
               f"interpreter twice, the same bits; step {statistics.median(ref_times):.1f} ms "
@@ -1915,7 +1926,7 @@ def phase_lanes_model(torch, cfg, lanes=("spmd", "mpmd"), remats=("full", "none"
                     f"{peak / 2**30:.2f} GiB (the interpreter's {ref_peak / 2**30:.2f})")
             print(line, flush=True)
             res.grads = None
-            if timed:
+            if remat in timed:
                 times = []
                 for _ in range(3):
                     gc.collect()
@@ -2022,6 +2033,358 @@ def phase_lanes_cli(torch, strategy_json: str, tmp: str) -> None:
     if not (losses["spmd"].hex() == losses["mpmd"].hex() == losses["reference"].hex()):
         fail(f"3h (e): losses {losses} are not bit-equal")
     print(f"  (e) the three losses are bit-equal ({losses['reference'].hex()})", flush=True)
+
+
+# the elastic recovery and chaos phase (3i): the supervisor on the lanes,
+# first on the CPU tests' grids (the toy MLP in fp64), then on phase 3f's
+# full-width program through a kill and a regrowth, then the CLI
+ELASTIC_GRID = {"steps": 10, "every": 4, "kill_at": 6, "kill_rank": 3,
+                "cases": ["1f1b-z0-full", "1f1b-z3-full", "gpipe-z0-full", "gpipe-z3-full"]}
+SOAK = {"steps": 24, "every": 4, "case": "1f1b-z3-full", "seed": 23,
+        "events": [dict(step=6, kind="kill", rank=3), dict(step=8, kind="arrive", devices=(3,)),
+                   dict(step=8, kind="straggle", rank=2, factor=3.0, duration=16),
+                   dict(step=16, kind="corrupt", flips=8), dict(step=19, kind="nan_spike")]}
+# (b): RUNTIME_CASE's program for 8 steps, a checkpoint every 2; rank 3
+# dies at step 3 (world 8 -> 4, ZeRO shards 2 -> 1), slot 3 arrives back
+# at step 5 (world 4 -> 8, shards 1 -> 2, the first program from the plan
+# cache)
+ELASTIC_MODEL = {"steps": 8, "every": 2, "kill_at": 3, "kill_rank": 3, "arrive_at": 5,
+                 "keep": 2}
+# (c): the CLI's --chaos schedule on 3g's winner (pp 4 x dp 2; the CLI
+# checkpoints every 3 steps of 8): a kill, the slot's arrival, a
+# corrupted checkpoint and a NaN spike that must skip it
+CLI_CHAOS = [dict(step=4, kind="kill", rank=7), dict(step=6, kind="arrive", devices=(7,)),
+             dict(step=6, kind="corrupt", flips=8), dict(step=7, kind="nan_spike")]
+
+
+class DeviceTokens:
+    """A token loader whose batches land on the card as int64 (the
+    programs' declared input dtype); its stream position is the wrapped
+    loader's, so the supervisor checkpoints and restores it."""
+
+    def __init__(self, torch, loader) -> None:
+        self.torch, self.loader = torch, loader
+
+    def next_batch(self) -> dict:
+        return {k: self.torch.as_tensor(v, device="cuda").long()
+                for k, v in self.loader.next_batch().items()}
+
+    def state_dict(self) -> dict:
+        return self.loader.state_dict()
+
+    def load_state_dict(self, d: dict) -> None:
+        self.loader.load_state_dict(d)
+
+
+def tree_diff(torch, got: dict, want: dict) -> str | None:
+    """None when every leaf of ``got`` is ``want``'s bit for bit."""
+    from repro_torch.tree import tree_flatten_with_path
+    mine = dict(tree_flatten_with_path(got))
+    for path, leaf in tree_flatten_with_path(want):
+        if not same_bits(torch, mine[path], leaf):
+            return f"{'/'.join(path)} differs"
+    return None
+
+
+def lane_factory(lane: str, built: list):
+    """The registry's runner factory for ``lane`` (``mpmd/tcp`` names the
+    transport), recording the device slots of every runner it builds."""
+    from repro_torch import runtime
+    backend, _, transport = lane.partition("/")
+    factory = runtime.executor_factory(backend, **({"transport": transport} if transport else {}))
+
+    def build(prog, params, devices):
+        built.append(None if devices is None else tuple(devices))
+        return factory(prog, params, devices)
+    return build
+
+
+def piecewise(torch, lane: str, pieces: list, params: dict, loader, n_steps: int) -> tuple:
+    """The fault-free reference of an elastic run: ``pieces`` is [(start
+    step, program)], each piece on a fresh executor of ``lane`` from live
+    params resharded to its ZeRO degree, with the supervisor's SGD.
+    Returns ({step: loss}, final params)."""
+    from repro_torch import ft
+    from repro_torch.checkpoint import reshard_tree
+    update, starts = ft.sgd_update(), dict(pieces)
+    p, ex, deg, losses = params, None, None, {}
+    try:
+        for step in range(n_steps):
+            if step in starts:
+                prog = starts[step]
+                new = ft.zero_shard_degree(prog.strategy)
+                if deg is not None and deg != new:
+                    p = reshard_tree(p, deg, new)
+                deg = new
+                if ex is not None:
+                    getattr(ex, "close", lambda: None)()
+                    ex = None
+                    gc.collect()
+                ex = lane_factory(lane, [])(prog, p, None)
+            res = ex.run(loader.next_batch())
+            p = update(p, res.grads, step)
+            ex.params = p
+            losses[step + 1] = res.loss
+            del res
+    finally:
+        getattr(ex, "close", lambda: None)()
+    return losses, p
+
+
+def check_history(history: list, want: dict, what: str) -> None:
+    """Every kept loss of a supervisor's ``history`` (the last record of
+    each step) equals ``want``'s bit for bit."""
+    got = {h["step"]: h["loss"] for h in history}
+    bad = [s for s in want if got[s].hex() != want[s].hex()]
+    if bad or sorted(got) != sorted(want):
+        fail(f"{what}: losses at steps {bad} differ from the fault-free reference "
+             f"({[(s, got.get(s), want[s]) for s in bad[:3]]})")
+
+
+def phase_elastic_grid(torch) -> None:
+    """(a) The CPU tests' grids on the card in fp64 (``ELASTIC_GRID``,
+    ``SOAK``): the kill-a-rank grid on ``spmd`` and ``mpmd`` (pp 4 x dp 2,
+    rank 3 dies at step 6, a checkpoint every 4), each resumed loss and
+    the final params bit-equal to the same lane run uninterrupted from the
+    restored checkpoint on the shrunk mesh; then the 24-step soak (kill,
+    arrival, straggler and rebalance, corruption, NaN spike) on ``spmd``,
+    bit-equal to the piecewise fault-free reference."""
+    from repro_torch import ft
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import SyntheticVectorSource, VectorLoader
+
+    def loader():
+        return VectorLoader(SyntheticVectorSource(TOY["d"], seed=11), batch=TOY["batch"],
+                            device="cuda", dtype=torch.float64)
+    g = ELASTIC_GRID
+    for lane in ("spmd", "mpmd"):
+        t0 = time.perf_counter()
+        for name in g["cases"]:
+            prog, params, _ = toy_program(torch, name)
+            built: list = []
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_elastic_") as tmp:
+                sup = ft.ElasticSupervisor(
+                    prog, CheckpointManager(tmp, keep=10, async_save=False), loader(),
+                    runner_factory=lane_factory(lane, built), checkpoint_every=g["every"],
+                    injector=ft.RankFailureInjector({g["kill_at"]: g["kill_rank"]}))
+                final = sup.run(params, g["steps"])
+                r, = sup.reports
+                if (r.resume_step, r.new_world, r.shrunk_axis) != (4, 4, "dp") \
+                        or not 0 < r.steps_lost <= g["every"]:
+                    fail(f"3i (a) {lane} {name}: recovery {r.to_dict()}")
+                if any(g["kill_rank"] in b for b in built[1:]):
+                    fail(f"3i (a) {lane} {name}: the killed slot was named again: {built}")
+                plan = ft.shrink_for_survivors(prog.strategy, [x for x in range(8)
+                                                               if x != g["kill_rank"]])
+                state, extra = sup.ckpt.restore({"params": params}, step=r.resume_step)
+            ref_loader = loader()
+            ref_loader.load_state_dict(extra["data"])
+            want, p = piecewise(torch, lane, [(0, prog.recompile(strategy=plan.strategy))],
+                                state["params"], ref_loader, g["steps"] - r.resume_step)
+            want = {s + r.resume_step: v for s, v in want.items()}
+            check_history([h for h in sup.history if h["step"] > r.resume_step], want,
+                          f"3i (a) {lane} {name}")
+            if tree_diff(torch, final, p):
+                fail(f"3i (a) {lane} {name}: final params {tree_diff(torch, final, p)}")
+        print(f"  (a) {lane}: kill-a-rank on {len(g['cases'])} cases, world 8 -> 4, each "
+              f"resumed loss and the final params bit-equal to an uninterrupted run from the "
+              f"restored checkpoint, fp64, in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    s = SOAK
+    prog, params, _ = toy_program(torch, s["case"])
+    schedule = ft.FaultSchedule(tuple(ft.FaultEvent(**e) for e in s["events"]), seed=s["seed"])
+    built = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_soak_") as tmp:
+        sup = ft.ElasticSupervisor(
+            prog, CheckpointManager(tmp, keep=10, async_save=False), loader(),
+            runner_factory=lane_factory("spmd", built), checkpoint_every=s["every"],
+            injector=ft.ChaosInjector(schedule), rebalance=True, rebalance_patience=2,
+            rebalance_cooldown=s["every"])
+        final = sup.run(params, s["steps"])
+    rep = sup.chaos_report(s["steps"])
+    if (len(rep.recoveries), len(rep.growths), len(rep.rebalances), rep.numeric_rewinds,
+            rep.corrupt_detected, rep.final_world) != (2, 1, 1, 1, 1, 8):
+        fail(f"3i (a) soak: {rep.to_json()}")
+    if 3 in built[1] or sorted(sup.physical) != list(range(8)):
+        fail(f"3i (a) soak: slots {built}, physical {sup.physical}")
+    plan = ft.shrink_for_survivors(prog.strategy, [x for x in range(8) if x != 3])
+    gplan = ft.grow_for_arrivals(plan.strategy, 8)
+    # the shrunk piece starts from the checkpoint the kill restored: the
+    # fault-free run's live params at step 4 are those bits
+    want, p = piecewise(torch, "spmd", [(0, prog), (4, prog.recompile(strategy=plan.strategy)),
+                                        (8, prog.recompile(strategy=gplan.strategy))],
+                        params, loader(), s["steps"])
+    check_history(sup.history, want, "3i (a) soak")
+    if tree_diff(torch, final, p):
+        fail(f"3i (a) soak: final params {tree_diff(torch, final, p)}")
+    print(f"  (a) spmd soak: {len(schedule.events)} faults over {s['steps']} steps (2 "
+          f"recoveries, 1 regrowth, 1 rebalance {rep.rebalances[0]['split']}, 1 corrupt "
+          f"checkpoint skipped, {rep.steps_lost_total} steps lost), every loss and the final "
+          f"params bit-equal to the piecewise fault-free reference, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_elastic_model(torch, cfg) -> dict:
+    """(b) Phase 3f's program (``cfg``'s 28 layers in bf16, remat "full",
+    RUNTIME_CASE's pp 4 x dp 2 1F1B ZeRO-3 Strategy) under an
+    ``ElasticSupervisor`` on ``spmd`` (``ELASTIC_MODEL``): rank 3 dies,
+    the mesh shrinks to pp 4 x dp 1 and recompiles, the last checkpoint is
+    restored and resharded, and slot 3's arrival regrows the original
+    mesh from the plan cache.  Held to the piecewise fault-free reference
+    (each piece on a fresh ``spmd`` executor): every kept loss and every
+    final param leaf bit for bit, with exact K1 and K2 launches over the
+    steps each world ran (lost steps included).  Prints the recovery,
+    recompile, checkpoint and reshard seconds, the checkpoint's bytes,
+    ``max_memory_allocated`` and each world's median step.  Returns the
+    launches."""
+    from repro_torch import core, ft
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import SyntheticTokenSource, TokenLoader
+    from repro_torch.ft import elastic
+    from repro_torch.kernels import ops
+    from repro_torch.models import init
+    rc, m = RUNTIME_CASE, ELASTIC_MODEL
+    n_st = rc["pp"]
+    params = init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    forward, buckets = qwen3_piper(cfg, n_st)
+    bparams = buckets(params)
+    del params
+    shape = ((rc["batch"], rc["seq"]), "int64")
+    strategy = core.Strategy(core.Mesh(pp=n_st, dp=rc["dp"]),
+                             core.Pipeline("1f1b", n_mb=rc["n_mb"], n_stages=n_st)
+                             | core.ZeRO(stage=rc["zero"]) | core.Remat("full"))
+    prog = core.compile_training(forward, bparams, {"tokens": shape, "labels": shape},
+                                 strategy=strategy)
+
+    def loader():
+        return DeviceTokens(torch, TokenLoader(SyntheticTokenSource(cfg.vocab, seed=rc["seed"]),
+                                               batch=rc["batch"], seq=rc["seq"]))
+    timed: dict = {"save": [], "restore": [], "reshard": []}
+
+    def timing(what, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            timed[what].append(time.perf_counter() - t0)
+            return out
+        return run
+    schedule = ft.FaultSchedule((ft.FaultEvent(step=m["kill_at"], kind="kill", rank=m["kill_rank"]),
+                                 ft.FaultEvent(step=m["arrive_at"], kind="arrive",
+                                               devices=(m["kill_rank"],))))
+    built: list = []
+    ops.register_kernels()
+    real_reshard = elastic.reshard_tree
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_elastic_model_") as tmp:
+        free = shutil.disk_usage(tmp).free
+        ckpt = CheckpointManager(tmp, keep=m["keep"], async_save=False)
+        ckpt.save, ckpt.restore = timing("save", ckpt.save), timing("restore", ckpt.restore)
+        elastic.reshard_tree = timing("reshard", real_reshard)
+        try:
+            sup = ft.ElasticSupervisor(prog, ckpt, loader(),
+                                       runner_factory=lane_factory("spmd", built),
+                                       checkpoint_every=m["every"],
+                                       injector=ft.ChaosInjector(schedule))
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            final = sup.run(bparams, m["steps"], log_every=1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = {k: v for k, v in ops.launch_counts().items() if v}
+            peak = torch.cuda.max_memory_allocated()
+            on_disk = {s: sum(f.stat().st_size for f in ckpt.step_dir(s).iterdir())
+                       for s in ckpt.steps()}
+        finally:
+            elastic.reshard_tree = real_reshard
+    r, = sup.reports
+    g, = sup.growths
+    worlds = [h["world"] for h in sup.history]
+    by_world: dict = {}
+    for h in sup.history:
+        by_world.setdefault(h["world"], []).append(h["dt"])
+    expect: dict = {}
+    for w in worlds:
+        for k, v in runtime_launches(cfg.n_layers, n_st, rc["n_mb"], w // n_st, "full").items():
+            expect[k] = expect.get(k, 0) + v
+    print(f"  (b) {cfg.name} {cfg.n_layers} layers {cfg.dtype}, {strategy.label()} on spmd under "
+          f"an ElasticSupervisor, {m['steps']} steps in {wall:.1f} s: rank {r.failed_rank} lost "
+          f"at step {r.step_failed}, world {r.old_world}->{r.new_world} (shrunk "
+          f"{r.shrunk_axis}), resumed at step {r.resume_step} ({r.steps_lost} steps lost), "
+          f"recovery {r.recovery_seconds:.2f} s (recompile {r.compile_seconds:.2f} s); slot "
+          f"{m['kill_rank']} back at step {g.step}, world {g.old_world}->{g.new_world} (grew "
+          f"{g.grown_axis}, plan cache hit {g.cache_hit}, {g.recovery_seconds:.2f} s)", flush=True)
+    print(f"  (b) checkpoints: saves {[round(t, 2) for t in timed['save']]} s, restores "
+          f"{[round(t, 2) for t in timed['restore']]} s, reshards "
+          f"{[round(t, 2) for t in timed['reshard']]} s, {gb(max(on_disk.values()))} a "
+          f"checkpoint on disk ({len(on_disk)} kept, {free / 1e9:.1f} GB free before); "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; median step by world "
+          f"{ {w: round(statistics.median(d), 3) for w, d in sorted(by_world.items())} } s "
+          f"(steps run by world {worlds}); launches {launched}, expected {expect}", flush=True)
+    if (r.failed_rank, r.step_failed, r.old_world, r.new_world, r.shrunk_axis) != \
+            (m["kill_rank"], m["kill_at"], 8, 4, "dp") or r.steps_lost > m["every"]:
+        fail(f"3i (b): recovery {r.to_dict()}")
+    if (g.old_world, g.new_world, g.grown_axis, g.cache_hit) != (4, 8, "dp", True):
+        fail(f"3i (b): regrowth {g.to_dict()}")
+    if any(m["kill_rank"] in b for b in built[1:-1]) or sorted(sup.physical) != list(range(8)):
+        fail(f"3i (b): slots {built}, physical {sup.physical}")
+    if launched != expect:
+        fail(f"3i (b): launches {launched} != {expect}")
+    history = sup.history
+    del sup
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    shrunk = prog.recompile(strategy=ft.shrink_for_survivors(
+        strategy, [x for x in range(8) if x != m["kill_rank"]]).strategy)
+    want, p = piecewise(torch, "spmd", [(0, prog), (r.resume_step, shrunk), (g.step, prog)],
+                        bparams, loader(), m["steps"])
+    check_history(history, want, "3i (b)")
+    diff = tree_diff(torch, final, p)
+    print(f"  (b) the piecewise fault-free reference (original program to step "
+          f"{r.resume_step}, shrunk to step {g.step}, original to {m['steps']}, each on a fresh "
+          f"spmd executor) in {time.perf_counter() - t0:.1f} s: every kept loss "
+          f"{'and every final param leaf bit-equal' if not diff else 'equal, but ' + diff}; "
+          f"losses {[round(want[s], 6) for s in sorted(want)]}", flush=True)
+    if diff:
+        fail(f"3i (b): final params: {diff}")
+    ops.unregister_kernels()
+    return launched
+
+
+def phase_elastic_cli(torch, strategy_json: str, tmp: str) -> None:
+    """(c) The training CLI on the card with 3g's winner: ``--backend spmd
+    --elastic`` (the last rank dies at step 4) and ``--backend mpmd
+    --chaos`` (``CLI_CHAOS``) with ``--chaos-report``; each must exit 0
+    and report every fault recovered."""
+    from repro_torch import ft
+    from repro_torch.launch import train
+    sched, report = pathlib.Path(tmp) / "chaos.json", pathlib.Path(tmp) / "chaos_report.json"
+    sched.write_text(ft.FaultSchedule(tuple(ft.FaultEvent(**e) for e in CLI_CHAOS),
+                                      seed=5).to_json())
+    for backend, extra in (("spmd", ["--elastic"]),
+                           ("mpmd", ["--chaos", str(sched), "--chaos-report", str(report)])):
+        t0 = time.perf_counter()
+        with captured() as out:
+            rc = train.main(["--arch", TUNE_CASE["arch"], "--strategy", strategy_json,
+                             "--backend", backend, "--ckpt-dir", str(pathlib.Path(tmp) / backend),
+                             *extra])
+        said = [x for x in out if x.startswith("elastic")]
+        print(f"  (c) --backend {backend} {extra[0]}: exit {rc} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for line in said:
+            print(f"      {line}", flush=True)
+        if rc != 0 or not any(x.startswith("elastic: recovered from rank 7 loss — world 8->4")
+                              for x in said):
+            fail(f"3i (c) --backend {backend}: exit {rc}: {out}")
+    doc = json.loads(report.read_text())
+    if (len(doc["recoveries"]), len(doc["growths"]), doc["numeric_rewinds"],
+            doc["corrupt_detected"], doc["final_world"]) != (2, 1, 1, 1, 8):
+        fail(f"3i (c): chaos report {doc}")
 
 
 FAMILIES = [("moe_gmm_wgmma_kernel", "K3 grouped mm"), ("moe_gmm_kernel", "K3 grouped mm"),
@@ -2235,13 +2598,15 @@ def main() -> int:
 
     phase("3h/5 the multi-rank runtimes: the spmd and mpmd lanes against the interpreter")
     phase_lanes_grid(torch)
-    for path, launched in phase_lanes_model(torch, qwen3).items():
+    # remat "none" runs untimed, so that the whole run with phase 3i stays
+    # well within its limit; its warm steps stand in PERF.md
+    for path, launched in phase_lanes_model(torch, qwen3, timed=("full",)).items():
         counts[path] = {**none, **launched}
     gc.collect()
     torch.cuda.empty_cache()
     fp32 = dataclasses.replace(qwen3, n_layers=RUNTIME_CASE["fp32_layers"], dtype="float32")
     for path, launched in phase_lanes_model(torch, fp32, lanes=("mpmd/tcp",), remats=("full",),
-                                            timed=False, tag="(c)", timeout=900.0).items():
+                                            timed=(), tag="(c)", timeout=900.0).items():
         counts[path] = {**none, **launched}
     gc.collect()
     torch.cuda.empty_cache()
@@ -2250,6 +2615,20 @@ def main() -> int:
         strategy_json = pathlib.Path(tmp) / "strategy.json"
         strategy_json.write_text(winner.to_json())
         phase_lanes_cli(torch, str(strategy_json), tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("3i/5 elastic recovery and chaos: the supervisor on the lanes through faults")
+    phase_elastic_grid(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["3i spmd, kill and regrowth"] = {**none, **phase_elastic_model(torch, qwen3)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_elastic_cli_") as tmp:
+        strategy_json = pathlib.Path(tmp) / "strategy.json"
+        strategy_json.write_text(winner.to_json())
+        phase_elastic_cli(torch, str(strategy_json), tmp)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -1,5 +1,8 @@
-"""Deterministic, shardable, checkpointable token stream (port of
+"""Deterministic, shardable, checkpointable data pipelines: token and
+vector streams share one resumable-state contract (port of
 ``repro.data``)."""
-from .pipeline import DataState, SyntheticTokenSource, TokenLoader
+from .pipeline import (DataState, MemmapTokenSource, SyntheticTokenSource,
+                       SyntheticVectorSource, TokenLoader, VectorLoader)
 
-__all__ = ["DataState", "SyntheticTokenSource", "TokenLoader"]
+__all__ = ["DataState", "MemmapTokenSource", "SyntheticTokenSource",
+           "SyntheticVectorSource", "TokenLoader", "VectorLoader"]

@@ -27,29 +27,160 @@ Before training, the Piper path, as in the JAX driver:
                       (``tune.search``) and save ``plan.json`` and
                       ``strategy.json`` under ``--ckpt-dir/<arch>/``.
 
-``--elastic`` and ``--chaos`` exit 2: elastic fault tolerance is not
-ported yet (ROADMAP Queue 1, item 12).
+Elastic fault tolerance, with ``--strategy`` and ``--backend``:
+
+  --elastic           train ``--elastic-steps`` steps of the reduced
+                      proxy under an ``ElasticSupervisor``, kill a rank
+                      mid-run, and recover by recompiling the same
+                      Strategy for the shrunk mesh (exit 2 if no failure
+                      fired or recovery is impossible);
+  --chaos sched.json  the same under a ``FaultSchedule`` document (kills,
+                      arrivals, stragglers, checkpoint corruption, NaN
+                      spikes); ``--chaos-report out.json`` writes the
+                      run's ``ChaosReport``.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import pathlib
+import shutil
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from .. import resolve_device
 from ..checkpoint import CheckpointManager
 from ..configs import get_config
-from ..data import SyntheticTokenSource, TokenLoader
+from ..data import DataState, SyntheticTokenSource, TokenLoader
 from ..ft import FailureInjector, Supervisor
 from ..kernels.ops import register_kernels
 from ..models import init, train_loss
 from ..optim import adamw_init, adamw_update, cosine_schedule, wsd_schedule
 from ..runtime.executor import backends_help, list_backends
 from ..tree import tree_leaves, tree_map, tree_unflatten
+
+
+class _ProgramLoader:
+    """Deterministic, exactly resumable batch stream for an arbitrary
+    compiled program: batches are a pure function of (seed, step) over
+    ``CompiledProgram.input_shapes()``, drawn from numpy's Philox as the
+    JAX package's CLI draws them (the same bytes for the same seed and step),
+    handed out as tensors on ``device``.  The elastic demo's stand-in
+    for the token pipeline (same ``state_dict`` contract)."""
+
+    def __init__(self, shapes: dict, vocab: int, seed: int = 0, device="cpu") -> None:
+        self.shapes = dict(sorted(shapes.items()))
+        self.vocab = vocab
+        self.device = device
+        self.state = DataState(seed=seed)
+
+    def next_batch(self) -> dict:
+        rng = np.random.Generator(np.random.Philox(
+            key=self.state.seed, counter=[0, 0, 2, self.state.step]))
+        batch = {}
+        for name, (shape, dtype) in self.shapes.items():
+            dt = getattr(torch, dtype)
+            if dt.is_floating_point:
+                # float64 draws narrowed by torch: bfloat16 has no numpy
+                # dtype here, and the rounding is the JAX package's
+                arr = torch.from_numpy(rng.standard_normal(shape)).to(dt)
+            else:
+                arr = torch.from_numpy(rng.integers(0, self.vocab, size=shape)
+                                       .astype(np.dtype(dtype)))
+            batch[name] = arr.to(self.device)
+        self.state.step += 1
+        return batch
+
+    def state_dict(self) -> dict:
+        return self.state.to_dict()
+
+    def load_state_dict(self, d: dict) -> None:
+        self.state = DataState.from_dict(d)
+
+
+def run_elastic(prog, params, vocab: int, args, schedule=None) -> int:
+    """The --elastic demo: train, lose a rank, shrink, resume.  With a
+    --chaos schedule, the scripted faults replace the single kill and the
+    supervisor also regrows on arrivals, rewinds on NaN spikes, skips
+    corrupted checkpoints and rebalances microbatches."""
+    from ..ft import ChaosInjector, ElasticError, ElasticSupervisor, RankFailureInjector
+    from ..runtime.executor import executor_factory, get_backend_spec
+
+    world = prog.strategy.mesh.n_devices
+    n_steps = args.elastic_steps
+    loader = _ProgramLoader(prog.input_shapes(), vocab, seed=17, device=args.device)
+    if schedule is not None:
+        injector = ChaosInjector(schedule)
+        what = (f"chaos schedule: {len(schedule.events)} events "
+                f"{schedule.kinds()} seed={schedule.seed}")
+    else:
+        fail_at = (args.elastic_fail_at if args.elastic_fail_at is not None
+                   else max(1, n_steps // 2))
+        rank = args.elastic_kill_rank if args.elastic_kill_rank is not None else world - 1
+        injector = RankFailureInjector({fail_at: rank})
+        what = f"rank {rank} dies at step {fail_at}"
+    # the registry's runner-factory shape is the supervisor's contract:
+    # factory(prog, params, physical_devices) -> executor
+    caps = get_backend_spec(args.backend).capabilities
+    runner_factory = executor_factory(args.backend,
+                                      **({"track_memory": False} if caps.memory_ledgers else {}))
+    ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_elastic_")
+    try:
+        sup = ElasticSupervisor(
+            prog, CheckpointManager(ckpt_dir, keep=4, async_save=False), loader,
+            runner_factory=runner_factory, checkpoint_every=args.elastic_ckpt_every,
+            injector=injector, rebalance=schedule is not None)
+        print(f"elastic[{args.backend}] world={world} steps={n_steps} "
+              f"({what}, checkpoint every {args.elastic_ckpt_every})")
+        t0 = time.time()
+        try:
+            sup.run(params, n_steps, log_every=1)
+        except ElasticError as e:
+            print(f"elastic: {e}")
+            return 2
+        wall = time.time() - t0
+        for r in sup.reports:
+            if r.shrunk_axis:
+                print(f"elastic: recovered from rank {r.failed_rank} "
+                      f"loss — world {r.old_world}->{r.new_world} "
+                      f"(shrunk {r.shrunk_axis}), {r.steps_lost} steps "
+                      f"lost, recovery {r.recovery_seconds:.2f}s "
+                      f"(compile {r.compile_seconds:.2f}s, "
+                      f"cache_hit={r.cache_hit})")
+            else:
+                print(f"elastic: numerical rewind at step "
+                      f"{r.step_failed} — {r.steps_lost} steps lost")
+        for g in sup.growths:
+            print(f"elastic: regrew world {g.old_world}->{g.new_world} "
+                  f"(grew {g.grown_axis}) at step {g.step}, "
+                  f"{g.steps_lost} steps lost")
+        for b in sup.rebalances:
+            print(f"elastic: rebalanced microbatches at step {b.step}: {b.split}")
+        if schedule is not None:
+            report = sup.chaos_report(n_steps, wall_seconds=wall)
+            if args.chaos_report:
+                out = pathlib.Path(args.chaos_report)
+                out.parent.mkdir(parents=True, exist_ok=True)
+                out.write_text(report.to_json())
+                print(f"elastic: chaos report written to {out}")
+            print(f"elastic: chaos summary — "
+                  f"{len(report.recoveries)} recoveries, "
+                  f"{len(report.growths)} regrowths, "
+                  f"{len(report.rebalances)} rebalances, "
+                  f"{report.numeric_rewinds} NaN rewinds, "
+                  f"{report.corrupt_detected} corrupt checkpoints "
+                  f"skipped, {report.steps_lost_total} total steps "
+                  f"lost, final world {report.final_world}")
+            return 0
+        if not sup.reports:
+            print("elastic: no failure fired (check --elastic-fail-at)")
+            return 2
+        return 0
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
 def build_step(cfg, lr_fn, device="cuda"):
@@ -98,10 +229,25 @@ def _parser() -> argparse.ArgumentParser:
                     help="execute one real training step of the replayed "
                     "--strategy on the reduced config's proxy program on the "
                     "named runtime backend, on --device — " + backends_help())
+    # elastic fault tolerance: run a short training loop on the replayed
+    # --strategy, kill a rank mid-run, and let the supervisor shrink the
+    # mesh, recompile, restore and resume
     ap.add_argument("--elastic", action="store_true",
-                    help="elastic fault tolerance: not ported yet (exits 2)")
+                    help="with --strategy and --backend: train a few steps, kill "
+                    "one rank mid-run, and recover by recompiling the same "
+                    "strategy for the shrunk mesh")
     ap.add_argument("--chaos", default=None, metavar="JSON",
-                    help="chaos schedule: not ported yet (exits 2)")
+                    help="path to a FaultSchedule JSON document scripting kills, "
+                    "arrivals, stragglers, checkpoint corruption and NaN spikes; "
+                    "implies --elastic (needs --strategy and --backend)")
+    ap.add_argument("--chaos-report", default=None, metavar="PATH",
+                    help="with --chaos: write the run's ChaosReport JSON here")
+    ap.add_argument("--elastic-steps", type=int, default=8)
+    ap.add_argument("--elastic-fail-at", type=int, default=None,
+                    help="step at which the rank dies (default: elastic-steps // 2)")
+    ap.add_argument("--elastic-kill-rank", type=int, default=None,
+                    help="which logical rank dies (default: last)")
+    ap.add_argument("--elastic-ckpt-every", type=int, default=3)
     # strategy autotuner: pick PP schedule / microbatches / ZeRO / EP for
     # the FULL config before training the reduced one
     ap.add_argument("--autotune", action="store_true",
@@ -128,7 +274,7 @@ def _reduced(base, args):
                         n_heads=max(4, args.d_model // 64))
 
 
-def _replay_strategy(base, args, budget_bytes) -> int | None:
+def _replay_strategy(base, args, budget_bytes, schedule=None) -> int | None:
     """``--strategy`` (and ``--backend``): an exit code, or None to go on
     to training."""
     from .. import tune
@@ -171,8 +317,10 @@ def _replay_strategy(base, args, budget_bytes) -> int | None:
              if strat.mesh else 1)
     tokens_exec = pipe.n_mb * max(group, 1) * 8
     prog2, _ = tune.build_strategy_program(exec_cfg, strat, tokens_exec)
-    batch = tune.synth_batch(prog2, device=args.device)
     params_real = tune.materialize_params(prog2.params, device=args.device)
+    if args.elastic:
+        return run_elastic(prog2, params_real, exec_cfg.vocab, args, schedule=schedule)
+    batch = tune.synth_batch(prog2, device=args.device)
     res = make_executor(args.backend, prog2, params=params_real).run(batch)
     print(f"backend[{args.backend}] loss={res.loss:.6f}  "
           f"peak={res.max_peak()/2**20:.2f}MiB "
@@ -206,12 +354,24 @@ def _autotune(base, args, budget_bytes) -> int | None:
 
 def plan_phase(argv=None) -> int | None:
     """Parse ``argv`` and run the Piper branches before training: an exit
-    code, or None when training should follow."""
-    args = _parser().parse_args(argv)
-    if args.elastic or args.chaos:
-        print("elastic: --elastic and --chaos are not ported yet "
-              "(ROADMAP Queue 1, item 12)")
-        return 2
+    code, or None when training should follow.  Usage errors exit 2
+    through ``argparse``, as in the JAX package's CLI."""
+    ap = _parser()
+    args = ap.parse_args(argv)
+    if args.backend and not args.strategy:
+        ap.error("--backend needs a --strategy document to execute")
+    schedule = None
+    if args.chaos:
+        from ..ft import ChaosScheduleError, FaultSchedule
+        try:
+            schedule = FaultSchedule.from_json(pathlib.Path(args.chaos).read_text())
+        except (ChaosScheduleError, OSError) as e:
+            print(f"chaos: {e}")
+            return 2
+        args.elastic = True
+    if args.elastic and not (args.strategy and args.backend):
+        ap.error("--elastic needs --strategy and --backend "
+                 f"(one of: {', '.join(list_backends())})")
     base = get_config(args.arch)
     budget_bytes = None
     if args.memory_budget is not None:
@@ -219,7 +379,7 @@ def plan_phase(argv=None) -> int | None:
     elif args.tune_budget_gb is not None:
         budget_bytes = int(args.tune_budget_gb * 2**30)
     if args.strategy:
-        rc = _replay_strategy(base, args, budget_bytes)
+        rc = _replay_strategy(base, args, budget_bytes, schedule)
         if rc is not None:
             return rc
     if args.autotune:
@@ -271,10 +431,6 @@ def run(argv=None) -> tuple[Supervisor, dict]:
 
 
 def main(argv=None):
-    ap = _parser()
-    args = ap.parse_args(argv)
-    if args.backend and not args.strategy:
-        ap.error("--backend needs a --strategy document to execute")
     rc = plan_phase(argv)
     if rc is not None:
         return rc

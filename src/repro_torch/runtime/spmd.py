@@ -229,21 +229,23 @@ def gather_chunk_args(dag: TrainingDAG, node: Node, feeds, store, slot_edges, de
 
 def place_ranks(n: int, physical_devices: Optional[Sequence[int]], device: torch.device,
                 error: type) -> tuple[int, ...]:
-    """The device index each of ``n`` logical ranks lands on: the given
-    ``physical_devices`` (validated as the JAX package validates them:
-    ``n`` distinct indices into the devices there are), else round-robin
-    over the cards (on the CPU, the one CPU)."""
-    count = torch.cuda.device_count() if device.type == "cuda" else 1
+    """The device index each of ``n`` logical ranks lands on.
+    ``physical_devices`` names ``n`` distinct, non-negative device slots
+    (the elastic supervisor's rank -> slot map: after a shrink and a
+    regrowth it names slots beyond the world); slot ``p`` runs on card
+    ``p % torch.cuda.device_count()``, and on the CPU every slot runs on
+    the CPU.  Without a map, rank ``i`` takes slot ``i``.  The checks and
+    messages are the JAX package's, whose indices name real devices."""
+    count = max(torch.cuda.device_count() if device.type == "cuda" else 1, 1)
     if physical_devices is None:
-        return tuple(i % max(count, 1) for i in range(n))
+        return tuple(i % count for i in range(n))
     phys = [int(p) for p in physical_devices]
     if len(phys) != n:
         raise error(f"plan spans {n} devices but physical_devices names {len(phys)}: {phys}")
-    bad = [p for p in phys if not 0 <= p < count]
-    if bad or len(set(phys)) != len(phys):
-        raise error(f"physical_devices must be {len(phys)} distinct indices into the "
-                    f"{device.type} devices (0..{count - 1}), got {phys}")
-    return tuple(phys)
+    if any(p < 0 for p in phys) or len(set(phys)) != len(phys):
+        raise error(f"physical_devices must be {len(phys)} distinct indices (device slots "
+                    f">= 0; slot p runs on {device.type} device p % {count}), got {phys}")
+    return tuple(p % count for p in phys)
 
 
 class Ranks:

@@ -87,6 +87,28 @@ def test_scoring_tuning_and_verification_modules_load_no_jax(module):
     assert out.returncode == 0, out.stderr
 
 
+# the elastic slice: recovery, regrowth, chaos and the ZeRO reshard codec
+ELASTIC_MODULES = ["repro_torch.ft.elastic", "repro_torch.ft.regrow", "repro_torch.ft.chaos",
+                   "repro_torch.checkpoint.reshard", "repro_torch.data.pipeline"]
+
+
+@pytest.mark.parametrize("module", ELASTIC_MODULES)
+def test_elastic_modules_load_no_jax(module):
+    """The elastic supervisor, the planners (pure Strategy logic in the
+    JAX package too), the chaos engine and the reshard codec are the
+    port's own copies."""
+    code = (f"import sys, importlib\n"
+            f"m = importlib.import_module({module!r})\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+            "             or k == 'repro' or k.startswith('repro.') or k == 'ml_dtypes')\n"
+            "assert not bad, bad\n"
+            f"assert m.__name__ == {module!r}\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def _port_files():
     return sorted(p for p in PORT.rglob("*") if p.suffix in (".py", ".cu", ".cuh"))
 

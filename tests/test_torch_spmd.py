@@ -233,16 +233,23 @@ def test_gate_compute_false_is_rejected():
 
 
 def test_physical_devices_checks():
-    """The JAX package's messages (its device list is jax.devices(); the
-    port's, the torch devices of the params' kind: one CPU here)."""
+    """The JAX package's length and distinct-index checks, on device slots
+    (slot p runs on device p % count; one CPU here): a duplicate or a
+    negative slot raises, and [0, 1, 2, 7] runs bit-equal to the default
+    placement."""
     prog, batch = small_prog()
     with pytest.raises(spmd.SpmdBackendError,
                        match=r"plan spans 4 devices but physical_devices names 2: \[0, 1\]"):
         spmd.SpmdExecutor(prog, physical_devices=[0, 1])
     with pytest.raises(spmd.SpmdBackendError,
-                       match=r"physical_devices must be 4 distinct indices into the cpu "
-                             r"devices \(0\.\.0\), got \[0, 1, 2, 3\]"):
-        spmd.SpmdExecutor(prog, physical_devices=[0, 1, 2, 3])
+                       match=r"physical_devices must be 4 distinct indices \(device slots >= 0; "
+                             r"slot p runs on cpu device p % 1\), got \[0, 1, 1, 3\]"):
+        spmd.SpmdExecutor(prog, physical_devices=[0, 1, 1, 3])
+    with pytest.raises(spmd.SpmdBackendError, match=r"distinct indices .* got \[0, 1, -2, 3\]"):
+        spmd.SpmdExecutor(prog, physical_devices=[0, 1, -2, 3])
+    slots = spmd.SpmdExecutor(prog, physical_devices=[0, 1, 2, 7])
+    assert slots.physical_devices == (0, 0, 0, 0)
+    assert_bit_equal(slots.run(batch), spmd.SpmdExecutor(prog).run(batch), "slots [0, 1, 2, 7]")
     ex = spmd.SpmdExecutor(prog)
     assert ex.physical_devices == (0, 0, 0, 0)     # round-robin over the one CPU
     assert ex.trace_size(batch) == sum(p.n_tasks() for p in prog.plan.device_plans.values())

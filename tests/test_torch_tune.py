@@ -643,8 +643,20 @@ def test_cli_strategy_over_budget_and_without_pipeline_exit_2(tmp_path, capsys):
     bad = _strategy_file(tmp_path, tcore, drop_pipeline=True)
     assert train.main([*SMALL, "--arch", "qwen3-1b", "--strategy", str(bad)]) == 2
     assert capsys.readouterr().out.startswith("strategy: ")
-    assert train.main([*SMALL, "--elastic"]) == 2
-    assert "item 12" in capsys.readouterr().out
+    with pytest.raises(SystemExit) as e:
+        train.main([*SMALL, "--elastic"])
+    assert e.value.code == 2
+    mine = capsys.readouterr().err.strip().splitlines()[-1]
+    from repro.launch import train as jtrain
+    with pytest.raises(SystemExit) as e:
+        jtrain.main([*JAX_SMALL, "--elastic"])
+    assert e.value.code == 2
+    assert mine.split(": error: ")[1] == capsys.readouterr().err.strip().splitlines()[-1] \
+        .split(": error: ")[1] == ("--elastic needs --strategy and --backend (one of: "
+                                   "reference, spmd, mpmd)")
+    assert train.main([*SMALL, "--arch", "qwen3-1b", "--strategy", str(f), "--backend",
+                       "reference", "--elastic"]) == 0
+    assert "elastic: recovered from rank 3 loss" in capsys.readouterr().out
     with pytest.raises(SystemExit) as e:
         train.main([*SMALL, "--backend", "reference"])
     assert e.value.code == 2
