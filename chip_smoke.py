@@ -11,14 +11,15 @@ instantiation of the bf16 K2 and K3 kernels issues tensor-core ``wgmma``
 kernels K4 and K4-bwd touches local memory (LDL, STL), and holds each
 kernel against its plain PyTorch version at the main paths' shapes and
 at edge shapes (and K4-bwd against itself: two runs, the same bits).
-Then, for each of the port's three training paths, it trains the model
+Then, for each of the port's training paths, it trains the model
 at its published widths (random weights from a seed, bf16,
 remat="full") for a few steps through the port's own entry points with
 the kernels installed, checks that every kernel of that path was
 launched exactly as often as the path calls it, compares one step with
 the plain versions (loss and every gradient leaf), and profiles where a
 step's device time goes (``torch.profiler``), with the kernels and with
-their plain versions:
+their plain versions.  Only Qwen1.5's run ends with a checkpoint save
+(phase 3i holds save, restore and reshard at full width):
 
   - Qwen1.5-0.5B, all 24 layers (kernels K1 rmsnorm, K2 flash forward);
   - Falcon-Mamba-7B, 8 of its 64 layers: one stage of an 8-stage
@@ -31,12 +32,25 @@ their plain versions:
     plain version on the same routing.
 
   - qwen3-1b (Qwen3-1.7B's widths, the paper's own evaluation model),
-    all 28 layers (K1, and K2 at GQA 16/8 and head_dim 128).
+    all 28 layers (K1, and K2 at GQA 16/8 and head_dim 128);
+  - Zamba2-2.7B, 12 of its 54 layers (phase 3j): two groups of six
+    Mamba-2 layers, each followed by the one weight-tied shared
+    attention+MLP block, whose gradients sum over both applications (K1,
+    and K2 at head_dim 80 with the config's sliding window of 4096); its
+    SSD scan runs as plain PyTorch, as the JAX package runs it in jnp, and
+    is profiled alone.  The fp32 comparison runs one group (6 layers),
+    and the plain profile is skipped (the plain run differs only in K1
+    and K2, which phase 2 times).
 
 The kernel phase runs K2 at every head dim the paths and configs give
 it — 64, 128, qwen3-1b's GQA, granite-20b's MQA, and 32 and 80, which
 run on a padded instantiation — each against its plain version and
-timed beside SDPA, and the fp32 K2 at head_dim 128 beside fp32 SDPA.
+timed beside SDPA, and the fp32 K2 at head_dim 128 beside fp32 SDPA; and
+K2 with a sliding window (``FLASH_WINDOWS``: Zamba2's own call, windows
+of 1, 100 and 1000, a band at 8,192 tokens, GQA, non-causal, a query
+offset) in fp32 and bf16 against its plain version with the window, timed
+beside SDPA given the band as a boolean mask, its bound counted over the
+visible band.
 Then the Piper IR phase traces the qwen3-1b proxy at full width on meta
 tensors (no device memory may move), compiles it from a Strategy
 document (pp 4 x dp 2, ZeRO-3, 8-microbatch 1F1B, the overlap engine)
@@ -72,8 +86,9 @@ multi-rank runtimes phase (3h) holds the ``spmd`` lane (one controller,
 a CUDA stream per rank) and the ``mpmd`` lane (a thread per rank over
 the ``inproc`` or ``tcp`` transport) to the interpreter on the card, bit
 for bit, after checking that two interpreter runs give the same bits:
-(a) the CPU tests' grids of toy cases in fp64; (b) phase 3f's 28-layer
-bf16 program under remat "full" and "none" on both lanes, with exact K1
+(a) the CPU tests' grids of toy cases in fp64; (b) phase 3f's bf16
+program at ``LANES_LAYERS`` (12) of its 28 layers under remat "full" and
+"none" on both lanes, with exact K1
 and K2 launches, the interpreter's order, each lane's warm step beside
 the interpreter's and its busy share (remat "full"),
 ``max_memory_allocated`` and the bytes it moved between ranks (p2p, gathers, reductions); (c) the 4-layer
@@ -84,8 +99,8 @@ predicted steps (recorded, not gated); (e) the CLI's ``--strategy`` with
 elastic phase (3i) runs the ``ElasticSupervisor`` through faults: (a) the
 CPU tests' kill-a-rank grid on ``spmd`` and ``mpmd`` and their 24-step
 chaos soak on ``spmd`` (the toy MLP in fp64), bit-equal to uninterrupted
-or piecewise fault-free references; (b) phase 3f's 28-layer bf16 program
-on ``spmd`` through a kill (world 8 -> 4, ZeRO shards 2 -> 1) and the
+or piecewise fault-free references; (b) phase 3f's bf16 program at
+``LANES_LAYERS`` layers on ``spmd`` through a kill (world 8 -> 4, ZeRO shards 2 -> 1) and the
 slot's arrival (back to 8 from the plan cache), every kept loss and final
 param leaf bit-equal to the piecewise fault-free reference, with exact K1
 and K2 launches over the steps each world ran, and its recovery,
@@ -128,6 +143,11 @@ STEPS = 6
 BATCH, SEQ = 4, 1024
 FALCON_LAYERS = 8          # one stage of an 8-stage split of the 64 layers
 DEEPSEEK_LAYERS = 2        # one stage of a 14-stage split of the 28 layers
+# Zamba2-2.7B: 12 of its 54 layers, two groups of 6, so the shared block
+# is applied twice and its tied gradients sum on the card; its plain SSD
+# scan is launch-bound (~14 s a step), so it trains ZAMBA2_STEPS steps
+ZAMBA2_LAYERS = 12
+ZAMBA2_STEPS = 3
 # fp32 and bf16 tolerances of the kernel checks (tests/test_kernels.py)
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (3e-2, 3e-2)}
 # the selective scan's fp32 tolerance there: (atol, rtol)
@@ -300,6 +320,32 @@ FLASH_TIMED = {(BATCH, 16, 16, SEQ, 64): None, (BATCH, 16, 16, SEQ, 128): "at_he
                (BATCH, 48, 1, SEQ, 128): "at_mqa_48_1_head_dim_128",
                (BATCH, 16, 16, SEQ, 32): "at_head_dim_32",
                (BATCH, 32, 32, SEQ, 80): "at_head_dim_80"}
+# K2 with a sliding window, (B, Hq, Hkv, Sq, Skv, D, causal, q_offset,
+# window), and its key in the kernels line: Zamba2's shared attention
+# (window 4096, which masks nothing at SEQ tokens), windows that are no
+# multiple of the 64-key tile, a real band at 8,192 tokens, GQA at head
+# dim 128, non-causal, and a query block past the keys' start
+FLASH_WINDOWS = {
+    (BATCH, 32, 32, SEQ, SEQ, 80, True, 0, 4096): "at_window_4096_zamba2",
+    (BATCH, 32, 32, SEQ, SEQ, 80, True, 0, 1): "at_window_1",
+    (BATCH, 32, 32, SEQ, SEQ, 80, True, 0, 100): "at_window_100",
+    (BATCH, 32, 32, SEQ, SEQ, 80, True, 0, 1000): "at_window_1000",
+    (1, 32, 32, 8192, 8192, 80, True, 0, 4096): "at_window_4096_seq_8192",
+    (BATCH, 16, 8, SEQ, SEQ, 128, True, 0, 256): "at_window_256_gqa_16_8_head_dim_128",
+    (BATCH, 32, 32, SEQ, SEQ, 80, False, 0, 256): "at_window_256_non_causal",
+    (BATCH, 32, 32, SEQ // 2, SEQ, 80, True, SEQ // 2, 300): "at_window_300_q_offset_512",
+}
+
+
+def window_band(torch, sq: int, skv: int, causal: bool, q_offset: int, window: int) -> tuple:
+    """(visible (query, key) pairs of one head, keys that any row sees):
+    row i sees keys [max(0, qpos - window + 1), qpos] (causal) or up to
+    Skv - 1, with qpos = i + q_offset; the rows' ranges overlap, so their
+    union is one range."""
+    qpos = torch.arange(sq, dtype=torch.int64) + q_offset
+    lo = (qpos - window + 1).clamp(min=0)
+    hi = (qpos + 1).clamp(max=skv) if causal else torch.full_like(qpos, skv)
+    return int((hi - lo).clamp(min=0).sum()), int(hi.max() - lo.min())
 
 
 def phase_kernels(torch, F, fa, rn) -> dict:
@@ -374,6 +420,59 @@ def phase_kernels(torch, F, fa, rn) -> dict:
             if dt == torch.float32 and (b, hq, hkv, sq, d) == (BATCH, 16, 16, SEQ, 128):
                 fp32_err = max(err, lse_err)
 
+    def window_case(b, hq, hkv, sq, skv, d, causal, off, window) -> dict:
+        """K2 with a window against its plain version with the window, in
+        fp32 and bf16 (bf16 also against the fp32-P formula); then, in
+        bf16, K2, its plain version and SDPA given the band as a boolean
+        ``attn_mask``, timed.  The bound counts the visible band: its
+        (query, key) pairs' FLOPs and the bytes of q, out, lse and the
+        keys and values that any row sees."""
+        tag = f"flash window {window} {(b, f'{hq}/{hkv}', sq, skv, d)} " \
+              f"{'causal' if causal else 'non-causal'} q_offset {off}"
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).split(".")[1]
+            q = randn((b, hq, sq, d), dt)
+            k, v = randn((b, hkv, skv, d), dt), randn((b, hkv, skv, d), dt)
+            kw = dict(causal=causal, q_offset=off, window=window)
+            out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+            torch.cuda.synchronize()
+            want, want_lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+            errs[dname] = max(check_close(torch, f"{tag} {dname}", out, want, dname),
+                              check_close(torch, f"{tag} {dname} lse", lse, want_lse,
+                                          "float32"))
+            del want, want_lse
+            if dt == torch.bfloat16:
+                fp32_p = fa.flash_attention_fwd_plain(q.float(), k.float(), v.float(), **kw)[0]
+                errs["fp32_p"] = check_close(torch, f"{tag} against fp32 P", out,
+                                             fp32_p.to(dt), dname, FP32_P_TOL)
+                del fp32_p
+        pairs, keys = window_band(torch, sq, skv, causal, off, window)
+        qpos = torch.arange(sq, device="cuda")[:, None] + off
+        kpos = torch.arange(skv, device="cuda")[None, :]
+        mask = (kpos > qpos - window) & ((kpos <= qpos) if causal else True)
+        es = q.element_size()
+        n_bytes = (2 * q.numel() + 2 * b * hkv * keys * d) * es + b * hq * sq * 4
+        flops = 4 * d * b * hq * pairs
+        timed = dict(
+            ms=cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, **kw)),
+            plain_ms=cuda_ms(torch, lambda: fa.flash_attention_fwd_plain(q, k, v, **kw),
+                             reps=3),
+            library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=hq != hkv)),
+            **bound(n_bytes, flops / BF16_FLOPS))
+        timed.update(tflops=flops / timed["ms"] / 1e9, max_abs_err=errs["bfloat16"],
+                     max_abs_err_fp32=errs["float32"], max_abs_err_fp32_p=errs["fp32_p"],
+                     visible_pairs_per_head=pairs)
+        print(f"  {tag}: fp32 max_abs_err={errs['float32']:.3e}, bf16 "
+              f"max_abs_err={errs['bfloat16']:.3e} against_fp32_P={errs['fp32_p']:.3e}; "
+              f"bf16 kernel {timed['ms']:.4f} ms ({timed['tflops']:.1f} TFLOP/s), plain "
+              f"{timed['plain_ms']:.4f} ms, SDPA with the band as attn_mask "
+              f"{timed['library_ms']:.4f} ms (kernel/SDPA "
+              f"{timed['ms'] / timed['library_ms']:.2f}x), bound {timed['bound_ms']:.4f} ms "
+              f"({timed['bound_by']}; {pairs} visible pairs a head)", flush=True)
+        return timed
+
     def flash_times(hq: int, hkv: int, d: int, dt=torch.bfloat16) -> dict:
         """K2, its plain version and SDPA at (BATCH, hq/hkv, SEQ, d) causal
         in ``dt``.  The bound counts the true d: a padded d's MMA work (80
@@ -411,12 +510,16 @@ def phase_kernels(torch, F, fa, rn) -> dict:
     # the fp32 instantiation phase 3f's fp32 check launches
     results["flash_attention"]["at_fp32_head_dim_128"] = flash_times(16, 16, 128,
                                                                      torch.float32)
+    for case, key in FLASH_WINDOWS.items():
+        results["flash_attention"][key] = window_case(*case)
+        torch.cuda.empty_cache()
     return results
 
 
 # the bf16 tensor-core kernels and their instantiations (head dims 64 and
-# 128, each exact and padded; layouts)
-TC_KERNELS = {"flash_fwd_wgmma_kernel": 4, "moe_gmm_wgmma_kernel": 3}
+# 128, each exact and padded, each with and without a sliding window;
+# layouts)
+TC_KERNELS = {"flash_fwd_wgmma_kernel": 8, "moe_gmm_wgmma_kernel": 3}
 # the scan kernels, which must keep their state in registers and shared
 # memory, and their instantiations (fp32 and bf16, N = 4, 8, 16)
 SCAN_KERNELS = {"mamba_scan_fwd_kernel": 6, "mamba_scan_bwd_kernel": 6}
@@ -691,11 +794,28 @@ def phase_scan_kernels(torch, ms) -> dict:
     return results
 
 
-def phase_train(torch, cfg, want: dict) -> tuple:
-    """``cfg`` through the port's entry points, with kernels: STEPS
-    training steps under the supervisor, launch counts held to ``want``,
-    then one step against the plain versions in bf16 and, at
-    FP32_LAYERS layers, in fp32."""
+class NoCheckpoint:
+    """The supervisor's checkpoint manager for a path that saves nothing:
+    phase 3 keeps its end-of-run save, and phase 3i holds save, restore
+    and reshard at full width bit for bit, so phases 3b-3d and 3j skip
+    theirs (28-33 s each)."""
+
+    def save(self, step, state, extra=None) -> None:
+        pass
+
+    def latest_step(self):
+        return None
+
+    def wait(self) -> None:
+        pass
+
+
+def phase_train(torch, cfg, want: dict, steps: int = STEPS, save: bool = True,
+                fp32_layers: int = FP32_LAYERS) -> tuple:
+    """``cfg`` through the port's entry points, with kernels: ``steps``
+    training steps under the supervisor (its end-of-run checkpoint only
+    with ``save``), launch counts held to ``want``, then one step against
+    the plain versions in bf16 and, at ``fp32_layers`` layers, in fp32."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.data import SyntheticTokenSource, TokenLoader
     from repro_torch.ft import Supervisor
@@ -704,16 +824,18 @@ def phase_train(torch, cfg, want: dict) -> tuple:
     from repro_torch.models import init
     from repro_torch.optim import adamw_init, cosine_schedule
 
-    widths = (f"ssm={cfg.ssm}" if cfg.ssm else
-              f"heads={cfg.n_heads}/{cfg.n_kv_heads} head_dim={cfg.head_dim} "
-              + (f"moe={cfg.moe}" if cfg.moe else f"d_ff={cfg.d_ff}"))
+    attn = (f"heads={cfg.n_heads}/{cfg.n_kv_heads} head_dim={cfg.head_dim} "
+            + (f"moe={cfg.moe}" if cfg.moe else f"d_ff={cfg.d_ff}"))
+    widths = (f"ssm={cfg.ssm}" if cfg.ssm and not cfg.hybrid_every else
+              f"ssm={cfg.ssm} hybrid_every={cfg.hybrid_every} shared block {attn} "
+              f"window={cfg.sliding_window}" if cfg.hybrid_every else attn)
     print(f"  config {cfg.name}: {cfg.n_layers} layers d_model={cfg.d_model} {widths} "
           f"vocab={cfg.vocab} dtype={cfg.dtype} remat={cfg.remat} "
           f"params={cfg.param_count()}", flush=True)
     params = init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     state = {"params": params, "opt": adamw_init(params),
              "step": torch.zeros((), dtype=torch.int32, device="cuda")}
-    lr_fn = cosine_schedule(3e-4, STEPS)
+    lr_fn = cosine_schedule(3e-4, steps)
     ops.register_kernels()
     step_fn = build_step(cfg, lr_fn, "cuda")
 
@@ -725,15 +847,16 @@ def phase_train(torch, cfg, want: dict) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
         loader = TokenLoader(SyntheticTokenSource(cfg.vocab, seed=17), batch=BATCH, seq=SEQ)
-        sup = Supervisor(CheckpointManager(tmp, keep=1), loader, checkpoint_every=STEPS)
+        ckpt = CheckpointManager(tmp, keep=1) if save else NoCheckpoint()
+        sup = Supervisor(ckpt, loader, checkpoint_every=steps)
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        state = sup.run(state, synced_step, STEPS, log_every=1)
+        state = sup.run(state, synced_step, steps, log_every=1)
         run_s = time.perf_counter() - t0
         counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     losses = [h["loss"] for h in sup.history]
-    if len(losses) != STEPS or not all(math.isfinite(x) for x in losses):
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         fail(f"losses {losses}")
     if abs(losses[0] - math.log(cfg.vocab)) > 1.0:
         fail(f"first loss {losses[0]} not within 1.0 of ln(vocab) = {math.log(cfg.vocab)}")
@@ -744,19 +867,19 @@ def phase_train(torch, cfg, want: dict) -> tuple:
     if cfg.moe:
         check_moe_block(torch, cfg)
     compare_with_plain(torch, cfg, params, losses[0])
-    cfg32 = dataclasses.replace(cfg, n_layers=FP32_LAYERS, dtype="float32")
+    cfg32 = dataclasses.replace(cfg, n_layers=fp32_layers, dtype="float32")
     compare_with_plain(torch, cfg32, init(cfg32, torch.Generator(device="cuda").manual_seed(0),
                                           "cuda"))
 
     dts = [h["dt"] for h in sup.history[1:]]
     step_s = statistics.median(dts)
-    print(f"  full width: {STEPS} steps, losses {[round(x, 4) for x in losses]}", flush=True)
-    print(f"  step time median {step_s * 1e3:.1f} ms over steps 2-{STEPS} "
+    print(f"  full width: {steps} steps, losses {[round(x, 4) for x in losses]}", flush=True)
+    print(f"  step time median {step_s * 1e3:.1f} ms over steps 2-{steps} "
           f"(min {min(dts) * 1e3:.1f}, max {max(dts) * 1e3:.1f}), "
           f"{BATCH * SEQ / step_s:.0f} tokens/s, peak memory "
           f"{peak / 2**30:.2f} GiB (max_memory_allocated); the supervised run took "
           f"{run_s:.1f} s, {run_s - sum(h['dt'] for h in sup.history):.1f} s of it outside "
-          "the steps (the checkpoint)", flush=True)
+          f"the steps ({'the checkpoint' if save else 'no checkpoint saved'})", flush=True)
     return counts, {"state": state, "step_fn": step_fn, "loader": loader}
 
 
@@ -1074,6 +1197,13 @@ def phase_ir(torch) -> dict:
 # plan of RUNTIME_CASE on one global batch of the synthetic stream.
 RUNTIME_CASE = {"pp": 4, "dp": 2, "n_mb": 8, "zero": 3, "batch": 16, "seq": 1024,
                 "seed": 17, "fp32_layers": 4}
+# the depth of that program on the lanes and under the elastic supervisor
+# (phases 3h (b) and 3i (b)): 12 of the 28 layers, 3 a stage.  Their
+# steps are host-bound, and the host's speed varies between the H100
+# machines (phase 3h at 28 layers took from 401 s to 519 s), so at full
+# depth the whole script could run past its time limit; phase 3f still
+# holds all 28 layers on the interpreter.
+LANES_LAYERS = 12
 # interpreted step against ``train_loss``'s autograd on the same batch and
 # weights: (loss relative error, relative L2 error of each gradient leaf).
 # bf16 at phase 3d's limits (the two sum the microbatches' bf16 gradients
@@ -1520,7 +1650,7 @@ def phase_tune_cli(torch, tmp: str) -> tuple:
     dirty = [cell for cell in result["cells"] if not cell["ok"] or cell["codes"]]
     print(f"  (c) lint --grid --depth deep: exit {rc}, {len(result['cells'])} cells in "
           f"{time.perf_counter() - t0:.1f} s, {len(dirty)} not clean; {out[-1]}", flush=True)
-    if rc != 0 or dirty or len(result["cells"]) != 81:
+    if rc != 0 or dirty or len(result["cells"]) != 90:
         fail(f"3g (c): lint exit {rc}, cells not clean: {dirty}")
     winner = core.Strategy.from_json((plan_dir / "strategy.json").read_text())
     baseline = core.Strategy.from_dict(plan["baseline"]["strategy"])
@@ -2226,7 +2356,7 @@ def phase_elastic_grid(torch) -> None:
 
 
 def phase_elastic_model(torch, cfg) -> dict:
-    """(b) Phase 3f's program (``cfg``'s 28 layers in bf16, remat "full",
+    """(b) Phase 3f's program (``cfg``'s layers in bf16, remat "full",
     RUNTIME_CASE's pp 4 x dp 2 1F1B ZeRO-3 Strategy) under an
     ``ElasticSupervisor`` on ``spmd`` (``ELASTIC_MODEL``): rank 3 dies,
     the mesh shrinks to pp 4 x dp 1 and recompiles, the last checkpoint is
@@ -2404,22 +2534,37 @@ def _family(name: str) -> str:
     return next((fam for key, fam in FAMILIES if key in low), "other")
 
 
-def phase_profile(torch, train: dict, plain_steps: int = PROFILED_STEPS) -> None:
+def device_kernels(torch, prof, n_steps: int) -> list:
+    """(name, device ms per step) of every kernel a ``torch.profiler``
+    run recorded: the raw device events, since prof.events() would build
+    a Python event tree over every one, minutes for the plain scans'
+    launches."""
+    return [(e.name(), e.duration_ns() / n_steps / 1e6)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
+
+
+def phase_profile(torch, train: dict, plain_steps: int = PROFILED_STEPS,
+                  kernel_steps: int = PROFILED_STEPS, warm_up: bool = True) -> None:
     """Where a full-width step's device time goes, continuing a training
     phase's state: with the kernels, then with their plain versions, one
-    warm-up step and then steps under ``torch.profiler`` (device activity
-    only): PROFILED_STEPS with the kernels, ``plain_steps`` plain.  The
-    plain scan launches ~445k kernels a Falcon step (~20 s), so that path
-    profiles one."""
+    warm-up step (unless ``warm_up`` is false) and then steps under
+    ``torch.profiler`` (device activity only): ``kernel_steps`` with the
+    kernels, ``plain_steps`` plain (none: the plain profile is skipped).
+    The plain scan launches ~445k kernels a Falcon step (~20 s), so that
+    path profiles one."""
     from repro_torch.kernels import ops
     state, step_fn, loader = train["state"], train["step_fn"], train["loader"]
     act = [torch.profiler.ProfilerActivity.CUDA]
-    for mode, n_steps in (("kernels", PROFILED_STEPS), ("plain", plain_steps)):
+    for mode, n_steps in (("kernels", kernel_steps), ("plain", plain_steps)):
+        if not n_steps:
+            continue
         if mode == "kernels":
             ops.register_kernels()
         else:
             ops.unregister_kernels()
-        state, _ = step_fn(state, loader.next_batch())
+        if warm_up:
+            state, _ = step_fn(state, loader.next_batch())
         batches = [loader.next_batch() for _ in range(n_steps)]
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
@@ -2431,11 +2576,7 @@ def phase_profile(torch, train: dict, plain_steps: int = PROFILED_STEPS) -> None
             stop.record()
             torch.cuda.synchronize()
         step_ms = start.elapsed_time(stop) / n_steps
-        # the raw device events: prof.events() would build a Python event
-        # tree over every one, minutes for the plain scan's launches
-        kernels = [(e.name(), e.duration_ns() / n_steps / 1e6)
-                   for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == torch.autograd.DeviceType.CUDA]
+        kernels = device_kernels(torch, prof, n_steps)
         busy_ms = sum(ms for _, ms in kernels)
         fam: dict[str, float] = {}
         by_name: dict[str, list] = {}
@@ -2453,6 +2594,60 @@ def phase_profile(torch, train: dict, plain_steps: int = PROFILED_STEPS) -> None
         for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
             print(f"    {ms:8.3f} {n // n_steps:5d}  {name[:100]}", flush=True)
     ops.unregister_kernels()
+
+
+def ssd_scan_profile(torch, cfg) -> None:
+    """The plain SSD scan of one Mamba-2 layer alone, at the path's shape
+    (BATCH x SEQ tokens, the config's heads, head dim and state) and
+    dtypes: a forward without autograd, and a forward with its backward
+    (which recomputes each checkpointed chunk), each timed once by the
+    host clock after a warm-up and once more under ``torch.profiler`` for
+    its launches and device time.  A step with remat "full" runs the first
+    once and the second once per layer (the group's first forward, then
+    its recompute and the backward), so the scan's share of a step is
+    their sum times the layers."""
+    from repro_torch.models.layers import _ssd_scan
+    g = torch.Generator(device="cuda").manual_seed(99)
+    h, p_ = cfg.ssm.expand * cfg.d_model // cfg.ssm.headdim, cfg.ssm.headdim
+
+    def randn(shape, scale=1.0, dtype=torch.float32):
+        t = torch.randn(shape, generator=g, device="cuda") * scale
+        return t.to(dtype).requires_grad_(True)
+    x = randn((BATCH, SEQ, h, p_), 0.5, cfg.tdtype)
+    dt = torch.nn.functional.softplus(randn((BATCH, SEQ, h))).detach().requires_grad_(True)
+    A = (-torch.exp(randn((h,), 0.2))).detach().requires_grad_(True)
+    B, C = (randn((BATCH, SEQ, cfg.ssm.state), 0.5, cfg.tdtype) for _ in range(2))
+    D = torch.ones((h,), device="cuda", requires_grad=True)
+    dy = torch.randn(x.shape, generator=g, device="cuda").to(cfg.tdtype)
+
+    def forward():
+        with torch.no_grad():
+            _ssd_scan(x, dt, A, B, C, D, chunk=cfg.ssm_chunk)
+
+    def forward_backward():
+        y, _ = _ssd_scan(x, dt, A, B, C, D, chunk=cfg.ssm_chunk)
+        torch.autograd.grad(y, [x, dt, A, B, C, D], dy)
+
+    per_layer = {}
+    for name, fn in (("forward", forward), ("forward+backward", forward_backward)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = device_kernels(torch, prof, 1)
+        busy = sum(ms for _, ms in kernels)
+        per_layer[name] = (len(kernels), busy, wall)
+        print(f"  plain SSD scan {name}, one layer {(BATCH, SEQ, h, p_, cfg.ssm.state)}: "
+              f"{len(kernels)} launches, device {busy:.2f} ms (profiled), wall "
+              f"{wall * 1e3:.1f} ms (unprofiled)", flush=True)
+    n, busy, wall = (sum(v[i] for v in per_layer.values()) * cfg.n_layers for i in range(3))
+    print(f"  plain SSD scan's share of a step at {cfg.n_layers} layers: {int(n)} launches, "
+          f"device {busy:.1f} ms, wall {wall:.1f} s", flush=True)
 
 
 # bf16 K2 shapes timed against another checkout (``--k2-against``)
@@ -2533,11 +2728,15 @@ def main() -> int:
     falcon = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=FALCON_LAYERS)
     deepseek = dataclasses.replace(get_config("deepseek-moe-16b"), n_layers=DEEPSEEK_LAYERS)
     qwen3 = get_config("qwen3-1b")
+    zamba2 = dataclasses.replace(get_config("zamba2-2.7b"), n_layers=ZAMBA2_LAYERS)
+    groups = zamba2.n_layers // zamba2.hybrid_every
     results.update(phase_gmm_kernels(torch, mg, deepseek))
     # per step with remat="full": each layer's kernels run in the forward
     # and again in its recompute; the final norm runs once.  An MoE layer
     # runs three grouped matmuls (gate, up, down), and each one's backward
-    # launches K3 twice (dx and dw)
+    # launches K3 twice (dx and dw).  Zamba2's checkpointed groups run one
+    # norm per Mamba layer and two norms and one attention per application
+    # of the shared block; its SSD scan has no kernel
     none = dict.fromkeys(("rmsnorm", "flash_attention", "mamba_scan", "mamba_scan_bwd",
                           "moe_gmm", "moe_gmm_bwd"), 0)
     paths = [(qwen, {**none, "rmsnorm": (4 * qwen.n_layers + 1) * STEPS,
@@ -2550,12 +2749,25 @@ def main() -> int:
                          "moe_gmm": 6 * deepseek.n_layers * STEPS,
                          "moe_gmm_bwd": 6 * deepseek.n_layers * STEPS}),
              (qwen3, {**none, "rmsnorm": (4 * qwen3.n_layers + 1) * STEPS,
-                      "flash_attention": 2 * qwen3.n_layers * STEPS})]
-    for (cfg, want), tag in zip(paths, ("3", "3b", "3c", "3d")):
+                      "flash_attention": 2 * qwen3.n_layers * STEPS}),
+             (zamba2, {**none, "rmsnorm": (2 * (zamba2.n_layers + 2 * groups) + 1) * ZAMBA2_STEPS,
+                       "flash_attention": 2 * groups * ZAMBA2_STEPS})]
+    for (cfg, want), tag in zip(paths, ("3", "3b", "3c", "3d", "3j")):
         phase(f"{tag}/5 full-width training: {cfg.name}, {cfg.n_layers} layers")
-        counts[cfg.name], train = phase_train(torch, cfg, want)
+        if cfg.hybrid_every:
+            # the fp32 check at one group: FP32_LAYERS is no multiple of it
+            counts[cfg.name], train = phase_train(torch, cfg, want, steps=ZAMBA2_STEPS,
+                                                  save=False, fp32_layers=cfg.hybrid_every)
+        else:
+            counts[cfg.name], train = phase_train(torch, cfg, want, save=tag == "3")
         phase(f"5/5 where a full-width {cfg.name} step's device time goes")
-        phase_profile(torch, train, plain_steps=1 if cfg.ssm else PROFILED_STEPS)
+        if cfg.hybrid_every:
+            print("  plain profile skipped: the plain run differs from the kernel run only "
+                  "in K1 and K2, whose plain versions phase 2 times", flush=True)
+            phase_profile(torch, train, plain_steps=0, kernel_steps=1, warm_up=False)
+            ssd_scan_profile(torch, cfg)
+        else:
+            phase_profile(torch, train, plain_steps=1 if cfg.ssm else PROFILED_STEPS)
         del train                      # free this path's state before the next one
         gc.collect()
         torch.cuda.empty_cache()
@@ -2600,7 +2812,8 @@ def main() -> int:
     phase_lanes_grid(torch)
     # remat "none" runs untimed, so that the whole run with phase 3i stays
     # well within its limit; its warm steps stand in PERF.md
-    for path, launched in phase_lanes_model(torch, qwen3, timed=("full",)).items():
+    lanes_cfg = dataclasses.replace(qwen3, n_layers=LANES_LAYERS)
+    for path, launched in phase_lanes_model(torch, lanes_cfg, timed=("full",)).items():
         counts[path] = {**none, **launched}
     gc.collect()
     torch.cuda.empty_cache()
@@ -2622,7 +2835,7 @@ def main() -> int:
     phase_elastic_grid(torch)
     gc.collect()
     torch.cuda.empty_cache()
-    counts["3i spmd, kill and regrowth"] = {**none, **phase_elastic_model(torch, qwen3)}
+    counts["3i spmd, kill and regrowth"] = {**none, **phase_elastic_model(torch, lanes_cfg)}
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_elastic_cli_") as tmp:

@@ -16,7 +16,7 @@ ARCHS = [
 ]
 
 PORTED = ["minicpm-2b", "qwen1.5-0.5b", "qwen2.5-32b", "granite-20b", "dbrx-132b",
-          "deepseek-moe-16b", "falcon-mamba-7b", "qwen3-1b", "qwen3-9b"]
+          "deepseek-moe-16b", "falcon-mamba-7b", "zamba2-2.7b", "qwen3-1b", "qwen3-9b"]
 
 
 def get_config(name: str):

@@ -8,9 +8,19 @@
 //   lse (B, Hq, Sq)    in fp32         = m + log(max(l, 1e-30))
 //
 // with an online softmax in fp32 over KV tiles, GQA through KV head
-// h / (Hq / Hkv), keys masked by kpos < Skv and, when causal,
-// kpos <= qpos + q_offset.  Writing lse lets the backward skip a second
-// forward.  KV tiles wholly above the causal diagonal are skipped.
+// h / (Hq / Hkv), keys masked by kpos < Skv, when causal by kpos <= qpos,
+// and with a sliding window W > 0 by kpos > qpos - W, where qpos is the
+// query row plus q_offset.  Writing lse lets the backward skip a second
+// forward.  KV tiles wholly above the causal diagonal or wholly below
+// every row's window are skipped.
+//
+// A window leaves a row's first computed tile wholly masked for that row
+// when other rows of its block still see keys there.  The row's m then
+// stays at -1e30, so its p is 1 on those masked keys and l and acc take
+// them in; the first tile where the row sees a key sets a finite m, and
+// that tile's corr = exp(-1e30 - m) is exactly 0, which clears them.  So
+// every row must see at least one key: the wrapper refuses a window
+// under which the last query row sees none (q_offset + Sq - W >= Skv).
 //
 // Head dims: every D with D % 8 == 0 and 8 <= D <= 128.  Each kernel is
 // instantiated at DPAD = 64 and 128 and runs a D on the next of the two:
@@ -39,9 +49,12 @@
 // shuffles for the max), converts P to bf16 in registers and feeds it as
 // the register A operand of the second chain, O += P v, with v read from
 // shared memory as an MN-major operand (the transpose bit): P never goes
-// through shared memory.  Only tiles on the diagonal or past Skv are
-// masked.  Blocks are ordered so that the query blocks with the most KV
-// tiles start first.  Two roundings differ from the TPU kernel, which
+// through shared memory.  Only tiles on the diagonal, past Skv or across
+// the window's lower edge are masked.  With a window the producer starts
+// at the block's first visible tile, and a warpgroup releases, without
+// computing, the tiles below its own first row's window as it does those
+// past its last row's diagonal.  Blocks are ordered so that the query
+// blocks with the most KV tiles start first.  Two roundings differ from the TPU kernel, which
 // casts q, k, v to fp32 and scales q before its product: the scale
 // multiplies S in fp32 after the product (exact at D = 64, where it is
 // 1/8; one fp32 rounding apart at D = 128), and P is rounded to bf16
@@ -82,7 +95,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                  int hq, int hkv, int sq, int skv, int d, int causal, int q_offset,
-                 float scale) {
+                 int window, float scale) {
   // D is the padded head dim (shared tiles and registers), d <= D the true one
   constexpr int DP = D / kTPR;  // dims owned by one thread
   __shared__ T ks[kBK * D];
@@ -113,8 +126,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // Causal: no row of this block sees a key past q0 + kBQ - 1 + q_offset.
   int kv_end = skv;
   if (causal) kv_end = min(skv, q0 + kBQ + q_offset);
+  // Window: no row of this block sees a key below q0 + q_offset - window + 1.
+  const int kv_begin = window > 0 ? max(0, q0 + q_offset - window + 1) / kBK * kBK : 0;
 
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
+  for (int k0 = kv_begin; k0 < kv_end; k0 += kBK) {
     __syncthreads();  // previous tile fully consumed
     for (int e = tid; e < kBK * D; e += kThreads) {
       const int kp = k0 + e / D, col = e % D;
@@ -135,7 +150,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       dot += __shfl_xor_sync(0xffffffffu, dot, 1);
       dot += __shfl_xor_sync(0xffffffffu, dot, 2);
       const int kp = k0 + j;
-      const bool ok = kp < skv && (!causal || kp <= qpos);
+      const bool ok =
+          kp < skv && (!causal || kp <= qpos) && (window <= 0 || kp > qpos - window);
       s[j] = ok ? dot : kNegInf;
       mt = fmaxf(mt, s[j]);
     }
@@ -170,8 +186,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 int launch_fp32(const void* q, const void* k, const void* v, void* o, void* lse, int b,
-                int hq, int hkv, int sq, int skv, int d, int causal, int q_offset, float scale,
-                cudaStream_t s) {
+                int hq, int hkv, int sq, int skv, int d, int causal, int q_offset, int window,
+                float scale, cudaStream_t s) {
   const dim3 grid((sq + kBQ - 1) / kBQ, b * hq), block(kThreads);
   const float* qp = static_cast<const float*>(q);
   const float* kp = static_cast<const float*>(k);
@@ -180,10 +196,10 @@ int launch_fp32(const void* q, const void* k, const void* v, void* o, void* lse,
   float* lp = static_cast<float*>(lse);
   if (d <= 64) {
     flash_fwd_kernel<float, 64><<<grid, block, 0, s>>>(qp, kp, vp, op, lp, hq, hkv, sq, skv,
-                                                       d, causal, q_offset, scale);
+                                                       d, causal, q_offset, window, scale);
   } else {
     flash_fwd_kernel<float, 128><<<grid, block, 0, s>>>(qp, kp, vp, op, lp, hq, hkv, sq, skv,
-                                                        d, causal, q_offset, scale);
+                                                        d, causal, q_offset, window, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -224,14 +240,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // Shared memory: q as [D/64][128 rows][64], then per stage K and V, each
 // [D/64][BN keys][64]; every block of 64 columns is one TMA box.  D is the
 // padded head dim; with kPad the tensors' rows hold d < D columns, and the
-// boxes' columns past d arrive as zeros.  Without kPad, d == D.
-template <int D, bool kPad>
+// boxes' columns past d arrive as zeros.  Without kPad, d == D.  kWindow
+// compiles the sliding window's tile range and mask in (window > 0): with
+// them in a runtime branch the calls without a window ran markedly slower
+// on the H100 (the same registers, no spills).
+template <int D, bool kPad, bool kWindow>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
                        float* __restrict__ lse, int hq, int hkv, int sq, int skv, int d,
-                       int causal, int q_offset, float scale) {
+                       int causal, int q_offset, int window, float scale) {
   using T = TcShape<D>;
   constexpr int BN = T::kBN;
   extern __shared__ uint8_t smem_raw[];
@@ -245,6 +264,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int rows_end = min(q0 + kTcBQ, sq);
   const int kv_end = causal ? min(skv, rows_end + q_offset) : skv;
   const int n_tiles = (kv_end + BN - 1) / BN;
+  // with a window the block's tiles start at its first row's lowest key;
+  // the ring counts tiles from there (j = i - t_lo)
+  const int t_lo = kWindow ? max(0, q0 + q_offset - window + 1) / BN : 0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -262,9 +284,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       mbar_expect_tx(&q_full, T::kQBytes);
       for (int c = 0; c < T::kChunks; ++c)
         tma_load_3d(smem + c * kTcBQ * 128, &qmap, &q_full, c * 64, q0, bh);
-      for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % kTcStages;
-        if (i >= kTcStages) mbar_wait(&empty[s], (i / kTcStages - 1) & 1);
+      for (int i = t_lo; i < n_tiles; ++i) {
+        const int j = i - t_lo, s = j % kTcStages;
+        if (j >= kTcStages) mbar_wait(&empty[s], (j / kTcStages - 1) & 1);
         uint8_t* ks = kv + s * 2 * T::kTileBytes;
         uint8_t* vs = ks + T::kTileBytes;
         mbar_expect_tx(&full[s], 2 * T::kTileBytes);
@@ -280,9 +302,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   // consumers: warpgroup wg owns query rows [wq0, wq0 + 64)
   const int wg = warp / 4;
   const int wq0 = q0 + 64 * wg;
-  // tiles past this warpgroup's last visible key are only released
+  // tiles past this warpgroup's last visible key, or below its first
+  // row's window, are only released (on the same empty barrier)
   const int w_kv_end = wq0 >= sq ? 0 : causal ? min(skv, min(wq0 + 64, sq) + q_offset) : skv;
   const int n_mine = (w_kv_end + BN - 1) / BN;
+  const int t_mine = kWindow ? max(0, wq0 + q_offset - window + 1) / BN : 0;
+  // the last row's lowest visible key: a tile starting below it straddles
+  // the window's lower edge for some row
+  const int w_lo_last = wq0 + 63 + q_offset - window + 1;
   const int row0 = wq0 + (warp % 4) * 16 + lane / 4;     // and row0 + 8
   float oacc[D / 2];
 #pragma unroll
@@ -291,10 +318,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const uint32_t qs = smem_u32(smem) + wg * 64 * 128;
   mbar_wait(&q_full, 0);
 
-  for (int i = 0; i < n_tiles; ++i) {
-    const int s = i % kTcStages;
-    mbar_wait(&full[s], (i / kTcStages) & 1);
-    if (i < n_mine) {
+  for (int i = t_lo; i < n_tiles; ++i) {
+    const int s = (i - t_lo) % kTcStages;
+    mbar_wait(&full[s], ((i - t_lo) / kTcStages) & 1);
+    if (i >= t_mine && i < n_mine) {
       const uint32_t ks = smem_u32(kv + s * 2 * T::kTileBytes);
       const uint32_t vs = ks + T::kTileBytes;
       float sc[BN / 2];
@@ -310,7 +337,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       fence_regs(sc);
 
       const int k0 = i * BN;
-      const bool edge = k0 + BN > skv || (causal && k0 + BN - 1 > wq0 + q_offset);
+      const bool edge = k0 + BN > skv || (causal && k0 + BN - 1 > wq0 + q_offset) ||
+                        (kWindow && k0 < w_lo_last);
       float mx[2] = {m[0], m[1]};
 #pragma unroll
       for (int j = 0; j < BN / 2; ++j) {
@@ -318,7 +346,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         if (edge) {
           const int kpos = k0 + 8 * (j >> 2) + 2 * (lane % 4) + (j & 1);
           const int qpos = row0 + 8 * ((j >> 1) & 1) + q_offset;
-          if (kpos >= skv || (causal && kpos > qpos)) x = kNegInf;
+          if (kpos >= skv || (causal && kpos > qpos) || (kWindow && kpos <= qpos - window))
+            x = kNegInf;
         }
         sc[j] = x;
         mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], x);
@@ -375,10 +404,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-template <int D, bool kPad>
+template <int D, bool kPad, bool kWindow>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, void* lse, int b, int hq,
-                 int hkv, int sq, int skv, int d, int causal, int q_offset, float scale,
-                 cudaStream_t s) {
+                 int hkv, int sq, int skv, int d, int causal, int q_offset, int window,
+                 float scale, cudaStream_t s) {
   using T = TcShape<D>;
   // maps of d columns: a box's columns past d read as zeros
   CUtensorMap qmap, kmap, vmap;
@@ -387,47 +416,58 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, void* lse
   if (!rc) rc = encode_bf16_3d(&vmap, v, d, skv, static_cast<uint64_t>(b) * hkv, 64, T::kBN);
   if (rc) return rc;
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<D, kPad>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+      flash_fwd_wgmma_kernel<D, kPad, kWindow>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(b * hq, (sq + kTcBQ - 1) / kTcBQ);
-  flash_fwd_wgmma_kernel<D, kPad><<<grid, kTcThreads, T::kSmem, s>>>(
+  flash_fwd_wgmma_kernel<D, kPad, kWindow><<<grid, kTcThreads, T::kSmem, s>>>(
       qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), hq, hkv, sq,
-      skv, d, causal, q_offset, scale);
+      skv, d, causal, q_offset, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int b, int hq,
-                int hkv, int sq, int skv, int d, int causal, int q_offset, float scale,
-                cudaStream_t s) {
+                int hkv, int sq, int skv, int d, int causal, int q_offset, int window,
+                float scale, cudaStream_t s) {
   if ((sq + kTcBQ - 1) / kTcBQ > 65535 ||
       (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-#define FLASH_WGMMA(D, PAD) \
-  launch_wgmma<D, PAD>(q, k, v, o, lse, b, hq, hkv, sq, skv, d, causal, q_offset, scale, s)
-  if (d == 64) return FLASH_WGMMA(64, false);
-  if (d == 128) return FLASH_WGMMA(128, false);
-  if (d < 64) return FLASH_WGMMA(64, true);
-  return FLASH_WGMMA(128, true);
+#define FLASH_WGMMA(D, PAD, WIN)                                                          \
+  launch_wgmma<D, PAD, WIN>(q, k, v, o, lse, b, hq, hkv, sq, skv, d, causal, q_offset, window, \
+                            scale, s)
+  if (window > 0) {
+    if (d == 64) return FLASH_WGMMA(64, false, true);
+    if (d == 128) return FLASH_WGMMA(128, false, true);
+    if (d < 64) return FLASH_WGMMA(64, true, true);
+    return FLASH_WGMMA(128, true, true);
+  }
+  if (d == 64) return FLASH_WGMMA(64, false, false);
+  if (d == 128) return FLASH_WGMMA(128, false, false);
+  if (d < 64) return FLASH_WGMMA(64, true, false);
+  return FLASH_WGMMA(128, true, false);
 #undef FLASH_WGMMA
 }
 
 }  // namespace
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); d % 8 == 0
-// and 8 <= d <= 128.  bf16 needs 16-byte aligned q, k, v and out.  Returns
-// cudaGetLastError() after the launch (0 on success).
+// and 8 <= d <= 128.  window: the sliding window W (0 = none).  bf16 needs
+// 16-byte aligned q, k, v and out.  Returns cudaGetLastError() after the
+// launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int b, int hq, int hkv, int sq, int skv,
-                                   int d, int causal, int q_offset, float scale,
+                                   int d, int causal, int q_offset, int window, float scale,
                                    int dtype, void* stream) {
   if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv || sq <= 0 || skv <= 0 || d < 8 || d > 128 ||
-      d % 8)
+      d % 8 || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_fp32(q, k, v, o, lse, b, hq, hkv, sq, skv, d, causal, q_offset, scale, s);
+    return launch_fp32(q, k, v, o, lse, b, hq, hkv, sq, skv, d, causal, q_offset, window,
+                       scale, s);
   if (dtype == 1)
-    return launch_bf16(q, k, v, o, lse, b, hq, hkv, sq, skv, d, causal, q_offset, scale, s);
+    return launch_bf16(q, k, v, o, lse, b, hq, hkv, sq, skv, d, causal, q_offset, window,
+                       scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -3,10 +3,13 @@
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``_flash_fwd_kernel`` / ``flash_attention_fwd_pallas``).  Source:
 ``csrc/flash_attention.cu``.  Unlike the TPU kernel it also returns the
-row logsumexp, so the backward needs no second forward.  Ragged Sq and
-Skv are taken, and every head dim D with D % 8 == 0 and 8 <= D <= 128:
-each kernel is built for D = 64 and 128 and runs a D on the next of the
-two, with the columns past D read as zeros (``head_dim_refusal``).
+row logsumexp, so the backward needs no second forward, and it takes
+the sliding window of the JAX package's ``_blk_mask`` (a key is visible
+when ``kpos > qpos - window``), which the JAX package computes in its
+jnp reference only.  Ragged Sq and Skv are taken, and every head dim D
+with D % 8 == 0 and 8 <= D <= 128: each kernel is built for D = 64 and
+128 and runs a D on the next of the two, with the columns past D read as
+zeros (``head_dim_refusal``).
 
 Two hand-written kernels, chosen by dtype: bf16 runs on the tensor cores
 (``wgmma`` fed by TMA), fp32 on the CUDA cores (tensor cores would take
@@ -37,7 +40,7 @@ GRID_Y = 65535           # CUDA's limit on gridDim.y
 launches = 0
 
 
-def _check(q, k, v, causal, q_offset):
+def _check(q, k, v, causal, q_offset, window=None):
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
         raise ValueError(f"flash attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} must be (B, H, S, D) with k, v alike")
@@ -50,25 +53,36 @@ def _check(q, k, v, causal, q_offset):
     if causal and q_offset < 0:
         raise ValueError("flash attention: causal with q_offset < 0 leaves query "
                          "rows with no visible key")
+    if window is not None:
+        if window < 1:
+            raise ValueError(f"flash attention: window {window} must be at least 1")
+        if q_offset + q.shape[2] - window >= k.shape[2]:
+            raise ValueError(f"flash attention: window {window} with q_offset {q_offset} "
+                             f"leaves query rows past key {k.shape[2] - 1} with no "
+                             "visible key")
 
 
-def flash_attention_fwd_plain(q, k, v, *, causal: bool = True, q_offset: int = 0):
-    """The kernels' arithmetic in plain PyTorch: masked scores at -1e30,
+def flash_attention_fwd_plain(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                              window: int | None = None):
+    """The kernels' arithmetic in plain PyTorch: masked scores at -1e30
+    (causal, and with a window every key at or below ``qpos - window``),
     softmax in fp32.  fp32 (the CUDA-core kernel): q cast to fp32 and
     scaled before the product.  bf16 (the tensor-core kernel): the scale
     multiplies the fp32 product, and P is rounded to bf16 before P.v while
     l sums the fp32 P.  Returns (out, lse)."""
-    _check(q, k, v, causal, q_offset)
+    _check(q, k, v, causal, q_offset, window)
     b, hq, sq, d = q.shape
     skv = k.shape[2]
     n_rep = hq // k.shape[1]
     tc = q.dtype == torch.bfloat16
     k32 = repeat_kv(k, n_rep).float().transpose(-1, -2)
     s = (q.float() @ k32) * d ** -0.5 if tc else (q.float() * d ** -0.5) @ k32
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(skv, device=q.device)[None, :]
     if causal:
-        qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
-        kpos = torch.arange(skv, device=q.device)[None, :]
         s = s.masked_fill(kpos > qpos, NEG_INF)
+    if window is not None:
+        s = s.masked_fill(kpos <= qpos - window, NEG_INF)
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
     l = torch.clamp(p.sum(dim=-1), min=1e-30)
@@ -106,18 +120,21 @@ def _lib():
     lib = _build.library()
     fn = lib.flash_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def flash_attention_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0):
-    """q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D) with Hq % Hkv == 0.
-    Returns (out in q's dtype, lse in fp32 (B, Hq, Sq))."""
+def flash_attention_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                        window: int | None = None):
+    """q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D) with Hq % Hkv == 0;
+    ``window`` None or the sliding window (at least 1).  Returns (out in
+    q's dtype, lse in fp32 (B, Hq, Sq))."""
     if _build.takes_plain(q, k, v):
-        return flash_attention_fwd_plain(q, k, v, causal=causal, q_offset=q_offset)
-    _check(q, k, v, causal, q_offset)
+        return flash_attention_fwd_plain(q, k, v, causal=causal, q_offset=q_offset,
+                                         window=window)
+    _check(q, k, v, causal, q_offset, window)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash attention kernel: q on {q.device}, k on {k.device}, "
                          f"v on {v.device}")
@@ -141,7 +158,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0):
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                b, hq, hkv, sq, skv, d, int(causal), q_offset, d ** -0.5,
+                b, hq, hkv, sq, skv, d, int(causal), q_offset, window or 0, d ** -0.5,
                 DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {rc}")

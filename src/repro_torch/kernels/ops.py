@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..models import layers as L
-from ..models.attention import _flash_bwd, check_scale, flash_attention_ref
+from ..models.attention import _flash_bwd, check_scale
 from . import flash_attention as _fa
 from . import mamba_scan as _ms
 from . import moe_gmm as _mg
@@ -29,27 +29,25 @@ from . import rmsnorm as _rn
 
 class _Flash(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, q_offset, block_kv):
-        out, lse = _fa.flash_attention_fwd(q, k, v, causal=causal, q_offset=q_offset)
+    def forward(ctx, q, k, v, causal, q_offset, window, block_kv):
+        out, lse = _fa.flash_attention_fwd(q, k, v, causal=causal, q_offset=q_offset,
+                                           window=window)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (causal, q_offset, None, block_kv)
+        ctx.args = (causal, q_offset, window, block_kv)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         dq, dk, dv = _flash_bwd(*ctx.args, ctx.saved_tensors, dout)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal=True, q_offset=0, sm_scale=None,
                     window=None, block_kv=128):
+    """``flash_attention_ref``'s contract through K2, with or without a
+    sliding window; the backward masks the same keys."""
     check_scale(q.shape[-1], sm_scale)
-    if window is not None:
-        if q.device.type not in ("cpu", "meta"):
-            raise NotImplementedError("the flash kernel has no sliding window yet")
-        return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
-                                   window=window, block_kv=block_kv)
-    return _Flash.apply(q, k, v, causal, q_offset, block_kv)
+    return _Flash.apply(q, k, v, causal, q_offset, window, block_kv)
 
 
 # ---- rmsnorm: K1 forward + analytic backward

@@ -18,7 +18,7 @@ train driver exchange) against a config's proxy model:
 
 Lint the whole config x schedule x ZeRO grid, including the remat and
 offload memory-pass cells the translation validator certifies, over the
-configs the port has (``configs.PORTED``: 9 x (6 + 3) = 81 cells):
+configs the port has (``configs.PORTED``: 10 x (6 + 3) = 90 cells):
 
   PYTHONPATH=src python -m repro_torch.launch.lint --grid --json --out lint.json
 

@@ -292,7 +292,7 @@ def moe_aux_loss(probs, gate_idx, n_experts: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Mamba-1 — selective SSM
+# Mamba — selective SSM (Mamba-1) and the SSD scan (Mamba-2)
 # ---------------------------------------------------------------------------
 
 def init_mamba(gen: torch.Generator, d_model: int, state: int, version: int, dtype,
@@ -391,20 +391,78 @@ def ssm_scan_ref(xz, dt, A, B, C, D, h0=None, chunk: int = SSM_CHUNK):
     return y.to(xz.dtype) + xz * D.to(xz.dtype), h
 
 
-def mamba_block(p, x, *, state: int, version: int, chunk: int = SSM_CHUNK):
-    """Mamba-1 block over a whole sequence from a zero state: in_proj ->
-    causal conv -> silu -> x_proj -> softplus(dt) -> selective scan (the
-    ``"mamba_scan"`` impl) -> gate by silu(z) -> out_proj."""
-    if version != 1:
-        raise NotImplementedError("the Mamba-2 SSD scan is not ported yet")
+def _ssd_chunk(A, h, xc, dtc, Bc, Cc):
+    """One chunk of the SSD scan, steps in order: (final state (B, H, P,
+    N), y (B, q, H, P) fp32).  The decays exp(dt*A) and the inputs x*dt
+    are taken for the whole chunk at once and every per-step input is an
+    ``unbind`` view (whose backward is one stack, where indexing step t
+    would cost a zero fill and a copy per step), so a step launches three
+    kernels forward (decay, rank-one update, read-out) where the JAX
+    package's step body, run op by op, would launch seven."""
+    dA = torch.exp(dtc * A).unbind(1)                          # q x (B, H)
+    xdt = (xc * dtc[..., None]).unbind(1)                     # q x (B, H, P)
+    ys = []
+    for dA_t, xdt_t, B_t, C_t in zip(dA, xdt, Bc.unbind(1), Cc.unbind(1)):
+        h = torch.addcmul(h * dA_t[:, :, None, None], xdt_t[..., None],
+                          B_t[:, None, None, :])
+        ys.append(torch.einsum("bhpn,bn->bhp", h, C_t))
+    return h, torch.stack(ys, dim=1)
+
+
+def _ssd_scan(x_h, dt, A, B, C, D, h0=None, chunk: int = SSM_CHUNK):
+    """Mamba-2 SSD scan, chunked like ``ssm_scan_ref``.
+
+    x_h: (B, S, H, P); dt: (B, S, H); A: (H,); B, C: (B, S, N); D: (H,).
+    State (B, H, P, N): ``h_t = exp(dt_t*A)*h_{t-1} + (x_t*dt_t) B_t^T``
+    per head, ``y_t = h_t C_t``.  Returns (y + x*D in x's dtype, last
+    state fp32).  It is the Mamba-1 recurrence over H*P channels with dt,
+    A and D shared by each head's P channels; written per head, nothing of
+    size (B, S, H*P, N) or a repeated dt exists.  Each chunk runs under
+    ``torch.utils.checkpoint``, so autograd keeps only the chunk-boundary
+    states.  No kernel: the JAX package runs it in jnp too."""
+    b, s, h, p_ = x_h.shape
+    n = B.shape[-1]
+    state = (torch.zeros((b, h, p_, n), dtype=torch.float32, device=x_h.device)
+             if h0 is None else h0.float())
+    q = _pick_chunk(s, chunk)
+    x32, dt32, B32, C32 = x_h.float(), dt.float(), B.float(), C.float()
+    ys = []
+    for i in range(s // q):
+        sl = slice(i * q, (i + 1) * q)
+        state, y = checkpoint(_ssd_chunk, A.float(), state, x32[:, sl], dt32[:, sl],
+                              B32[:, sl], C32[:, sl], use_reentrant=False)
+        ys.append(y)
+    y = torch.cat(ys, dim=1)
+    return y.to(x_h.dtype) + x_h * D[None, None, :, None].to(x_h.dtype), state
+
+
+def mamba_block(p, x, *, state: int, version: int, headdim: int = 64,
+                chunk: int = SSM_CHUNK):
+    """Mamba block over a whole sequence from a zero state: in_proj ->
+    causal conv -> silu -> the SSM -> gate by silu(z) -> out_proj.
+    Version 1: x_proj -> softplus(dt) -> selective scan (the
+    ``"mamba_scan"`` impl).  Version 2: bc_proj gives B and C, a per-head
+    dt = softplus(xh @ dt_proj2 + dt_bias) (fp32 in a bf16 block, as
+    the fp32 bias promotes it), A = -exp(A_log) per head, and the SSD
+    scan over heads of ``headdim`` channels."""
+    b, s, _ = x.shape
     xz = x @ p["in_proj"]
     xh, z = torch.chunk(xz, 2, dim=-1)                    # (B, S, Ci)
     xh, _ = _causal_conv(xh, p["conv_w"], p["conv_b"])
     xh = F.silu(xh)
-    proj = xh @ p["x_proj"]
-    dt_rank = p["dt_proj"].shape[0]
-    dt, Bm, Cm = torch.split(proj, [dt_rank, state, state], dim=-1)
-    dt = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
-    y, _ = get_impl("mamba_scan", ssm_scan_ref)(xh, dt, A, Bm, Cm, p["D"], chunk=chunk)
+    if version == 1:
+        proj = xh @ p["x_proj"]
+        dt_rank = p["dt_proj"].shape[0]
+        dt, Bm, Cm = torch.split(proj, [dt_rank, state, state], dim=-1)
+        dt = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])
+        A = -torch.exp(p["A_log"])
+        y, _ = get_impl("mamba_scan", ssm_scan_ref)(xh, dt, A, Bm, Cm, p["D"], chunk=chunk)
+    else:
+        ci = xh.shape[-1]
+        Bm, Cm = torch.chunk(xh @ p["bc_proj"], 2, dim=-1)        # (B, S, N)
+        dt = F.softplus(xh @ p["dt_proj2"] + p["dt_bias"])        # (B, S, H)
+        A = -torch.exp(p["A_log"])                                # (H,)
+        y, _ = _ssd_scan(xh.reshape(b, s, ci // headdim, headdim), dt, A, Bm, Cm, p["D"],
+                         chunk=chunk)
+        y = y.reshape(b, s, ci)
     return (y * F.silu(z)) @ p["out_proj"]

@@ -1,10 +1,12 @@
-"""Architecture config, the dense and MoE decoders and the pure Mamba-1
-stack (port of ``repro.models.model``).
+"""Architecture config, the dense and MoE decoders, the pure Mamba stacks
+and the hybrid (port of ``repro.models.model``).
 
 Layers are stacked on a leading ``n_layers`` axis, as in the JAX
 package, so its parameters load unchanged.  The JAX ``lax.scan`` over
 the stack becomes a Python loop over the layer slices; with
-``remat="full"`` each layer runs under ``torch.utils.checkpoint``.
+``remat="full"`` each layer runs under ``torch.utils.checkpoint``, and
+in the hybrid each group of ``hybrid_every`` Mamba layers with its
+application of the shared block.
 
 Public entry points:
   init(cfg, generator, device)  -> params
@@ -172,18 +174,17 @@ def params_count(cfg: ArchConfig, active_only: bool = False) -> int:
 
 
 # ---------------------------------------------------------------------------
-# init (dense, MoE and pure-SSM families)
+# init (dense, MoE, pure-SSM and hybrid families)
 # ---------------------------------------------------------------------------
 
 def _check_family(cfg: ArchConfig) -> None:
-    """The ported families: the dense and MoE decoders and the pure
-    Mamba-1 stack."""
-    if cfg.ssm and cfg.ssm.version != 1:
-        raise NotImplementedError(f"{cfg.name} ({cfg.family}): Mamba-2 is not ported yet")
-    if cfg.hybrid_every or cfg.n_enc_layers or cfg.mrope:
+    """The ported families: the dense and MoE decoders, the pure Mamba-1
+    and Mamba-2 stacks and the hybrid (Mamba layers with one shared
+    attention block)."""
+    if cfg.n_enc_layers or cfg.mrope:
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): only the dense and MoE decoders and "
-            "pure Mamba-1 stacks are ported")
+            f"{cfg.name} ({cfg.family}): only the dense and MoE decoders, pure "
+            "Mamba stacks and the hybrid are ported")
 
 
 def _stack(trees: list) -> Any:
@@ -207,7 +208,7 @@ def init(cfg: ArchConfig, generator: torch.Generator, device="cuda") -> dict:
         p["lm_head"] = L._normal(generator, (cfg.d_model, cfg.vocab), 0.02, dt, dev)
 
     def one():
-        if cfg.ssm:                            # pure SSM (falcon-mamba)
+        if cfg.ssm:                            # Mamba layers (falcon-mamba, zamba2)
             return {
                 "norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
                 "mamba": L.init_mamba(generator, cfg.d_model, cfg.ssm.state,
@@ -227,6 +228,14 @@ def init(cfg: ArchConfig, generator: torch.Generator, device="cuda") -> dict:
             lp["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act, dt, dev)
         return lp
     p["layers"] = _stack([one() for _ in range(cfg.n_layers)])
+    if cfg.hybrid_every:                       # zamba2: one shared, tied block
+        p["shared_attn"] = {
+            "norm1": torch.ones((cfg.d_model,), dtype=dt, device=dev),
+            "attn": L.init_attn(generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                cfg.head_dim, cfg.qkv_bias, dt, dev),
+            "norm2": torch.ones((cfg.d_model,), dtype=dt, device=dev),
+            "mlp": L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act, dt, dev),
+        }
     return p
 
 
@@ -243,9 +252,7 @@ def _dec_layer(cfg, lp, x):
     for dense and SSM layers)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.ssm:
-        h = L.mamba_block(lp["mamba"], _norm(cfg, lp["norm"], x),
-                          state=cfg.ssm.state, version=cfg.ssm.version, chunk=cfg.ssm_chunk)
-        return x + h, aux
+        return _mamba_layer(cfg, lp, x), aux
     x = x + L.attention_block(lp["attn"], _norm(cfg, lp["norm1"], x), cfg,
                               causal=cfg.causal)
     h = _norm(cfg, lp["norm2"], x)
@@ -253,6 +260,12 @@ def _dec_layer(cfg, lp, x):
         m, aux = _moe_dispatch(cfg, lp["moe"], h)
         return x + m, aux
     return x + L.mlp_block(lp["mlp"], h, cfg.act), aux
+
+
+def _mamba_layer(cfg, lp, x):
+    return x + L.mamba_block(lp["mamba"], _norm(cfg, lp["norm"], x), state=cfg.ssm.state,
+                             version=cfg.ssm.version, headdim=cfg.ssm.headdim,
+                             chunk=cfg.ssm_chunk)
 
 
 def _moe_dispatch(cfg, moe_params, h):
@@ -274,6 +287,8 @@ def _unstack(tree, n: int) -> list:
 
 def _run_decoder(cfg: ArchConfig, p: dict, x: torch.Tensor) -> tuple:
     """x: (B, S, D) embedded inputs -> (hidden states, summed aux loss)."""
+    if cfg.hybrid_every:
+        return _run_hybrid(cfg, p, x)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _unstack(p["layers"], cfg.n_layers):
         if cfg.remat == "full":
@@ -282,6 +297,36 @@ def _run_decoder(cfg: ArchConfig, p: dict, x: torch.Tensor) -> tuple:
             x, aux = _dec_layer(cfg, lp, x)
         total = total + aux
     return x, total
+
+
+def _hybrid_group(cfg, shared, group, x):
+    """One group: its Mamba layers, then the shared attention (with the
+    config's sliding window) and MLP."""
+    for lp in group:
+        x = _mamba_layer(cfg, lp, x)
+    x = x + L.attention_block(shared["attn"], _norm(cfg, shared["norm1"], x), cfg,
+                              causal=cfg.causal, window=cfg.sliding_window or None)
+    return x + L.mlp_block(shared["mlp"], _norm(cfg, shared["norm2"], x), cfg.act)
+
+
+def _run_hybrid(cfg: ArchConfig, p: dict, x: torch.Tensor) -> tuple:
+    """zamba2: groups of ``hybrid_every`` Mamba layers, with ONE shared
+    attention+MLP block (tied weights) applied after each group, so its
+    gradients sum over the applications.  Under ``remat="full"`` each
+    whole group runs under ``torch.utils.checkpoint``, as the JAX package
+    checkpoints its group body."""
+    k = cfg.hybrid_every
+    if cfg.n_layers % k:
+        raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a multiple of "
+                         f"hybrid_every {k}")
+    layers = _unstack(p["layers"], cfg.n_layers)
+    for g in range(cfg.n_layers // k):
+        group = layers[g * k:(g + 1) * k]
+        if cfg.remat == "full":
+            x = checkpoint(_hybrid_group, cfg, p["shared_attn"], group, x, use_reentrant=False)
+        else:
+            x = _hybrid_group(cfg, p["shared_attn"], group, x)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _logits(cfg: ArchConfig, p: dict, h: torch.Tensor) -> torch.Tensor:

@@ -16,7 +16,7 @@ compiled in both packages from the same numpy weights.
 - ``compile_training`` embeds the quick subset by default, and its
   ``stats["analysis"]`` equals the JAX package's; a bad depth is refused
   with the JAX package's message;
-- ``lint --grid`` gives the JAX package's verdicts on the 81 cells of the
+- ``lint --grid`` gives the JAX package's verdicts on the 90 cells of the
   ported configs, at ``quick`` and at ``deep``, and the CLI's exit codes.
 Only numpy crosses the packages.
 """
@@ -424,7 +424,7 @@ def _verdicts(result):
 @pytest.mark.parametrize("depth", ["quick", "deep"])
 def test_lint_grid_verdicts_equal_the_jax_package(depth):
     got = lint.run_grid(depth, 64, 4)
-    assert len(got["cells"]) == 81 == 9 * (6 + 3)
+    assert len(got["cells"]) == 90 == 10 * (6 + 3)
     assert [c["config"] for c in got["cells"][::9]] == PORTED
     assert _verdicts(got) == _verdicts(jlint.run_grid(depth, 64, 4, archs=PORTED))
     assert got["ok"] and got["compile_errors"] == 0

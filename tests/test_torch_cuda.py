@@ -109,8 +109,48 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_fwd(q, q, q)
     q = _randn((1, 2, 16, 64), torch.float32, dev)
-    with pytest.raises(NotImplementedError):
-        ops.flash_attention(q, q, q, window=4)
+    with pytest.raises(ValueError, match="no visible key"):
+        ops.flash_attention(q, q, q, causal=False, q_offset=20, window=4)
+
+
+# K2 with a sliding window: windows of 1, under a tile, straddling tiles
+# and past the sequence; causal and not; q_offset > 0; GQA; ragged Skv;
+# the bf16 kernel's 64- and 128-wide instantiations and the padded 80
+WINDOW_CASES = [(1, 4, 4, 300, 300, 64, True, 1), (1, 4, 4, 300, 300, 64, True, 100),
+                (2, 4, 2, 200, 333, 128, True, 70), (1, 8, 2, 257, 257, 80, True, 129),
+                (1, 4, 4, 130, 130, 80, True, 4096), (1, 2, 1, 100, 260, 64, False, 150),
+                (1, 4, 4, 64, 200, 128, True, 33)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", WINDOW_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_with_window_matches_plain(dev, b, hq, hkv, sq, skv, d, causal, window,
+                                                dtype):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    q = _randn((b, hq, sq, d), dtype, dev)
+    k = _randn((b, hkv, skv, d), dtype, dev, seed=1)
+    v = _randn((b, hkv, skv, d), dtype, dev, seed=2)
+    off = skv - sq if causal else 40
+    before = fa.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, q_offset=off, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want, want_lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal, q_offset=off,
+                                                  window=window)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+    # the backward through _Flash masks the same keys as the reference's
+    dout = _randn(q.shape, dtype, dev, seed=3)
+    grads = []
+    for register in (True, False):
+        xs = [t.float().clone().requires_grad_(True) for t in (q, k, v)]
+        fn = ops.flash_attention if register else fa.flash_attention_fwd_plain
+        res = fn(*xs, causal=causal, q_offset=off, window=window)
+        (res if register else res[0]).backward(dout.float())
+        grads.append([x.grad for x in xs])
+    for a, b_ in zip(*grads):
+        torch.testing.assert_close(a, b_, atol=5e-5, rtol=5e-4)
 
 
 def _scan_inputs(b, s, c, n, dtype, dev, with_h0=False):

@@ -242,11 +242,18 @@ class TestMambaBlock:
 
     def test_mamba2_raises(self):
         """Mamba-2's layout is JAX's (names, shapes, dtypes, with fp32
-        A_log, D and dt_bias in a bf16 block); its block is not ported."""
+        A_log, D and dt_bias in a bf16 block), and its block, once refused,
+        now gives JAX's output on JAX's bf16 weights (the SSD scan's own
+        parity tests are in test_torch_hybrid.py)."""
         p = TL.init_mamba(torch.Generator().manual_seed(0), 32, 8, 2, torch.bfloat16, "cpu",
                           headdim=16)
         jp = JL.init_mamba(jax.random.PRNGKey(0), 32, 8, 2, jnp.bfloat16, headdim=16)
         assert {k: (tuple(v.shape), str(v.dtype).removeprefix("torch."))
                 for k, v in p.items()} == {k: (v.shape, str(v.dtype)) for k, v in jp.items()}
-        with pytest.raises(NotImplementedError, match="Mamba-2"):
-            TL.mamba_block(p, torch.zeros(1, 4, 32, dtype=torch.bfloat16), state=8, version=2)
+        x = _inputs(1, 12, 32, 8)["x"]
+        tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+        out = TL.mamba_block(tp, _t(x, "bfloat16"), state=8, version=2, headdim=16, chunk=4)
+        want = JL.mamba_block(jp, _j(x, "bfloat16"), state=8, version=2, headdim=16,
+                              chunk=4)[0]
+        assert out.dtype == torch.bfloat16 and out.shape == (1, 12, 32)
+        _close(out, want, TOL["bfloat16"])

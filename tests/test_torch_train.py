@@ -298,6 +298,27 @@ class TestCLI:
     def test_falcon_mamba_loss_falls(self, tmp_path):
         assert ttrain.main(_cli(tmp_path, "--arch", "falcon-mamba-7b")) == 0
 
+    def test_zamba2_cli_exits_0_and_loss_falls(self, tmp_path):
+        """The hybrid through ``python -m repro_torch.launch.train``: four
+        Mamba-2 layers in two groups around the shared block."""
+        import os
+        import pathlib
+        import subprocess
+        import sys
+        args = ["--arch", "zamba2-2.7b", "--device", "cpu", "--steps", "6", "--batch", "2",
+                "--seq", "32", "--d-model", "64", "--layers", "4", "--vocab", "128",
+                "--ckpt-dir", str(tmp_path)]
+        src = pathlib.Path(__file__).resolve().parents[1] / "src"
+        out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *args],
+                             env=dict(os.environ, PYTHONPATH=str(src)), capture_output=True,
+                             text=True, timeout=300)
+        assert out.returncode == 0, out.stderr[-2000:]
+        assert "zamba2-2.7b (hybrid)" in out.stdout
+        sup, state = ttrain.run([*args[:-1], str(tmp_path / "again")])
+        losses = [h["loss"] for h in sup.history]
+        assert len(losses) == 6 and losses[-1] < losses[0]
+        assert "shared_attn" in state["params"]
+
     def test_cuda_without_a_card_raises(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -337,7 +358,7 @@ class TestConfigs:
         with pytest.raises(NotImplementedError, match="not ported"):
             get_config("whisper-large-v3")
         with pytest.raises(NotImplementedError, match="not ported"):
-            get_config("zamba2-2.7b")
+            get_config("qwen2-vl-7b")
         with pytest.raises(KeyError):
             get_config("no-such-arch")
 
