@@ -16,7 +16,10 @@ at its published widths (random weights from a seed, bf16,
 remat="full") for a few steps through the port's own entry points with
 the kernels installed, checks that every kernel of that path was
 launched exactly as often as the path calls it, compares one step with
-the plain versions (loss and every gradient leaf), and profiles where a
+the plain versions (loss and every gradient leaf; in bf16 a leaf the
+plain step cannot resolve is held against a plain run that follows the
+kernel run's forward, each K1 and K2 call checked on the same inputs),
+and profiles where a
 step's device time goes (``torch.profiler``), with the kernels and with
 their plain versions.  Only Qwen1.5's run ends with a checkpoint save
 (phase 3i holds save, restore and reshard at full width):
@@ -40,12 +43,30 @@ their plain versions.  Only Qwen1.5's run ends with a checkpoint save
     SSD scan runs as plain PyTorch, as the JAX package runs it in jnp, and
     is profiled alone.  The fp32 comparison runs one group (6 layers),
     and the plain profile is skipped (the plain run differs only in K1
-    and K2, which phase 2 times).
+    and K2, which phase 2 times);
+  - Whisper-large-v3 whole (phase 3k): 32 encoder layers over 1500
+    frames (non-causal self-attention) and 32 decoder layers over 448
+    tokens, each with a cross-attention to the encoder output (K1, and K2
+    at head_dim 64: non-causal 1500 x 1500, causal 448 x 448 and 448
+    queries over 1500 keys).  The frames, (4, 1500, 1280) N(0, 1) in
+    bf16 from a seeded generator, stand in for the stub front end and
+    come from this script's loader.  The fp32 comparison runs 2 encoder
+    and 2 decoder layers;
+  - Qwen2-VL-7B, 4 of its 28 layers at full width (phase 3l: K1, and K2
+    at GQA 28/4, head_dim 128), qkv bias and M-RoPE, each row's
+    positions in Qwen2-VL's own layout: a text prefix, one image of a 16
+    x 24 patch grid, then text (``image_positions``).
+
+Falcon-Mamba's plain profile is skipped too (the plain run differs only
+in K1, K4 and K4-bwd, whose plain versions phase 2 times).
 
 The kernel phase runs K2 at every head dim the paths and configs give
 it — 64, 128, qwen3-1b's GQA, granite-20b's MQA, and 32 and 80, which
 run on a padded instantiation — each against its plain version and
-timed beside SDPA, and the fp32 K2 at head_dim 128 beside fp32 SDPA; and
+timed beside SDPA, and the fp32 K2 at head_dim 128 beside fp32 SDPA; K2
+at the encoder-decoder's and the VLM's shapes (``FLASH_PATHS``: ragged
+query blocks, non-causal keys past 1,000, GQA 28/4) in fp32 and bf16
+against its plain version and timed beside SDPA; and
 K2 with a sliding window (``FLASH_WINDOWS``: Zamba2's own call, windows
 of 1, 100 and 1000, a band at 8,192 tokens, GQA, non-causal, a query
 offset) in fp32 and bf16 against its plain version with the window, timed
@@ -109,7 +130,7 @@ and step times; (c) the CLI's ``--elastic`` on ``spmd`` and ``--chaos``
 with ``--chaos-report`` on ``mpmd`` for phase 3g's winner.  Last it
 runs the training CLI at its defaults
 for the ported archs, qwen3-1b, minicpm-2b (its WSD schedule checked
-step by step) and ``--d-model 128`` (head_dim 32).  It prints the card's
+step by step), qwen2-vl-7b and ``--d-model 128`` (head_dim 32).  It prints the card's
 name and power limit, one JSON line of kernel numbers, and as its last
 line ``{"ok": true, "device": {...}}``.  Any failed phase ends the run
 with a non-zero exit code and no result.
@@ -148,6 +169,15 @@ DEEPSEEK_LAYERS = 2        # one stage of a 14-stage split of the 28 layers
 # scan is launch-bound (~14 s a step), so it trains ZAMBA2_STEPS steps
 ZAMBA2_LAYERS = 12
 ZAMBA2_STEPS = 3
+# Whisper-large-v3 whole (32 encoder and 32 decoder layers) over its
+# published decoder context (max_target_positions) and its 1500 encoder
+# frames; Qwen2-VL-7B at 4 of its 28 layers (the whole model and its fp32
+# AdamW moments do not fit one card), each row holding one image of a
+# 16 x 24 patch grid after a text prefix of its own length
+WHISPER_SEQ = 448
+QWEN2_VL_LAYERS = 4
+IMAGE_GRID = (16, 24)
+IMAGE_PREFIXES = (16, 100, 300, 500)
 # fp32 and bf16 tolerances of the kernel checks (tests/test_kernels.py)
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (3e-2, 3e-2)}
 # the selective scan's fp32 tolerance there: (atol, rtol)
@@ -166,7 +196,12 @@ FP32_P_TOL = TOL["bfloat16"]
 SCAN_REF_RL2 = 1e-3
 # one full-width step, kernels against plain versions: (loss relative
 # error, relative L2 error of each gradient leaf; layers are stacked, so
-# a leaf pools every layer).  bf16 at 24 layers, and fp32 at 2 layers.
+# a leaf pools every layer).  bf16 at full depth, and fp32 at 2 layers.
+# A bf16 leaf over the limit must also be over it between two plain runs
+# that differ only in the order of one fp32 sum, and within it against a
+# plain run that follows the kernel run's forward (``compare_with_plain``):
+# at Whisper's 32 + 32 layers the plain run's own q and k leaves move by
+# up to 9.3e-2 (PERF.md, section 6).
 PLAIN_RTOL = {"bfloat16": (1e-3, 5e-2), "float32": (1e-5, 1e-3)}
 FP32_LAYERS = 2            # depth of the fp32 comparison
 # An MoE step in bf16 is compared twice.  K2 and K3 round bf16 differently
@@ -337,6 +372,20 @@ FLASH_WINDOWS = {
 }
 
 
+# K2 at the shapes of the encoder-decoder and VLM paths, (B, Hq, Hkv, Sq,
+# Skv, D, causal), and their keys in the kernels line: Whisper's encoder
+# self-attention (non-causal, 1500 rows: 11.7 blocks of 128 query rows,
+# 23.4 tiles of 64 keys), its decoder self-attention (448 rows, 3.5
+# blocks) and cross-attention (448 queries over 1500 keys, non-causal),
+# and Qwen2-VL's GQA 28/4 (n_rep 7, no power of two)
+FLASH_PATHS = {
+    (BATCH, 20, 20, 1500, 1500, 64, False): "at_whisper_encoder_1500_non_causal",
+    (BATCH, 20, 20, WHISPER_SEQ, WHISPER_SEQ, 64, True): "at_whisper_decoder_448_causal",
+    (BATCH, 20, 20, WHISPER_SEQ, 1500, 64, False): "at_whisper_cross_448_1500",
+    (BATCH, 28, 4, SEQ, SEQ, 128, True): "at_qwen2_vl_gqa_28_4_head_dim_128",
+}
+
+
 def window_band(torch, sq: int, skv: int, causal: bool, q_offset: int, window: int) -> tuple:
     """(visible (query, key) pairs of one head, keys that any row sees):
     row i sees keys [max(0, qpos - window + 1), qpos] (causal) or up to
@@ -355,7 +404,7 @@ def phase_kernels(torch, F, fa, rn) -> dict:
     def randn(shape, dtype, scale=1.0, shift=0.0):
         return (torch.randn(shape, generator=g, device="cuda") * scale + shift).to(dtype)
 
-    results, p_errs = {}, {}
+    results = {}
     # K1 rmsnorm: the model's (B*S, d_model) rows, and 130 rows
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[1]
@@ -389,7 +438,8 @@ def phase_kernels(torch, F, fa, rn) -> dict:
              (4, 16, 8, 1024, 1024, 128, True), (4, 48, 1, 1024, 1024, 128, True),
              (4, 16, 16, 1024, 1024, 32, True), (4, 32, 32, 1024, 1024, 80, True),
              (2, 4, 2, 40, 72, 32, True), (1, 6, 2, 130, 200, 80, True),
-             (1, 4, 1, 50, 90, 80, False)]
+             (1, 4, 1, 50, 90, 80, False), *FLASH_PATHS]
+    errs = {}      # (case, dtype name) -> (max abs error of out and lse, against fp32 P)
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[1]
         for b, hq, hkv, sq, skv, d, causal in cases:
@@ -402,7 +452,7 @@ def phase_kernels(torch, F, fa, rn) -> dict:
             tag = f"flash {dname} {(b, hq, hkv, sq, skv, d, causal)}"
             err = check_close(torch, tag, out, want, dname)
             lse_err = check_close(torch, tag + " lse", lse, want_lse, "float32")
-            extra = ""
+            extra, p_err = "", None
             if dt == torch.bfloat16:
                 # the plain version's bf16 path repeats the kernel's bf16 P;
                 # this holds the kernel to the TPU kernel's formula, fp32 P
@@ -412,13 +462,7 @@ def phase_kernels(torch, F, fa, rn) -> dict:
                                     dname, FP32_P_TOL)
                 extra = f" against_fp32_P={p_err:.3e}"
             print(f"  {tag} max_abs_err={err:.3e} lse_err={lse_err:.3e}{extra}", flush=True)
-            if dt == torch.bfloat16 and (b, hq, hkv, sq, d) == (4, 16, 16, 1024, 64):
-                results["flash_attention"] = {"max_abs_err": max(err, lse_err),
-                                              "max_abs_err_fp32_p": p_err}
-            if dt == torch.bfloat16 and (b, hq, hkv, sq, d) in FLASH_TIMED:
-                p_errs[(hq, hkv, d)] = p_err
-            if dt == torch.float32 and (b, hq, hkv, sq, d) == (BATCH, 16, 16, SEQ, 128):
-                fp32_err = max(err, lse_err)
+            errs[(b, hq, hkv, sq, skv, d, causal), dname] = (max(err, lse_err), p_err)
 
     def window_case(b, hq, hkv, sq, skv, d, causal, off, window) -> dict:
         """K2 with a window against its plain version with the window, in
@@ -473,43 +517,50 @@ def phase_kernels(torch, F, fa, rn) -> dict:
               f"({timed['bound_by']}; {pairs} visible pairs a head)", flush=True)
         return timed
 
-    def flash_times(hq: int, hkv: int, d: int, dt=torch.bfloat16) -> dict:
-        """K2, its plain version and SDPA at (BATCH, hq/hkv, SEQ, d) causal
-        in ``dt``.  The bound counts the true d: a padded d's MMA work (80
-        runs as 128) shows as distance from it.  fp32 K2 runs on the CUDA
-        cores, so its bound takes the fp32 rate."""
-        q = randn((BATCH, hq, SEQ, d), dt)
-        k, v = (randn((BATCH, hkv, SEQ, d), dt) for _ in range(2))
-        pairs = BATCH * hq * SEQ * (SEQ + 1) // 2      # causal (query, key) pairs computed
-        # q, k, v, out, lse
-        n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + BATCH * hq * SEQ * 4
+    def flash_times(b, hq, hkv, sq, skv, d, causal, dt=torch.bfloat16) -> dict:
+        """K2, its plain version and SDPA with q (b, hq, sq, d) and k, v
+        (b, hkv, skv, d) in ``dt`` (causal calls are square), with the
+        errors the checks above found there.  The bound counts the (query,
+        key) pairs the mask leaves, at the true d (a padded d's MMA work, 80
+        run as 128, shows as distance from it), and the bytes of q, k, v,
+        out and lse; fp32 K2 runs on the CUDA cores, so its bound takes the
+        fp32 rate."""
+        q = randn((b, hq, sq, d), dt)
+        k, v = (randn((b, hkv, skv, d), dt) for _ in range(2))
+        pairs = b * hq * (sq * (sq + 1) // 2 if causal else sq * skv)
+        n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + b * hq * sq * 4
         rate = BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS
         timed = dict(
-            ms=cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal=True)),
-            plain_ms=cuda_ms(torch, lambda: fa.flash_attention_fwd_plain(q, k, v, causal=True)),
+            ms=cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal=causal)),
+            plain_ms=cuda_ms(torch, lambda: fa.flash_attention_fwd_plain(q, k, v, causal=causal)),
             library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=hq != hkv)),
+                q, k, v, is_causal=causal, enable_gqa=hq != hkv)),
             **bound(n_bytes, 4 * d * pairs / rate))
+        case = (b, hq, hkv, sq, skv, d, causal)
         timed["tflops"] = 4 * d * pairs / timed["ms"] / 1e9
         if dt == torch.bfloat16:
-            timed["max_abs_err_fp32_p"] = p_errs[(hq, hkv, d)]
+            timed["max_abs_err"], timed["max_abs_err_fp32_p"] = errs[case, "bfloat16"]
+            if case in FLASH_PATHS:
+                timed["max_abs_err_fp32"] = errs[case, "float32"][0]
         else:
-            timed["max_abs_err"] = fp32_err
-        print(f"  flash {(BATCH, f'{hq}/{hkv}', SEQ, d)} causal {str(dt)[6:]}: kernel "
-              f"{timed['ms']:.4f} ms ({timed['tflops']:.1f} TFLOP/s), plain "
-              f"{timed['plain_ms']:.4f} ms, SDPA {timed['library_ms']:.4f} ms "
+            timed["max_abs_err"] = errs[case, "float32"][0]
+        print(f"  flash {(b, f'{hq}/{hkv}', sq, skv, d)} {'causal' if causal else 'non-causal'} "
+              f"{str(dt)[6:]}: kernel {timed['ms']:.4f} ms ({timed['tflops']:.1f} TFLOP/s), "
+              f"plain {timed['plain_ms']:.4f} ms, SDPA {timed['library_ms']:.4f} ms "
               f"(kernel/SDPA {timed['ms'] / timed['library_ms']:.2f}x), bound "
               f"{timed['bound_ms']:.4f} ms ({timed['bound_by']})", flush=True)
         return timed
 
     # Qwen1.5's head_dim 64 first (the row's main numbers), then the rest
-    results["flash_attention"].update(flash_times(16, 16, 64))
+    results["flash_attention"] = flash_times(BATCH, 16, 16, SEQ, SEQ, 64, True)
     for (b, hq, hkv, sq, d), key in FLASH_TIMED.items():
         if key:
-            results["flash_attention"][key] = flash_times(hq, hkv, d)
+            results["flash_attention"][key] = flash_times(b, hq, hkv, sq, sq, d, True)
     # the fp32 instantiation phase 3f's fp32 check launches
-    results["flash_attention"]["at_fp32_head_dim_128"] = flash_times(16, 16, 128,
-                                                                     torch.float32)
+    results["flash_attention"]["at_fp32_head_dim_128"] = flash_times(
+        BATCH, 16, 16, SEQ, SEQ, 128, True, torch.float32)
+    for case, key in FLASH_PATHS.items():
+        results["flash_attention"][key] = flash_times(*case)
     for case, key in FLASH_WINDOWS.items():
         results["flash_attention"][key] = window_case(*case)
         torch.cuda.empty_cache()
@@ -810,14 +861,79 @@ class NoCheckpoint:
         pass
 
 
+def image_positions(batch: int, seq: int, grid: tuple, prefixes):
+    """(3, batch, seq) M-RoPE positions in Qwen2-VL's own layout (its
+    ``get_rope_index``): row r holds ``prefixes[r]`` text tokens (the
+    three streams equal), one image of t = 1 over ``grid`` = (h, w)
+    patches (temporal = start, height = start + row, width = start +
+    column), then text again from start + max(h, w)."""
+    import numpy as np
+    h, w = grid
+    pos = np.zeros((3, batch, seq), np.int64)
+    rows, cols = np.divmod(np.arange(h * w), w)
+    for r, n_text in enumerate(prefixes):
+        img = slice(n_text, n_text + h * w)
+        pos[:, r, :n_text] = np.arange(n_text)
+        pos[0, r, img] = n_text
+        pos[1, r, img] = n_text + rows
+        pos[2, r, img] = n_text + cols
+        pos[:, r, img.stop:] = n_text + max(h, w) + np.arange(seq - img.stop)
+    return pos
+
+
+class ModalLoader:
+    """A path's batches: the token loader's, plus the inputs of the stub
+    front ends.  For the encoder-decoder, ``frames`` (B, enc_seq,
+    d_model) in bf16, N(0, 1) from a generator on the card seeded by the
+    stream position; for the VLM, ``image_positions`` in every batch.
+    The stream position is the token loader's."""
+
+    def __init__(self, torch, cfg, loader) -> None:
+        self.torch, self.cfg, self.loader = torch, cfg, loader
+        self.positions = (image_positions(loader.batch, loader.seq, IMAGE_GRID,
+                                          IMAGE_PREFIXES) if cfg.mrope else None)
+
+    def next_batch(self) -> dict:
+        torch, cfg = self.torch, self.cfg
+        step = self.loader.state.step
+        batch = self.loader.next_batch()
+        if cfg.n_enc_layers:
+            g = torch.Generator(device="cuda").manual_seed(1000 + step)
+            batch["frames"] = torch.randn((self.loader.batch, cfg.enc_seq, cfg.d_model),
+                                          generator=g, device="cuda").to(torch.bfloat16)
+        if self.positions is not None:
+            batch["mrope_positions"] = self.positions
+        return batch
+
+    def state_dict(self) -> dict:
+        return self.loader.state_dict()
+
+    def load_state_dict(self, d: dict) -> None:
+        self.loader.load_state_dict(d)
+
+
+def path_seq(cfg) -> int:
+    return WHISPER_SEQ if cfg.n_enc_layers else SEQ
+
+
+def path_loader(torch, cfg):
+    """A training path's loader: synthetic tokens (seed 17) of BATCH rows
+    of ``path_seq`` tokens, with the stub front ends' inputs where the
+    family takes them."""
+    from repro_torch.data import SyntheticTokenSource, TokenLoader
+    loader = TokenLoader(SyntheticTokenSource(cfg.vocab, seed=17), batch=BATCH,
+                         seq=path_seq(cfg))
+    return ModalLoader(torch, cfg, loader) if cfg.n_enc_layers or cfg.mrope else loader
+
+
 def phase_train(torch, cfg, want: dict, steps: int = STEPS, save: bool = True,
                 fp32_layers: int = FP32_LAYERS) -> tuple:
     """``cfg`` through the port's entry points, with kernels: ``steps``
     training steps under the supervisor (its end-of-run checkpoint only
     with ``save``), launch counts held to ``want``, then one step against
-    the plain versions in bf16 and, at ``fp32_layers`` layers, in fp32."""
+    the plain versions in bf16 and, at ``fp32_layers`` layers (and as many
+    encoder layers), in fp32."""
     from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.data import SyntheticTokenSource, TokenLoader
     from repro_torch.ft import Supervisor
     from repro_torch.kernels import ops
     from repro_torch.launch.train import build_step
@@ -829,9 +945,16 @@ def phase_train(torch, cfg, want: dict, steps: int = STEPS, save: bool = True,
     widths = (f"ssm={cfg.ssm}" if cfg.ssm and not cfg.hybrid_every else
               f"ssm={cfg.ssm} hybrid_every={cfg.hybrid_every} shared block {attn} "
               f"window={cfg.sliding_window}" if cfg.hybrid_every else attn)
+    if cfg.n_enc_layers:
+        widths += (f" act={cfg.act}, {cfg.n_enc_layers} encoder layers over "
+                   f"{cfg.enc_seq} frames, a cross-attention in every decoder layer")
+    if cfg.mrope:
+        widths += (f" qkv_bias={cfg.qkv_bias} M-RoPE sections={cfg.mrope_sections} "
+                   f"theta={cfg.rope_theta:g}, one {IMAGE_GRID} image a row")
+    seq = path_seq(cfg)
     print(f"  config {cfg.name}: {cfg.n_layers} layers d_model={cfg.d_model} {widths} "
           f"vocab={cfg.vocab} dtype={cfg.dtype} remat={cfg.remat} "
-          f"params={cfg.param_count()}", flush=True)
+          f"params={cfg.param_count()}, batch {BATCH} x {seq} tokens", flush=True)
     params = init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     state = {"params": params, "opt": adamw_init(params),
              "step": torch.zeros((), dtype=torch.int32, device="cuda")}
@@ -846,7 +969,7 @@ def phase_train(torch, cfg, want: dict, steps: int = STEPS, save: bool = True,
 
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
-        loader = TokenLoader(SyntheticTokenSource(cfg.vocab, seed=17), batch=BATCH, seq=SEQ)
+        loader = path_loader(torch, cfg)
         ckpt = CheckpointManager(tmp, keep=1) if save else NoCheckpoint()
         sup = Supervisor(ckpt, loader, checkpoint_every=steps)
         ops.reset_launch_counts()
@@ -867,7 +990,8 @@ def phase_train(torch, cfg, want: dict, steps: int = STEPS, save: bool = True,
     if cfg.moe:
         check_moe_block(torch, cfg)
     compare_with_plain(torch, cfg, params, losses[0])
-    cfg32 = dataclasses.replace(cfg, n_layers=fp32_layers, dtype="float32")
+    cfg32 = dataclasses.replace(cfg, n_layers=fp32_layers, dtype="float32",
+                                n_enc_layers=fp32_layers if cfg.n_enc_layers else 0)
     compare_with_plain(torch, cfg32, init(cfg32, torch.Generator(device="cuda").manual_seed(0),
                                           "cuda"))
 
@@ -876,7 +1000,7 @@ def phase_train(torch, cfg, want: dict, steps: int = STEPS, save: bool = True,
     print(f"  full width: {steps} steps, losses {[round(x, 4) for x in losses]}", flush=True)
     print(f"  step time median {step_s * 1e3:.1f} ms over steps 2-{steps} "
           f"(min {min(dts) * 1e3:.1f}, max {max(dts) * 1e3:.1f}), "
-          f"{BATCH * SEQ / step_s:.0f} tokens/s, peak memory "
+          f"{BATCH * seq / step_s:.0f} tokens/s, peak memory "
           f"{peak / 2**30:.2f} GiB (max_memory_allocated); the supervised run took "
           f"{run_s:.1f} s, {run_s - sum(h['dt'] for h in sup.history):.1f} s of it outside "
           f"the steps ({'the checkpoint' if save else 'no checkpoint saved'})", flush=True)
@@ -907,6 +1031,53 @@ def recorded_routing(replay: list | None = None):
         yield calls
     finally:
         L._router = router
+
+
+# the impls whose outputs a plain run can follow (``followed_forward``)
+FOLLOWED_IMPLS = ("rmsnorm", "attention")
+
+
+@contextlib.contextmanager
+def followed_forward(torch, record: list | None = None):
+    """Wraps the ``FOLLOWED_IMPLS`` registered in the block (the kernels'
+    wrappers, or the plain defaults).  Without ``record``, each call's
+    output is appended to the yielded list, in call order: the forward's,
+    then the checkpoint recomputes'.  With ``record`` (a kernel run's
+    list), call i computes its own output y on its own inputs, checks it
+    elementwise against ``record[i]`` (``TOL`` of its dtype) and returns
+    ``record[i]`` with y's gradient: the run's forward is the kernel
+    run's value for value, and its backward is the plain versions'.  The
+    yielded list then holds each call's (name, max abs error, within
+    TOL)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.attention import flash_attention_ref
+    defaults = {"rmsnorm": L.rmsnorm_ref, "attention": flash_attention_ref}
+    saved = {n: L._IMPLS.get(n) for n in FOLLOWED_IMPLS}
+    out = []
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            y = fn(*args, **kw)
+            if record is None:
+                out.append(y.detach())
+                return y
+            want = record[len(out)]
+            atol, rtol = TOL[str(y.dtype).split(".")[1]]
+            err = (y.detach().float() - want.float()).abs()
+            out.append((name, err.max().item(),
+                        bool((err <= atol + rtol * want.float().abs()).all())))
+            return want + (y - y.detach())      # want's value, y's gradient
+        return call
+    for name in FOLLOWED_IMPLS:
+        L.register_impl(name, wrap(name, saved[name] or defaults[name]))
+    try:
+        yield out
+    finally:
+        for name, fn in saved.items():
+            if fn is None:
+                L._IMPLS.pop(name, None)
+            else:
+                L.register_impl(name, fn)
 
 
 def routing_diffs(a: list, b: list) -> list:
@@ -979,24 +1150,36 @@ def compare_with_plain(torch, cfg, params, step_loss: float | None = None) -> No
     prints how many routing choices differ per layer between the two
     runs; in fp32 any is a failure, and in bf16 the leaves are held
     against a plain run routed as the kernel run (see the note at
-    ``PLAIN_RTOL``)."""
-    from repro_torch.data import SyntheticTokenSource, TokenLoader
+    ``PLAIN_RTOL``).
+
+    A bf16 leaf over the limit passes only if the plain step cannot
+    resolve it and the kernels agree on it where they can be compared
+    call by call: (a) a second plain run, whose attention sums its fp32
+    KV blocks in another order (128 keys, not 512), differs from the
+    first on that leaf by more than the limit too, and (b) a plain run
+    that follows the kernel run's forward (``followed_forward``: every
+    K1 and K2 call of the kernel run held elementwise to its plain
+    version on the same inputs, ``TOL``) holds every leaf within the
+    limit.  Deep bf16 stacks whose leaves have small gradients need this:
+    Whisper's 32 + 32 layers move their attention's q and k leaves by
+    ~9e-2 under (a) alone (PERF.md, section 6)."""
     from repro_torch.kernels import ops
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import layers as L
     from repro_torch.models import train_loss
+    from repro_torch.models.attention import flash_attention_ref
     from repro_torch.tree import tree_flatten_with_path, tree_map
 
-    first = TokenLoader(SyntheticTokenSource(cfg.vocab, seed=17), batch=BATCH,
-                        seq=SEQ).next_batch()
-    batch = {k: torch.as_tensor(v, device="cuda").long() for k, v in first.items()}
+    batch = device_batch(path_loader(torch, cfg).next_batch(), "cuda")
     paths = ["/".join(path) for path, _ in tree_flatten_with_path(params)]
 
-    def loss_and_grads(replay=None):
+    def loss_and_grads(replay=None, follow=None):
         p = tree_map(lambda t: t.detach().requires_grad_(True), params)
-        with recorded_routing(replay) as calls:
+        with recorded_routing(replay) as calls, followed_forward(torch, follow) as outs:
             loss = train_loss(cfg, p, batch)
             leaves = [leaf for _, leaf in tree_flatten_with_path(p)]
             grads = torch.autograd.grad(loss, leaves)
-        return float(loss.detach()), [g.float() for g in grads], calls
+        return float(loss.detach()), [g.float() for g in grads], calls, outs
 
     def leaf_errors(k_grads, p_grads, held: bool) -> dict:
         errs = {name: rel_l2(k, p) for name, k, p in zip(paths, k_grads, p_grads)}
@@ -1010,9 +1193,9 @@ def compare_with_plain(torch, cfg, params, step_loss: float | None = None) -> No
         return errs
 
     ops.register_kernels()
-    k_loss, k_grads, k_routes = loss_and_grads()
+    k_loss, k_grads, k_routes, k_outs = loss_and_grads()
     ops.unregister_kernels()
-    p_loss, p_grads, p_routes = loss_and_grads()
+    p_loss, p_grads, p_routes, _ = loss_and_grads()
     loss_rtol, grad_rtol = PLAIN_RTOL[cfg.dtype]
     first_loss = k_loss if step_loss is None else step_loss
     rel = abs(p_loss - first_loss) / abs(p_loss)
@@ -1030,29 +1213,70 @@ def compare_with_plain(torch, cfg, params, step_loss: float | None = None) -> No
         if cfg.dtype == "bfloat16":
             leaf_errors(k_grads, p_grads, held=False)
             del p_grads
-            p_loss, p_grads, _ = loss_and_grads(replay=k_routes)
+            p_loss, p_grads, _, _ = loss_and_grads(replay=k_routes)
             rel = abs(p_loss - k_loss) / abs(p_loss)
             print(f"  plain run routed as the kernel run: loss {p_loss:.6f} (rel diff "
                   f"{rel:.3e}, limit {loss_rtol})", flush=True)
             if rel > loss_rtol:
                 fail("kernel and routed plain losses disagree")
     errs = leaf_errors(k_grads, p_grads, held=True)
+    if not all(math.isfinite(e) for e in errs.values()):
+        fail("non-finite gradient error")
+    over = [name for name, err in errs.items() if err > grad_rtol]
+    if not over:
+        return
+    worst = max(errs, key=errs.get)
+    if cfg.dtype != "bfloat16":
+        fail(f"kernel and plain gradients disagree: {worst} at {errs[worst]:.3e}")
+    # (a) the plain step against itself, its attention's fp32 KV blocks summed
+    # in another order
+    print(f"  {len(over)} leaves over the limit: {over}; (a) the plain run against "
+          "itself with the attention's KV blocks of 128 keys:", flush=True)
+    L.register_impl("attention", lambda *a, **kw: flash_attention_ref(*a, **kw, block_kv=128))
+    try:
+        _, q_grads, _, _ = loss_and_grads(replay=k_routes if cfg.moe else None)
+    finally:
+        ops.unregister_kernels()
+    floor = {name: rel_l2(a, b) for name, a, b in zip(paths, q_grads, p_grads)}
+    del q_grads, p_grads
+    for name in over:
+        print(f"    {name:24s} kernels {errs[name]:.3e}, plain against plain "
+              f"{floor[name]:.3e}", flush=True)
+    resolved = [name for name in over if floor[name] <= grad_rtol]
+    if resolved:
+        fail(f"kernel and plain gradients disagree where the plain run resolves them: "
+             f"{resolved[0]} at {errs[resolved[0]]:.3e} (plain against plain "
+             f"{floor[resolved[0]]:.3e})")
+    # (b) a plain run that follows the kernel run's forward
+    f_loss, f_grads, _, checks = loss_and_grads(replay=k_routes if cfg.moe else None,
+                                                follow=k_outs)
+    del k_outs
+    n_bad = sum(not ok for _, _, ok in checks)
+    by_name = {n: max(e for m, e, _ in checks if m == n) for n in FOLLOWED_IMPLS
+               if any(m == n for m, _, _ in checks)}
+    print(f"  (b) a plain run following the kernel run's forward: {len(checks)} K1/K2 calls "
+          f"held to their plain versions on the same inputs, max abs err {by_name} "
+          f"({n_bad} outside TOL); loss {f_loss:.6f} (kernels {k_loss:.6f})", flush=True)
+    if n_bad or abs(f_loss - k_loss) > loss_rtol * abs(k_loss):
+        fail(f"followed plain run: {n_bad} calls outside TOL, loss {f_loss} vs {k_loss}")
+    errs = leaf_errors(k_grads, f_grads, held=True)
     worst = max(errs, key=errs.get)
     if not all(math.isfinite(e) for e in errs.values()) or errs[worst] > grad_rtol:
-        fail(f"kernel and plain gradients disagree: {worst} at {errs[worst]:.3e}")
+        fail(f"kernel and followed plain gradients disagree: {worst} at {errs[worst]:.3e}")
 
 
 def phase_cli(torch) -> None:
     """The CLI at its defaults for the ported paths (Falcon at 50 steps),
     qwen3-1b, minicpm-2b (whose learning rate must follow WSD step by
-    step) and ``--d-model 128`` (4 heads of 32: K2 on a padded head dim);
-    the loss must fall in each."""
+    step), qwen2-vl-7b (M-RoPE on the text-only default positions, as the
+    CLI's loader gives none) and ``--d-model 128`` (4 heads of 32: K2 on
+    a padded head dim); the loss must fall in each."""
     from repro_torch.kernels import ops
     from repro_torch.launch import train
     from repro_torch.optim import wsd_schedule
     for extra in ([], ["--arch", "falcon-mamba-7b", "--steps", "50"],
                   ["--arch", "deepseek-moe-16b"], ["--arch", "qwen3-1b"],
-                  ["--arch", "minicpm-2b"], ["--d-model", "128"]):
+                  ["--arch", "minicpm-2b"], ["--arch", "qwen2-vl-7b"], ["--d-model", "128"]):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
             ops.reset_launch_counts()
             t0 = time.perf_counter()
@@ -1356,6 +1580,7 @@ def phase_runtime_model(torch, cfg, timed: bool = True) -> dict:
     from repro_torch import core, runtime
     from repro_torch.data import SyntheticTokenSource, TokenLoader
     from repro_torch.kernels import ops
+    from repro_torch.launch.train import device_batch
     from repro_torch.models import init, train_loss
     from repro_torch.tree import tree_flatten_with_path, tree_map
     rc = RUNTIME_CASE
@@ -1363,7 +1588,7 @@ def phase_runtime_model(torch, cfg, timed: bool = True) -> dict:
     params = init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     first = TokenLoader(SyntheticTokenSource(cfg.vocab, seed=rc["seed"]), batch=rc["batch"],
                         seq=rc["seq"]).next_batch()
-    batch = {k: torch.as_tensor(v, device="cuda").long() for k, v in first.items()}
+    batch = device_batch(first, "cuda")
     ops.register_kernels()
 
     def plain_step():
@@ -1650,8 +1875,8 @@ def phase_tune_cli(torch, tmp: str) -> tuple:
     dirty = [cell for cell in result["cells"] if not cell["ok"] or cell["codes"]]
     print(f"  (c) lint --grid --depth deep: exit {rc}, {len(result['cells'])} cells in "
           f"{time.perf_counter() - t0:.1f} s, {len(dirty)} not clean; {out[-1]}", flush=True)
-    if rc != 0 or dirty or len(result["cells"]) != 90:
-        fail(f"3g (c): lint exit {rc}, cells not clean: {dirty}")
+    if rc != 0 or dirty or len(result["cells"]) != 108:       # 12 configs x 9 cells
+        fail(f"3g (c): lint exit {rc}, {len(result['cells'])} cells, not clean: {dirty}")
     winner = core.Strategy.from_json((plan_dir / "strategy.json").read_text())
     baseline = core.Strategy.from_dict(plan["baseline"]["strategy"])
     summary = {"search_s": search_s, "n_evaluated": plan["n_evaluated"], "tokens": plan["tokens"],
@@ -1992,6 +2217,7 @@ def phase_lanes_model(torch, cfg, lanes=("spmd", "mpmd"), remats=("full", "none"
     from repro_torch import core, runtime
     from repro_torch.data import SyntheticTokenSource, TokenLoader
     from repro_torch.kernels import ops
+    from repro_torch.launch.train import device_batch
     from repro_torch.models import init
     from repro_torch.tree import tree_map
     rc = RUNTIME_CASE
@@ -1999,7 +2225,7 @@ def phase_lanes_model(torch, cfg, lanes=("spmd", "mpmd"), remats=("full", "none"
     params = init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     first = TokenLoader(SyntheticTokenSource(cfg.vocab, seed=rc["seed"]), batch=rc["batch"],
                         seq=rc["seq"]).next_batch()
-    batch = {k: torch.as_tensor(v, device="cuda").long() for k, v in first.items()}
+    batch = device_batch(first, "cuda")
     forward, buckets = qwen3_piper(cfg, n_st)
     bparams = buckets(params)
     shape = ((rc["batch"], rc["seq"]), "int64")
@@ -2188,16 +2414,16 @@ CLI_CHAOS = [dict(step=4, kind="kill", rank=7), dict(step=6, kind="arrive", devi
 
 
 class DeviceTokens:
-    """A token loader whose batches land on the card as int64 (the
-    programs' declared input dtype); its stream position is the wrapped
-    loader's, so the supervisor checkpoints and restores it."""
+    """A token loader whose batches land on the card, integers as int64
+    (the programs' declared input dtype); its stream position is the
+    wrapped loader's, so the supervisor checkpoints and restores it."""
 
     def __init__(self, torch, loader) -> None:
         self.torch, self.loader = torch, loader
 
     def next_batch(self) -> dict:
-        return {k: self.torch.as_tensor(v, device="cuda").long()
-                for k, v in self.loader.next_batch().items()}
+        from repro_torch.launch.train import device_batch
+        return device_batch(self.loader.next_batch(), "cuda")
 
     def state_dict(self) -> dict:
         return self.loader.state_dict()
@@ -2550,9 +2776,9 @@ def phase_profile(torch, train: dict, plain_steps: int = PROFILED_STEPS,
     phase's state: with the kernels, then with their plain versions, one
     warm-up step (unless ``warm_up`` is false) and then steps under
     ``torch.profiler`` (device activity only): ``kernel_steps`` with the
-    kernels, ``plain_steps`` plain (none: the plain profile is skipped).
-    The plain scan launches ~445k kernels a Falcon step (~20 s), so that
-    path profiles one."""
+    kernels, ``plain_steps`` plain (none: the plain profile is skipped, as
+    for the Mamba paths, whose plain scans launch ~445k kernels a Falcon
+    step)."""
     from repro_torch.kernels import ops
     state, step_fn, loader = train["state"], train["step_fn"], train["loader"]
     act = [torch.profiler.ProfilerActivity.CUDA]
@@ -2730,13 +2956,17 @@ def main() -> int:
     qwen3 = get_config("qwen3-1b")
     zamba2 = dataclasses.replace(get_config("zamba2-2.7b"), n_layers=ZAMBA2_LAYERS)
     groups = zamba2.n_layers // zamba2.hybrid_every
+    whisper = get_config("whisper-large-v3")
+    qwen2_vl = dataclasses.replace(get_config("qwen2-vl-7b"), n_layers=QWEN2_VL_LAYERS)
     results.update(phase_gmm_kernels(torch, mg, deepseek))
     # per step with remat="full": each layer's kernels run in the forward
     # and again in its recompute; the final norm runs once.  An MoE layer
     # runs three grouped matmuls (gate, up, down), and each one's backward
     # launches K3 twice (dx and dw).  Zamba2's checkpointed groups run one
     # norm per Mamba layer and two norms and one attention per application
-    # of the shared block; its SSD scan has no kernel
+    # of the shared block; its SSD scan has no kernel.  Whisper runs two
+    # norms and one attention per encoder layer, three norms (self, cross,
+    # MLP) and two attentions (self, cross) per decoder layer
     none = dict.fromkeys(("rmsnorm", "flash_attention", "mamba_scan", "mamba_scan_bwd",
                           "moe_gmm", "moe_gmm_bwd"), 0)
     paths = [(qwen, {**none, "rmsnorm": (4 * qwen.n_layers + 1) * STEPS,
@@ -2751,9 +2981,16 @@ def main() -> int:
              (qwen3, {**none, "rmsnorm": (4 * qwen3.n_layers + 1) * STEPS,
                       "flash_attention": 2 * qwen3.n_layers * STEPS}),
              (zamba2, {**none, "rmsnorm": (2 * (zamba2.n_layers + 2 * groups) + 1) * ZAMBA2_STEPS,
-                       "flash_attention": 2 * groups * ZAMBA2_STEPS})]
-    for (cfg, want), tag in zip(paths, ("3", "3b", "3c", "3d", "3j")):
-        phase(f"{tag}/5 full-width training: {cfg.name}, {cfg.n_layers} layers")
+                       "flash_attention": 2 * groups * ZAMBA2_STEPS}),
+             (whisper, {**none, "rmsnorm": (4 * whisper.n_enc_layers + 6 * whisper.n_layers + 1)
+                        * STEPS,
+                        "flash_attention": (2 * whisper.n_enc_layers + 4 * whisper.n_layers)
+                        * STEPS}),
+             (qwen2_vl, {**none, "rmsnorm": (4 * qwen2_vl.n_layers + 1) * STEPS,
+                         "flash_attention": 2 * qwen2_vl.n_layers * STEPS})]
+    for (cfg, want), tag in zip(paths, ("3", "3b", "3c", "3d", "3j", "3k", "3l")):
+        enc = f"{cfg.n_enc_layers} encoder and " if cfg.n_enc_layers else ""
+        phase(f"{tag}/5 full-width training: {cfg.name}, {enc}{cfg.n_layers} layers")
         if cfg.hybrid_every:
             # the fp32 check at one group: FP32_LAYERS is no multiple of it
             counts[cfg.name], train = phase_train(torch, cfg, want, steps=ZAMBA2_STEPS,
@@ -2761,13 +2998,15 @@ def main() -> int:
         else:
             counts[cfg.name], train = phase_train(torch, cfg, want, save=tag == "3")
         phase(f"5/5 where a full-width {cfg.name} step's device time goes")
+        if cfg.ssm:
+            kernels = "K1 and K2" if cfg.hybrid_every else "K1, K4 and K4-bwd"
+            print(f"  plain profile skipped: the plain run differs from the kernel run only "
+                  f"in {kernels}, whose plain versions phase 2 times", flush=True)
         if cfg.hybrid_every:
-            print("  plain profile skipped: the plain run differs from the kernel run only "
-                  "in K1 and K2, whose plain versions phase 2 times", flush=True)
             phase_profile(torch, train, plain_steps=0, kernel_steps=1, warm_up=False)
             ssd_scan_profile(torch, cfg)
         else:
-            phase_profile(torch, train, plain_steps=1 if cfg.ssm else PROFILED_STEPS)
+            phase_profile(torch, train, plain_steps=0 if cfg.ssm else PROFILED_STEPS)
         del train                      # free this path's state before the next one
         gc.collect()
         torch.cuda.empty_cache()

@@ -18,7 +18,7 @@ train driver exchange) against a config's proxy model:
 
 Lint the whole config x schedule x ZeRO grid, including the remat and
 offload memory-pass cells the translation validator certifies, over the
-configs the port has (``configs.PORTED``: 10 x (6 + 3) = 90 cells):
+configs (``configs.ARCHS``: 12 x (6 + 3) = 108 cells):
 
   PYTHONPATH=src python -m repro_torch.launch.lint --grid --json --out lint.json
 
@@ -37,7 +37,7 @@ import sys
 import time
 
 from ..analysis import PlanVerificationError, analyze
-from ..configs import PORTED, get_config
+from ..configs import ARCHS, get_config
 from ..core.plan import ScheduleRejected
 from ..core.strategy import (Mesh, Offload, Pipeline, Remat, Strategy,
                              StrategyError, ZeRO)
@@ -93,7 +93,7 @@ def _grid_strategy(sched: str, zero: int, n_mb: int,
 def run_grid(depth: str, tokens: int, n_mb: int,
              archs=None, types: bool = True) -> dict:
     cells = []
-    for name in (archs or PORTED):
+    for name in (archs or ARCHS):
         cfg = get_config(name).reduced()
         for sched in GRID_SCHEDULES:
             for zero in GRID_ZERO:
@@ -141,10 +141,10 @@ def main(argv=None) -> int:
                     help="strategy.json to lint (Strategy.to_json format)")
     ap.add_argument("--config", default="qwen1.5-0.5b",
                     help="architecture the strategy compiles against "
-                         f"(one of {', '.join(PORTED)})")
+                         f"(one of {', '.join(ARCHS)})")
     ap.add_argument("--grid", action="store_true",
                     help="lint the config x schedule x ZeRO grid over the "
-                         "ported configs plus the remat/offload memory cells")
+                         "configs plus the remat/offload memory cells")
     ap.add_argument("--arch", action="append", dest="archs",
                     help="restrict --grid to these configs (repeatable)")
     ap.add_argument("--depth", choices=("quick", "deep"), default="deep",

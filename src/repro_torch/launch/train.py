@@ -183,13 +183,24 @@ def run_elastic(prog, params, vocab: int, args, schedule=None) -> int:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
+def device_batch(batch: dict, device) -> dict:
+    """A batch of numpy arrays or tensors on ``device``: integer entries
+    (tokens, labels, positions) as int64, floating ones (``frames``) as
+    they are, for ``train_loss`` to cast."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v, device=device)
+        out[k] = t if t.is_floating_point() else t.long()
+    return out
+
+
 def build_step(cfg, lr_fn, device="cuda"):
     """``step(state, batch) -> (state, metrics)``; batch holds numpy
-    token arrays, metrics are 0-d tensors."""
+    arrays or tensors (``device_batch``), metrics are 0-d tensors."""
     dev = resolve_device(device)
 
     def step(state, batch):
-        batch = {k: torch.as_tensor(v, device=dev).long() for k, v in batch.items()}
+        batch = device_batch(batch, dev)
         params = tree_map(lambda t: t.detach().requires_grad_(True), state["params"])
         loss = train_loss(cfg, params, batch)
         grads = tree_unflatten(params, torch.autograd.grad(loss, tree_leaves(params)))

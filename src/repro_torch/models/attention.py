@@ -2,6 +2,8 @@
 
 Layouts: q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D); GQA repeats kv heads.
 
+``chunked_attention`` is the plain online-softmax attention over KV
+blocks (the JAX package's default and the oracle of its flash path).
 ``flash_attention_ref`` is the linear-memory flash attention in plain
 PyTorch: the forward scans KV blocks with an online softmax, and the
 backward (``_flash_bwd``) recomputes the probabilities block by block
@@ -73,12 +75,12 @@ def _pad_blocks(x, nb, block_kv):
     return torch.nn.functional.pad(x, (0, 0, 0, pad)) if pad else x
 
 
-def _flash_fwd_impl(q, k, v, causal, q_offset, window, block_kv):
-    """Returns (out in q's dtype, lse in fp32 (B, Hq, Sq))."""
+def _online_softmax(q, k, v, causal, q_offset, window, block_kv, scale):
+    """The KV-block scan of the forward: (row max m, row sum l, unnormalised
+    output acc), all fp32; q is scaled before its cast to fp32."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     n_rep = hq // hkv
-    scale = d ** -0.5
     nb = -(-skv // block_kv)
     kp = _pad_blocks(k, nb, block_kv)
     vp = _pad_blocks(v, nb, block_kv)
@@ -101,6 +103,26 @@ def _flash_fwd_impl(q, k, v, causal, q_offset, window, block_kv):
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vblk)
         m = m_new
+    return m, l, acc
+
+
+def chunked_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                      sm_scale: Optional[float] = None, window: Optional[int] = None,
+                      block_kv: int = 512) -> torch.Tensor:
+    """Online-softmax attention over KV blocks of ``block_kv``: the same
+    math as ``naive_attention`` in another association order, with no
+    (Sq, Skv) score matrix in the forward.  Autograd through it saves
+    every block's probabilities; training takes ``flash_attention_ref``,
+    whose backward recomputes them."""
+    scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+    _, l, acc = _online_softmax(q, k, v, causal, q_offset, window, block_kv, scale)
+    return (acc / torch.clamp(l[..., None], min=1e-30)).to(q.dtype)
+
+
+def _flash_fwd_impl(q, k, v, causal, q_offset, window, block_kv):
+    """Returns (out in q's dtype, lse in fp32 (B, Hq, Sq))."""
+    m, l, acc = _online_softmax(q, k, v, causal, q_offset, window, block_kv,
+                                q.shape[-1] ** -0.5)
     out = (acc / torch.clamp(l[..., None], min=1e-30)).to(q.dtype)
     lse = m + torch.log(torch.clamp(l, min=1e-30))
     return out, lse

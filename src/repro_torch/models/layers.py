@@ -47,8 +47,15 @@ def rmsnorm(x, w, eps: float = 1e-6):
     return get_impl("rmsnorm", rmsnorm_ref)(x, w, eps)
 
 
+def layernorm(x, w, b, eps: float = 1e-5):
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
+
+
 # ---------------------------------------------------------------------------
-# RoPE (interleaved pairs 0::2 / 1::2, angles in fp32)
+# RoPE / M-RoPE (interleaved pairs 0::2 / 1::2, angles in fp32)
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float = 1e4, device=None) -> torch.Tensor:
@@ -69,6 +76,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     o1 = x1 * cos - x2 * sin
     o2 = x2 * cos + x1 * sin
     return torch.stack([o1, o2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections=(16, 24, 24),
+                theta: float = 1e4) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: rotary dims partitioned into (temporal,
+    height, width) sections, each rotated by its own position stream.
+    x: (B, H, S, D); positions: (3, B, S)."""
+    d = x.shape[-1]
+    half = d // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to head_dim / 2 "
+                         f"= {half}")
+    freqs = rope_freqs(d, theta, device=x.device)               # (half,)
+    # section index for each rotary dim
+    sec_idx = torch.tensor([si for si, sec in enumerate(sections) for _ in range(sec)],
+                           device=x.device)                     # (half,)
+    # choose, per rotary dim, the position stream of its section
+    p = positions.float()[sec_idx]                              # (half, B, S)
+    ang = p.movedim(0, -1) * freqs                              # (B, S, half)
+    cos, sin = torch.cos(ang)[:, None], torch.sin(ang)[:, None]  # (B, 1, S, half)
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    o1 = x1 * cos - x2 * sin
+    o2 = x2 * cos + x1 * sin
+    return torch.stack([o1, o2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def default_mrope_positions(batch: int, seq: int, device=None) -> torch.Tensor:
+    """Text-only M-RoPE positions: all three streams equal, (3, B, S)."""
+    p = torch.arange(seq, device=device)[None].expand(batch, seq)
+    return torch.stack([p, p, p])
 
 
 # ---------------------------------------------------------------------------
@@ -96,10 +133,10 @@ def init_attn(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int,
     return p
 
 
-def attention_block(p, x, cfg, *, causal=True, window=None):
-    """Training self-attention (no KV cache, no M-RoPE)."""
-    if cfg.mrope:
-        raise NotImplementedError("M-RoPE is not ported yet")
+def attention_block(p, x, cfg, *, mrope_positions=None, causal=True, window=None):
+    """Training self-attention (no KV cache).  With ``cfg.mrope`` q and k
+    rotate by ``mrope_positions`` (3, B, S), text-only positions when
+    none are given."""
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = x @ p["wq"]
@@ -110,7 +147,12 @@ def attention_block(p, x, cfg, *, causal=True, window=None):
     q = q.reshape(b, s, hq, hd).transpose(1, 2)
     k = k.reshape(b, s, hkv, hd).transpose(1, 2)
     v = v.reshape(b, s, hkv, hd).transpose(1, 2)
-    if cfg.rope:
+    if cfg.mrope:
+        mp = (mrope_positions if mrope_positions is not None
+              else default_mrope_positions(b, s, x.device))
+        q = apply_mrope(q, mp, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, mp, cfg.mrope_sections, cfg.rope_theta)
+    elif cfg.rope:
         positions = torch.arange(s, device=x.device)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)

@@ -1,11 +1,13 @@
-"""Architecture config, the dense and MoE decoders, the pure Mamba stacks
-and the hybrid (port of ``repro.models.model``).
+"""Architecture config and the model families: the dense and MoE
+decoders, the pure Mamba stacks, the hybrid, the encoder-decoder and the
+VLM backbone with M-RoPE (port of ``repro.models.model``).
 
 Layers are stacked on a leading ``n_layers`` axis, as in the JAX
 package, so its parameters load unchanged.  The JAX ``lax.scan`` over
 the stack becomes a Python loop over the layer slices; with
-``remat="full"`` each layer runs under ``torch.utils.checkpoint``, and
-in the hybrid each group of ``hybrid_every`` Mamba layers with its
+``remat="full"`` each layer (a decoder layer with its cross-attention
+branch, an encoder layer) runs under ``torch.utils.checkpoint``, and in
+the hybrid each group of ``hybrid_every`` Mamba layers with its
 application of the shared block.
 
 Public entry points:
@@ -23,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from . import layers as L
+from .attention import flash_attention_ref
 
 
 @dataclass(frozen=True)
@@ -174,18 +177,8 @@ def params_count(cfg: ArchConfig, active_only: bool = False) -> int:
 
 
 # ---------------------------------------------------------------------------
-# init (dense, MoE, pure-SSM and hybrid families)
+# init
 # ---------------------------------------------------------------------------
-
-def _check_family(cfg: ArchConfig) -> None:
-    """The ported families: the dense and MoE decoders, the pure Mamba-1
-    and Mamba-2 stacks and the hybrid (Mamba layers with one shared
-    attention block)."""
-    if cfg.n_enc_layers or cfg.mrope:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): only the dense and MoE decoders, pure "
-            "Mamba stacks and the hybrid are ported")
-
 
 def _stack(trees: list) -> Any:
     if isinstance(trees[0], dict):
@@ -197,7 +190,6 @@ def init(cfg: ArchConfig, generator: torch.Generator, device="cuda") -> dict:
     """Random parameters in the JAX package's layout.  Draws come from
     ``generator`` on its own device and land on ``device``; they do not
     match JAX's random draws (load JAX weights with ``interop`` for that)."""
-    _check_family(cfg)
     dev = resolve_device(device)
     dt = cfg.tdtype
     p: dict[str, Any] = {
@@ -207,35 +199,37 @@ def init(cfg: ArchConfig, generator: torch.Generator, device="cuda") -> dict:
     if not cfg.tie_embeddings:
         p["lm_head"] = L._normal(generator, (cfg.d_model, cfg.vocab), 0.02, dt, dev)
 
+    def ones():
+        return torch.ones((cfg.d_model,), dtype=dt, device=dev)
+
+    def attn():
+        return L.init_attn(generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                           cfg.head_dim, cfg.qkv_bias, dt, dev)
+
+    def mlp():
+        return L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act, dt, dev)
+
     def one():
         if cfg.ssm:                            # Mamba layers (falcon-mamba, zamba2)
-            return {
-                "norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
-                "mamba": L.init_mamba(generator, cfg.d_model, cfg.ssm.state,
-                                      cfg.ssm.version, dt, dev, cfg.ssm.expand,
-                                      cfg.ssm.d_conv, cfg.ssm.headdim),
-            }
-        lp = {
-            "norm1": torch.ones((cfg.d_model,), dtype=dt, device=dev),
-            "attn": L.init_attn(generator, cfg.d_model, cfg.n_heads,
-                                cfg.n_kv_heads, cfg.head_dim, cfg.qkv_bias, dt, dev),
-            "norm2": torch.ones((cfg.d_model,), dtype=dt, device=dev),
-        }
+            return {"norm": ones(),
+                    "mamba": L.init_mamba(generator, cfg.d_model, cfg.ssm.state,
+                                          cfg.ssm.version, dt, dev, cfg.ssm.expand,
+                                          cfg.ssm.d_conv, cfg.ssm.headdim)}
+        lp = {"norm1": ones(), "attn": attn(), "norm2": ones()}
         if cfg.moe:
             lp["moe"] = L.init_moe(generator, cfg.d_model, cfg.moe.d_expert,
                                    cfg.moe.n_experts, cfg.moe.n_shared, cfg.act, dt, dev)
         else:
-            lp["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act, dt, dev)
+            lp["mlp"] = mlp()
         return lp
     p["layers"] = _stack([one() for _ in range(cfg.n_layers)])
     if cfg.hybrid_every:                       # zamba2: one shared, tied block
-        p["shared_attn"] = {
-            "norm1": torch.ones((cfg.d_model,), dtype=dt, device=dev),
-            "attn": L.init_attn(generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                                cfg.head_dim, cfg.qkv_bias, dt, dev),
-            "norm2": torch.ones((cfg.d_model,), dtype=dt, device=dev),
-            "mlp": L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act, dt, dev),
-        }
+        p["shared_attn"] = {"norm1": ones(), "attn": attn(), "norm2": ones(), "mlp": mlp()}
+    if cfg.n_enc_layers:                       # whisper enc-dec
+        p["enc_layers"] = _stack([{"norm1": ones(), "attn": attn(), "norm2": ones(),
+                                   "mlp": mlp()} for _ in range(cfg.n_enc_layers)])
+        p["cross_layers"] = _stack([{"norm": ones(), "attn": attn()}
+                                    for _ in range(cfg.n_layers)])
     return p
 
 
@@ -247,14 +241,17 @@ def _norm(cfg, w, x):
     return L.rmsnorm(x, w)
 
 
-def _dec_layer(cfg, lp, x):
+def _dec_layer(cfg, lp, x, enc_out=None, cross_lp=None, mrope_positions=None):
     """One layer: (x, aux), where aux is the MoE load-balancing loss (0
-    for dense and SSM layers)."""
+    for dense and SSM layers).  With ``cross_lp`` the layer attends to
+    ``enc_out`` between its self-attention and its MLP."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.ssm:
         return _mamba_layer(cfg, lp, x), aux
     x = x + L.attention_block(lp["attn"], _norm(cfg, lp["norm1"], x), cfg,
-                              causal=cfg.causal)
+                              mrope_positions=mrope_positions, causal=cfg.causal)
+    if cross_lp is not None:
+        x = x + _cross_attn(cfg, cross_lp["attn"], _norm(cfg, cross_lp["norm"], x), enc_out)
     h = _norm(cfg, lp["norm2"], x)
     if cfg.moe:
         m, aux = _moe_dispatch(cfg, lp["moe"], h)
@@ -276,6 +273,23 @@ def _moe_dispatch(cfg, moe_params, h):
                        act=cfg.act, capacity_factor=cfg.moe.capacity_factor)
 
 
+def _cross_attn(cfg, ap, x, enc_out):
+    """Cross-attention: queries from x, keys and values from ``enc_out``;
+    no bias and no RoPE.  The JAX package runs ``chunked_attention`` here
+    and differentiates its scan; this runs the ``"attention"`` impl (K2
+    on the card, with the flash backward from its logsumexp), which
+    computes the same function without saving each block's
+    probabilities."""
+    b, s, _ = x.shape
+    se = enc_out.shape[1]
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ ap["wq"]).reshape(b, s, hq, hd).transpose(1, 2)
+    k = (enc_out @ ap["wk"]).reshape(b, se, hkv, hd).transpose(1, 2)
+    v = (enc_out @ ap["wv"]).reshape(b, se, hkv, hd).transpose(1, 2)
+    o = L.get_impl("attention", flash_attention_ref)(q, k, v, causal=False)
+    return o.transpose(1, 2).reshape(b, s, hq * hd) @ ap["wo"]
+
+
 def _unstack(tree, n: int) -> list:
     """Per-layer views of a stacked tree (one ``unbind`` per leaf, whose
     backward stacks the layer grads in one op)."""
@@ -285,18 +299,41 @@ def _unstack(tree, n: int) -> list:
     return list(tree.unbind(0))
 
 
-def _run_decoder(cfg: ArchConfig, p: dict, x: torch.Tensor) -> tuple:
+def _run_decoder(cfg: ArchConfig, p: dict, x: torch.Tensor, enc_out=None,
+                 mrope_positions=None) -> tuple:
     """x: (B, S, D) embedded inputs -> (hidden states, summed aux loss)."""
     if cfg.hybrid_every:
         return _run_hybrid(cfg, p, x)
+    layers = _unstack(p["layers"], cfg.n_layers)
+    cross = (_unstack(p["cross_layers"], cfg.n_layers) if "cross_layers" in p
+             else [None] * cfg.n_layers)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in _unstack(p["layers"], cfg.n_layers):
+    for lp, cross_lp in zip(layers, cross):
+        args = (cfg, lp, x, enc_out, cross_lp, mrope_positions)
         if cfg.remat == "full":
-            x, aux = checkpoint(_dec_layer, cfg, lp, x, use_reentrant=False)
+            x, aux = checkpoint(_dec_layer, *args, use_reentrant=False)
         else:
-            x, aux = _dec_layer(cfg, lp, x)
+            x, aux = _dec_layer(*args)
         total = total + aux
     return x, total
+
+
+def _enc_layer(cfg, lp, x):
+    """One encoder layer: non-causal self-attention (with RoPE, the
+    config's documented deviation), then the MLP."""
+    x = x + L.attention_block(lp["attn"], _norm(cfg, lp["norm1"], x), cfg, causal=False)
+    return x + L.mlp_block(lp["mlp"], _norm(cfg, lp["norm2"], x), cfg.act)
+
+
+def _run_encoder(cfg: ArchConfig, p: dict, frames: torch.Tensor) -> torch.Tensor:
+    """frames: (B, enc_seq, D) -> the encoder output, with no final norm."""
+    x = frames
+    for lp in _unstack(p["enc_layers"], cfg.n_enc_layers):
+        if cfg.remat == "full":
+            x = checkpoint(_enc_layer, cfg, lp, x, use_reentrant=False)
+        else:
+            x = _enc_layer(cfg, lp, x)
+    return x
 
 
 def _hybrid_group(cfg, shared, group, x):
@@ -337,11 +374,16 @@ def _logits(cfg: ArchConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
 
 
 def train_loss(cfg: ArchConfig, p: dict, batch: dict) -> torch.Tensor:
-    """batch: tokens (B, S) int, labels (B, S) int (-1 = ignore).
-    Cross-entropy plus 0.01 x the layers' summed MoE aux loss."""
-    _check_family(cfg)
+    """batch: tokens (B, S) int, labels (B, S) int (-1 = ignore); audio
+    adds frames (B, enc_seq, D), cast to the config's dtype; vlm may add
+    mrope_positions (3, B, S).  Cross-entropy plus 0.01 x the layers'
+    summed MoE aux loss."""
     x = p["embed"][batch["tokens"]]
-    h, aux = _run_decoder(cfg, p, x)
+    enc_out = None
+    if cfg.n_enc_layers:
+        enc_out = _run_encoder(cfg, p, batch["frames"].to(cfg.tdtype))
+    h, aux = _run_decoder(cfg, p, x, enc_out=enc_out,
+                          mrope_positions=batch.get("mrope_positions"))
     return _ce_loss(cfg, p, h, batch["labels"]) + 0.01 * aux
 
 

@@ -16,8 +16,8 @@ compiled in both packages from the same numpy weights.
 - ``compile_training`` embeds the quick subset by default, and its
   ``stats["analysis"]`` equals the JAX package's; a bad depth is refused
   with the JAX package's message;
-- ``lint --grid`` gives the JAX package's verdicts on the 90 cells of the
-  ported configs, at ``quick`` and at ``deep``, and the CLI's exit codes.
+- ``lint --grid`` gives the JAX package's verdicts on the 108 cells of the
+  twelve configs, at ``quick`` and at ``deep``, and the CLI's exit codes.
 Only numpy crosses the packages.
 """
 import copy
@@ -37,7 +37,7 @@ from repro.launch import lint as jlint
 import repro_torch.core as tcore
 from repro_torch.analysis import CODES, PlanVerificationError, analyze
 from repro_torch.analysis.abstract import AbstractExecutor, Execution, StuckState
-from repro_torch.configs import PORTED
+from repro_torch.configs import ARCHS
 from repro_torch.core.plan import ScheduleRejected
 from repro_torch.launch import lint
 from test_torch_runtime import D, mlp_forward, params_np
@@ -424,9 +424,9 @@ def _verdicts(result):
 @pytest.mark.parametrize("depth", ["quick", "deep"])
 def test_lint_grid_verdicts_equal_the_jax_package(depth):
     got = lint.run_grid(depth, 64, 4)
-    assert len(got["cells"]) == 90 == 10 * (6 + 3)
-    assert [c["config"] for c in got["cells"][::9]] == PORTED
-    assert _verdicts(got) == _verdicts(jlint.run_grid(depth, 64, 4, archs=PORTED))
+    assert len(got["cells"]) == 108 == 12 * (6 + 3)
+    assert [c["config"] for c in got["cells"][::9]] == ARCHS
+    assert _verdicts(got) == _verdicts(jlint.run_grid(depth, 64, 4))
     assert got["ok"] and got["compile_errors"] == 0
     assert all(c["meta"]["types"] for c in got["cells"])
 

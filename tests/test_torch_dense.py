@@ -22,7 +22,7 @@ import repro.configs as jconfigs
 import repro.launch.train as jtrain
 import repro.models as jmodels
 from repro.models.attention import flash_attention_ref as jax_flash_ref
-from repro_torch.configs import PORTED, get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.interop import params_from_numpy
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_fwd
@@ -33,7 +33,8 @@ from test_torch_kernels import TOL, _both, _close, _np
 from test_torch_train import GRAD_TOL, LOSS_RTOL, _batch, _jax_paths, _port_cfg
 
 NEW_DENSE = ["minicpm-2b", "qwen2.5-32b", "granite-20b", "qwen3-1b", "qwen3-9b"]
-UNPORTED = ["whisper-large-v3", "qwen2-vl-7b"]
+# the encoder-decoder and the VLM backbone, the last two configs ported
+ENC_DEC_AND_VLM = ["whisper-large-v3", "qwen2-vl-7b"]
 
 
 @pytest.fixture(autouse=True)
@@ -46,18 +47,21 @@ def _x64_off():
 
 
 class TestRegistry:
-    def test_nine_configs_ported_and_equal_to_jax(self):
-        """Every ported config (ten of the twelve, the hybrid among them)
-        equals the JAX package's."""
-        assert sorted(PORTED) == sorted(set(jconfigs.ARCHS) - set(UNPORTED))
-        assert len(PORTED) == 10
-        for name in PORTED:
+    def test_every_config_equal_to_jax(self):
+        """All twelve configs exist in the port and equal the JAX
+        package's, at full size and reduced."""
+        assert ARCHS == jconfigs.ARCHS and len(ARCHS) == 12
+        for name in ARCHS:
             assert get_config(name) == _port_cfg(jconfigs.get_config(name)), name
+            assert get_config(name).reduced() == _port_cfg(jconfigs.get_config(name).reduced())
 
-    @pytest.mark.parametrize("name", UNPORTED)
-    def test_the_rest_are_not_ported(self, name):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_config(name)
+    @pytest.mark.parametrize("name", ENC_DEC_AND_VLM)
+    def test_enc_dec_and_vlm_configs_equal_jax(self, name):
+        tcfg, jcfg = get_config(name), jconfigs.get_config(name)
+        assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+        assert tcfg.param_count() == jcfg.param_count()
+        with pytest.raises(KeyError, match="unknown arch"):
+            get_config(name + "-x")
 
     def test_head_dims(self):
         """What K2 sees at full width: minicpm 64, the rest 128; granite

@@ -354,12 +354,8 @@ class TestConfigs:
         assert tcfg == _port_cfg(jcfg)
         assert tcfg.param_count() == jcfg.param_count() == 7_272_665_088
 
-    def test_unported_configs_raise(self):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_config("whisper-large-v3")
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_config("qwen2-vl-7b")
-        with pytest.raises(KeyError):
+    def test_unknown_config_raises(self):
+        with pytest.raises(KeyError, match="unknown arch"):
             get_config("no-such-arch")
 
     def test_init_layout_matches_jax(self):
