@@ -60,6 +60,30 @@ their plain versions.  Only Qwen1.5's run ends with a checkpoint save
 Falcon-Mamba's plain profile is skipped too (the plain run differs only
 in K1, K4 and K4-bwd, whose plain versions phase 2 times).
 
+The serving phase (3m) drives ``init_cache``, ``prefill`` and
+``decode_step`` under inference mode: (a) qwen3-1b, all 28 layers in
+bf16, prefills 4 x 1024 prompt tokens and greedy-decodes 32 tokens in a
+cache of 1056 positions with the kernels (K1 and K2 launches exact; prefill
+ms, decode ms a token, tokens/s, one decode step's busy share, cache bytes
+and peak memory), then with their plain versions fed the kernel run's
+tokens, each step's logits held to ``SERVE_RTOL``; (b) decode from an
+empty cache, teacher-forced over 64 prompt tokens, against the training
+forward's logits, in bf16 at 28 layers and in fp32 at 2 (the cache
+writes, the offset rotation and the masks: prefill leaves its cache
+empty, as the JAX package's does); (c) the other families' decode
+branches at published widths and their training phases' depths, 8 steps
+each, kernels against plain versions with exact launches: DeepSeek-MoE
+(2 layers: K3 at 4 rows a decode step, the plain run routed as the
+kernel run), Falcon-Mamba (8 layers: K4 at S = 1 from the cached state),
+Zamba2 (one group of 6: the window cache and the SSD scan from a state),
+Whisper (2 + 2 layers over 1500 frames: the cross cache) and Qwen2-VL (4
+layers, prefilled over image-layout positions), with (b) for all but the
+MoE (its capacity drops differ by group size) and Whisper (its cross cache
+stays empty); (d) ``examples/serve_torch.py`` at its defaults.  Phase 2
+holds the decode shapes too: K1 at (4, 2048), K3 at 4 rows (64 experts of
+DeepSeek's widths, both matmuls, fp32 and bf16) and K4 at S = 1 with h0
+and no saved states, each timed beside its bound and library call.
+
 The kernel phase runs K2 at every head dim the paths and configs give
 it — 64, 128, qwen3-1b's GQA, granite-20b's MQA, and 32 and 80, which
 run on a padded instantiation — each against its plain version and
@@ -108,7 +132,7 @@ a CUDA stream per rank) and the ``mpmd`` lane (a thread per rank over
 the ``inproc`` or ``tcp`` transport) to the interpreter on the card, bit
 for bit, after checking that two interpreter runs give the same bits:
 (a) the CPU tests' grids of toy cases in fp64; (b) phase 3f's bf16
-program at ``LANES_LAYERS`` (12) of its 28 layers under remat "full" and
+program at ``LANES_LAYERS`` (4) of its 28 layers under remat "full" and
 "none" on both lanes, with exact K1
 and K2 launches, the interpreter's order, each lane's warm step beside
 the interpreter's and its busy share (remat "full"),
@@ -131,7 +155,8 @@ with ``--chaos-report`` on ``mpmd`` for phase 3g's winner.  Last it
 runs the training CLI at its defaults
 for the ported archs, qwen3-1b, minicpm-2b (its WSD schedule checked
 step by step), qwen2-vl-7b and ``--d-model 128`` (head_dim 32).  It prints the card's
-name and power limit, one JSON line of kernel numbers, and as its last
+name and power limit, one JSON line of kernel numbers (launches by path,
+the serving paths' among them), and as its last
 line ``{"ok": true, "device": {...}}``.  Any failed phase ends the run
 with a non-zero exit code and no result.
 
@@ -148,6 +173,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
@@ -425,6 +451,21 @@ def phase_kernels(torch, F, fa, rn) -> dict:
         library_ms=cuda_ms(torch, lambda: F.rms_norm(x, (1024,), w, 1e-6)),
         **bound(n_bytes, n_ops / FP32_FLOPS))
 
+    # K1 at the serving path's decode shape: one row per sequence of the
+    # batch at qwen3-1b's width
+    x, w = randn((BATCH, 2048), torch.bfloat16), randn((2048,), torch.bfloat16, 0.5, 1.0)
+    err = check_close(torch, f"rmsnorm bfloat16 {tuple(x.shape)}", rn.rmsnorm_fwd(x, w),
+                      rn.rmsnorm_plain(x, w), "bfloat16")
+    decode = dict(max_abs_err=err, ms=cuda_ms(torch, lambda: rn.rmsnorm_fwd(x, w)),
+                  plain_ms=cuda_ms(torch, lambda: rn.rmsnorm_plain(x, w)),
+                  library_ms=cuda_ms(torch, lambda: F.rms_norm(x, (2048,), w, 1e-6)),
+                  **bound(2 * x.numel() * 2 + w.numel() * 2, 5 * x.numel() / FP32_FLOPS))
+    results["rmsnorm"][f"at_decode_{BATCH}_2048"] = decode
+    print(f"  rmsnorm bfloat16 ({BATCH}, 2048), the decode shape: max_abs_err={err:.3e}; kernel "
+          f"{decode['ms']:.4f} ms, plain {decode['plain_ms']:.4f} ms, F.rms_norm "
+          f"{decode['library_ms']:.4f} ms, bound {decode['bound_ms']:.4f} ms "
+          f"({decode['bound_by']})", flush=True)
+
     # K2 flash attention: the model's shape, then MQA / GQA / offsets / D=128 / ragged.
     # lse is fp32 on both sides in either dtype, so it is held at the fp32 tolerance.
     cases = [(4, 16, 16, 1024, 1024, 64, True), (4, 16, 16, 1024, 1024, 128, True),
@@ -647,6 +688,19 @@ def gmm_shapes(cfg) -> list:
     return [(e, rows, cfg.d_model, cfg.moe.d_expert), (e, rows, cfg.moe.d_expert, cfg.d_model)]
 
 
+def decode_gmm_shapes(cfg) -> list:
+    """(E, rows, K, N) of the MoE grouped matmuls in one decode step of
+    BATCH sequences: each token is its own group (``_dispatch_groups``
+    gives one chunk of a 1-token row), so each expert has
+    max(1, int(capacity_factor * top_k / E)) = 1 slot per group and
+    BATCH rows in all, below one 128-row tile."""
+    from repro_torch.models.layers import _dispatch_groups
+    n_sc = _dispatch_groups(BATCH, 1)
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    rows = BATCH * n_sc * max(1, int(cfg.moe.capacity_factor * k / e))
+    return [(e, rows, cfg.d_model, cfg.moe.d_expert), (e, rows, cfg.moe.d_expert, cfg.d_model)]
+
+
 def phase_gmm_kernels(torch, mg, cfg) -> dict:
     """K3's three layouts (forward, dx, dw) against their plain versions
     at the MoE path's shapes and the JAX test's edge shapes, in fp32 and
@@ -704,6 +758,29 @@ def phase_gmm_kernels(torch, mg, cfg) -> dict:
               f"{r['plain_ms']:.4f} ms, {lib} {lib_ms:.4f} ms (kernel/library "
               f"{r['ms'] / lib_ms:.2f}x), bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
               flush=True)
+    # the decode step's shapes, forward only (serving takes no gradient),
+    # each timed in both dtypes beside torch.bmm; the bound is w's bytes
+    for e, m, k, n in decode_gmm_shapes(cfg):
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).split(".")[1]
+            x = torch.randn((e, m, k), generator=g, device="cuda").to(dt)
+            w = (torch.randn((e, k, n), generator=g, device="cuda") * k ** -0.5).to(dt)
+            y = mg.moe_gmm_fwd(x, w)
+            torch.cuda.synchronize()
+            tag = f"moe_gmm {dname} {(e, m, k, n)}, the decode shape"
+            err = check_close(torch, tag, y, mg.moe_gmm_plain(x, w), dname, GMM_TOL[dname])
+            io = x.element_size()
+            decode = dict(
+                max_abs_err=err, ms=cuda_ms(torch, lambda: mg.moe_gmm_fwd(x, w)),
+                plain_ms=cuda_ms(torch, lambda: mg.moe_gmm_plain(x, w)),
+                library_ms=cuda_ms(torch, lambda: torch.bmm(x, w)),
+                **bound((x.numel() + w.numel() + e * m * n) * io,
+                        2 * e * m * k * n / (BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS)))
+            results["moe_gmm"][f"at_decode_{e}_{m}_{k}_{n}_{dname}"] = decode
+            print(f"  {tag}: max_abs_err={err:.3e}; kernel {decode['ms']:.4f} ms, plain "
+                  f"{decode['plain_ms']:.4f} ms, torch.bmm {decode['library_ms']:.4f} ms, bound "
+                  f"{decode['bound_ms']:.4f} ms ({decode['bound_by']})", flush=True)
+            del x, w, y
     return results
 
 
@@ -795,6 +872,29 @@ def phase_scan_kernels(torch, ms) -> dict:
             results["mamba_scan_bwd"] = {"max_abs_err": bwd_err}
             timed = (x, dt, A, B, C, hs, dy)
 
+    # the serving path's call: one step (S = 1) from a cached fp32 state,
+    # no chunk states saved, at Falcon-Mamba-7B's d_inner and state
+    x, dt, A, B, C, h0 = scan_inputs(torch, g, BATCH, 1, 8192, 16, torch.bfloat16, with_h0=True)
+    y, hT, hs = ms.mamba_scan_fwd(x, dt, A, B, C, h0)
+    torch.cuda.synchronize()
+    want = ms.mamba_scan_plain(x, dt, A, B, C, h0)
+    tag = f"mamba_scan bfloat16 {(BATCH, 1, 8192, 16)} h0, the decode step"
+    if hs is not None:
+        fail(f"{tag}: chunk states saved without save_states")
+    err = max(check_close(torch, f"{tag} {k}", got, w, "", _scan_tol(got))
+              for k, got, w in zip(("y", "hT"), (y, hT), want))
+    elems = x.numel() * A.shape[1]
+    decode = dict(
+        max_abs_err=err, ms=cuda_ms(torch, lambda: ms.mamba_scan_fwd(x, dt, A, B, C, h0)),
+        plain_ms=cuda_ms(torch, lambda: ms.mamba_scan_plain(x, dt, A, B, C, h0)),
+        library_ms=None,
+        # reads x, dt, B, C, A, h0; writes y, hT
+        **bound((3 * x.numel() + 2 * B.numel()) * 2 + (A.numel() + 2 * h0.numel()) * 4,
+                7 * elems / FP32_FLOPS))
+    print(f"  {tag}: max_abs_err={err:.3e}; kernel {decode['ms']:.4f} ms, plain "
+          f"{decode['plain_ms']:.4f} ms, bound {decode['bound_ms']:.4f} ms "
+          f"({decode['bound_by']})", flush=True)
+
     x, dt, A, B, C, hs, dy = timed
     b, s, c, n = *x.shape, A.shape[1]
     # K4-bwd twice on the same inputs: the same bits (fixed-order sums)
@@ -827,6 +927,7 @@ def phase_scan_kernels(torch, ms) -> dict:
         library_ms=None,     # no single PyTorch call computes a selective scan
         # per (b, t, c, n): dt*A, exp, h*a, u*B + that, h*C, the sum over n
         **bound(fwd_bytes, 7 * elems / FP32_FLOPS))
+    results["mamba_scan"][f"at_decode_{BATCH}_1_8192_16"] = decode
     results["mamba_scan_bwd"].update(
         ms=cuda_ms(torch, lambda: ms.mamba_scan_bwd(x, dt, A, B, C, hs, dy)),
         plain_ms=cuda_ms(torch, lambda: ms.mamba_scan_bwd_plain(x, dt, A, B, C, hs, dy),
@@ -1422,12 +1523,12 @@ def phase_ir(torch) -> dict:
 RUNTIME_CASE = {"pp": 4, "dp": 2, "n_mb": 8, "zero": 3, "batch": 16, "seq": 1024,
                 "seed": 17, "fp32_layers": 4}
 # the depth of that program on the lanes and under the elastic supervisor
-# (phases 3h (b) and 3i (b)): 12 of the 28 layers, 3 a stage.  Their
+# (phases 3h (b) and 3i (b)): 4 of the 28 layers, one a stage.  Their
 # steps are host-bound, and the host's speed varies between the H100
-# machines (phase 3h at 28 layers took from 401 s to 519 s), so at full
-# depth the whole script could run past its time limit; phase 3f still
-# holds all 28 layers on the interpreter.
-LANES_LAYERS = 12
+# machines: at 12 layers phase 3h took 283 s on one and 372 s on another,
+# whose whole run took 1,139.5 s of the 1,200 s limit (PERF.md, section
+# 4).  Phase 3f still holds all 28 layers on the interpreter.
+LANES_LAYERS = 4
 # interpreted step against ``train_loss``'s autograd on the same batch and
 # weights: (loss relative error, relative L2 error of each gradient leaf).
 # bf16 at phase 3d's limits (the two sum the microbatches' bf16 gradients
@@ -1667,10 +1768,10 @@ def phase_runtime_model(torch, cfg, timed: bool = True) -> dict:
     return counts, peaks
 
 
-def step_profile(torch, label: str, fn) -> None:
+def step_profile(torch, label: str, fn) -> dict:
     """One warm call of ``fn`` under torch.profiler (device activity):
     the wall time, the device's busy time and share, the launches, and
-    the device time by kernel family (``FAMILIES``)."""
+    the device time by kernel family (``FAMILIES``), printed and returned."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         _, ms = event_ms(torch, fn)
     kernels = [(e.name(), e.duration_ns() / 1e6) for e in prof.profiler.kineto_results.events()
@@ -1682,6 +1783,8 @@ def step_profile(torch, label: str, fn) -> None:
     top = ", ".join(f"{f} {t:.1f}" for f, t in sorted(fam.items(), key=lambda kv: -kv[1])[:6])
     print(f"  profiled {label}: {ms:.1f} ms, device busy {busy:.1f} ms ({busy / ms:.1%}), "
           f"{len(kernels)} launches; ms by family: {top}", flush=True)
+    return {"ms": ms, "busy_ms": busy, "busy_share": busy / ms, "launches": len(kernels),
+            "ms_by_family": fam}
 
 
 def stash_profile(torch, prog, bparams, batch, forward, shape) -> None:
@@ -2877,6 +2980,279 @@ def ssd_scan_profile(torch, cfg) -> None:
 
 
 # bf16 K2 shapes timed against another checkout (``--k2-against``)
+# the serving phase (3m): the port's init_cache, prefill and decode_step
+# on the card, all in bf16 under inference mode with BATCH sequences.
+# (a) qwen3-1b whole at its published widths: a prefill of SERVE_PROMPT
+# tokens, then SERVE_TOKENS greedy decode steps in a cache of SERVE_PROMPT +
+# SERVE_TOKENS positions, with the kernels and then with their plain
+# versions fed the kernel run's tokens; (b) decode from an empty cache,
+# teacher-forced over INCREMENTAL_TOKENS prompt tokens, against the
+# training forward (in bf16 at full depth, in fp32 at FP32_LAYERS); (c) the
+# other families' decode branches at published widths, each at its
+# training phase's depth, SERVE_FAMILY_TOKENS steps each; (d)
+# examples/serve_torch.py at its defaults.
+SERVE_PROMPT = SEQ
+SERVE_TOKENS = 32
+SERVE_FAMILY_TOKENS = 8
+INCREMENTAL_TOKENS = 64
+# relative L2 error of each step's logits (B, 1, vocab): kernels against
+# plain versions in bf16 at the training comparison's leaf limit, and
+# decode against the forward at it in bf16 and at 1e-5 in fp32 (the two
+# differ in the order of fp32 sums only: the decode attention is one
+# softmax over the cache, the forward's K2 an online one over key tiles)
+SERVE_RTOL = {"bfloat16": PLAIN_RTOL["bfloat16"][1], "float32": 1e-5}
+
+
+def serve_launches(cfg) -> tuple:
+    """(prefill, one decode step) kernel launches, counted from the code:
+    under inference mode ``remat="full"`` recomputes nothing.  A decoder
+    layer runs two norms and one attention in prefill, two norms and no
+    K2 in decode (its attention is ``decode_attention``); a Whisper
+    decoder layer three norms and two attentions (one in decode: none);
+    a Mamba layer one norm and one scan (K4 for Mamba-1); Zamba2's shared
+    block two norms and one attention per group; an MoE layer three (or,
+    without SwiGLU, two) grouped matmuls; one final norm."""
+    if cfg.hybrid_every:
+        groups = cfg.n_layers // cfg.hybrid_every
+        k1 = cfg.n_layers + 2 * groups + 1
+        return {"rmsnorm": k1, "flash_attention": groups}, {"rmsnorm": k1}
+    if cfg.ssm:
+        per = {"rmsnorm": cfg.n_layers + 1, "mamba_scan": cfg.n_layers}
+        return per, dict(per)
+    if cfg.n_enc_layers:
+        enc, dec = cfg.n_enc_layers, cfg.n_layers
+        return ({"rmsnorm": 2 * enc + 3 * dec + 1, "flash_attention": enc + 2 * dec},
+                {"rmsnorm": 3 * dec + 1})
+    k1 = 2 * cfg.n_layers + 1
+    prefill, step = {"rmsnorm": k1, "flash_attention": cfg.n_layers}, {"rmsnorm": k1}
+    if cfg.moe:
+        prefill["moe_gmm"] = step["moe_gmm"] = (3 if cfg.act == "swiglu" else 2) * cfg.n_layers
+    return prefill, step
+
+
+def serve_inputs(torch, cfg, prompt: int) -> dict:
+    """A served batch: BATCH prompts of ``prompt`` tokens (seed 17), with
+    (BATCH, enc_seq, d_model) bf16 frames for the encoder-decoder and
+    Qwen2-VL's image-layout positions for the VLM."""
+    g = torch.Generator(device="cuda").manual_seed(17)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (BATCH, prompt), generator=g, device="cuda")}
+    if cfg.n_enc_layers:
+        batch["frames"] = torch.randn((BATCH, cfg.enc_seq, cfg.d_model), generator=g,
+                                      device="cuda").to(torch.bfloat16)
+    if cfg.mrope:
+        batch["mrope_positions"] = torch.from_numpy(
+            image_positions(BATCH, prompt, IMAGE_GRID, IMAGE_PREFIXES)).cuda()
+    return batch
+
+
+def serve_run(torch, cfg, params, batch: dict, n_steps: int, forced=None) -> dict:
+    """``prefill`` over the batch, then ``n_steps`` decode steps, greedy or
+    fed ``forced`` (a list of (BATCH, 1) tokens), in a cache of prompt +
+    n_steps positions, under inference mode.  Returns every logits
+    (prefill's first), the tokens fed, the last step's inputs, each part's
+    seconds by the host clock around synchronised work, and each part's
+    kernel launches (counts set to 0 just before it)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_step, prefill
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = prefill(cfg, params, batch, max_seq=batch["tokens"].shape[1] + n_steps)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prefill_launches = ops.launch_counts()
+        ops.reset_launch_counts()
+        out, fed = [logits], []
+        for i in range(n_steps):
+            tok = logits[:, -1].argmax(-1).reshape(-1, 1) if forced is None else forced[i]
+            last = (tok, cache)
+            logits, cache = decode_step(cfg, params, tok, cache)
+            out.append(logits)
+            fed.append(tok)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        decode_launches = ops.launch_counts()
+    return {"logits": out, "fed": fed, "last": last, "cache": cache, "prefill_s": t1 - t0,
+            "decode_s": t2 - t1, "prefill_launches": prefill_launches,
+            "decode_launches": decode_launches}
+
+
+def check_serve_launches(label: str, run: dict, cfg, n_steps: int, none: dict) -> dict:
+    """A kernel run's launches held to ``serve_launches``, exactly."""
+    prefill, step = serve_launches(cfg)
+    want = {"prefill": {**none, **prefill},
+            "decode": {**none, **{k: v * n_steps for k, v in step.items()}}}
+    got = {"prefill": run["prefill_launches"], "decode": run["decode_launches"]}
+    print(f"  {label}: launches {got}, expected {want}", flush=True)
+    if got != want:
+        fail(f"{label}: kernel launches {got} != {want}")
+    return got
+
+
+def check_served(torch, label: str, kernel: dict, plain: dict, dtype: str) -> dict:
+    """Each step's logits of a kernel run against a plain run fed its
+    tokens: relative L2 error per step within SERVE_RTOL; the greedy
+    tokens on which both agree are counted."""
+    errs = [rel_l2(k, p) for k, p in zip(kernel["logits"], plain["logits"])]
+    max_abs = max((k.float() - p.float()).abs().max().item()
+                  for k, p in zip(kernel["logits"], plain["logits"]))
+    agree = sum(int((k[:, -1].argmax(-1) == p[:, -1].argmax(-1)).sum())
+                for k, p in zip(kernel["logits"], plain["logits"]))
+    total = len(errs) * BATCH
+    limit = SERVE_RTOL[dtype]
+    print(f"  {label}: kernels against their plain versions fed the kernel run's tokens: "
+          f"logits relative L2 error, prefill {errs[0]:.3e}, decode steps max "
+          f"{max(errs[1:]):.3e} (limit {limit}); max abs err {max_abs:.3e}; greedy tokens "
+          f"agreeing {agree} of {total}", flush=True)
+    if not all(math.isfinite(e) for e in errs) or max(errs) > limit:
+        fail(f"{label}: kernel and plain logits disagree: {max(errs):.3e} > {limit}")
+    return {"max_rel_l2": max(errs), "max_abs_err": max_abs, "greedy_agree": agree,
+            "greedy_total": total}
+
+
+def check_incremental(torch, label: str, cfg, params, tokens) -> float:
+    """``decode_step`` from ``init_cache``, teacher-forced over ``tokens``,
+    against the training forward's logits at every position: the relative
+    L2 error over all of them within SERVE_RTOL of the config's dtype."""
+    from repro_torch.models import decode_step, init_cache
+    from repro_torch.models.model import _logits, _run_decoder
+    with torch.inference_mode():
+        want = _logits(cfg, params, _run_decoder(cfg, params, params["embed"][tokens])[0])
+        cache = init_cache(cfg, tokens.shape[0], tokens.shape[1], device="cuda")
+        got = []
+        for t in range(tokens.shape[1]):
+            logits, cache = decode_step(cfg, params, tokens[:, t:t + 1], cache)
+            got.append(logits)
+        got = torch.cat(got, dim=1)
+    err = rel_l2(got, want)
+    worst = max(rel_l2(got[:, t], want[:, t]) for t in range(tokens.shape[1]))
+    limit = SERVE_RTOL[cfg.dtype]
+    print(f"  {label}: decode from an empty cache over {tokens.shape[1]} tokens against the "
+          f"forward, {cfg.dtype} at {cfg.n_layers} layers: logits relative L2 error {err:.3e} "
+          f"(worst position {worst:.3e}; limit {limit}), max abs err "
+          f"{(got.float() - want.float()).abs().max().item():.3e}", flush=True)
+    if not math.isfinite(err) or err > limit:
+        fail(f"{label}: incremental decode and forward disagree: {err:.3e} > {limit}")
+    return err
+
+
+def phase_serve_qwen3(torch, cfg, none: dict) -> tuple:
+    """(a) and (b) for qwen3-1b: a warm-up run, then the timed kernel run
+    (launches exact, peak memory, cache bytes, one decode step profiled),
+    the plain run fed its tokens, and decode against the forward.
+    Returns ({path: launches}, the summary)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_step, init
+    params = init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    batch = serve_inputs(torch, cfg, SERVE_PROMPT)
+    ops.register_kernels()
+    serve_run(torch, cfg, params, batch, SERVE_TOKENS)            # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    k = serve_run(torch, cfg, params, batch, SERVE_TOKENS)
+    peak = torch.cuda.max_memory_allocated()
+    launches = check_serve_launches(f"(a) {cfg.name}", k, cfg, SERVE_TOKENS, none)
+    cache_bytes = sum(t.numel() * t.element_size() for t in k["cache"].values())
+    tok, cache = k["last"]
+    with torch.inference_mode():
+        prof = step_profile(torch, "decode step (kernels)",
+                            lambda: decode_step(cfg, params, tok, cache))
+    ops.unregister_kernels()
+    p = serve_run(torch, cfg, params, batch, SERVE_TOKENS, forced=k["fed"])
+    if any(p["prefill_launches"].values()) or any(p["decode_launches"].values()):
+        fail(f"(a) plain run launched kernels: {p['prefill_launches']} {p['decode_launches']}")
+    served = check_served(torch, f"(a) {cfg.name}", k, p, cfg.dtype)
+    summary = {"prefill_ms": k["prefill_s"] * 1e3,
+               "decode_ms_per_token": k["decode_s"] / SERVE_TOKENS * 1e3,
+               "tokens_per_s": BATCH * SERVE_TOKENS / k["decode_s"],
+               "decode_step_busy_share": prof["busy_share"],
+               "decode_step_profiled_ms": prof["ms"], "decode_step_launches": prof["launches"],
+               "cache_bytes": cache_bytes, "peak_gib": peak / 2**30,
+               "plain_prefill_ms": p["prefill_s"] * 1e3,
+               "plain_decode_ms_per_token": p["decode_s"] / SERVE_TOKENS * 1e3, **served}
+    print(f"  (a) {cfg.name}, {cfg.n_layers} layers, batch {BATCH}: prefill of {SERVE_PROMPT} "
+          f"tokens {summary['prefill_ms']:.1f} ms (plain {summary['plain_prefill_ms']:.1f}); "
+          f"decode {summary['decode_ms_per_token']:.2f} ms a token (plain "
+          f"{summary['plain_decode_ms_per_token']:.2f}), {summary['tokens_per_s']:.1f} "
+          f"tokens/s; "
+          f"cache {cache_bytes / 1e9:.3f} GB; peak {summary['peak_gib']:.2f} GiB "
+          f"(max_memory_allocated)", flush=True)
+    del k, p, cache, tok
+    ops.register_kernels()
+    check_incremental(torch, "(b)", cfg, params, batch["tokens"][:, :INCREMENTAL_TOKENS])
+    del params
+    cfg32 = dataclasses.replace(cfg, n_layers=FP32_LAYERS, dtype="float32")
+    check_incremental(torch, "(b)", cfg32,
+                      init(cfg32, torch.Generator(device="cuda").manual_seed(0), "cuda"),
+                      batch["tokens"][:, :INCREMENTAL_TOKENS])
+    ops.unregister_kernels()
+    paths = {f"3m {cfg.name} prefill": launches["prefill"],
+             f"3m {cfg.name} decode, {SERVE_TOKENS} steps": launches["decode"]}
+    return paths, summary
+
+
+def phase_serve_family(torch, cfg, none: dict, incremental: bool) -> dict:
+    """(c) one family's serving path: prefill (Whisper's decoder prompt
+    leaves room for the steps in its 448 positions), SERVE_FAMILY_TOKENS
+    greedy steps with the kernels (launches exact), the plain run fed its
+    tokens (for an MoE, routed as the kernel run: see ``PLAIN_RTOL``), and,
+    where the property holds, decode against the forward."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import init
+    params = init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    prompt = WHISPER_SEQ - SERVE_FAMILY_TOKENS if cfg.n_enc_layers else SERVE_PROMPT
+    batch = serve_inputs(torch, cfg, prompt)
+    enc = f"{cfg.n_enc_layers} + " if cfg.n_enc_layers else ""
+    label = f"(c) {cfg.name}, {enc}{cfg.n_layers} layers, prompt {prompt}"
+    ops.register_kernels()
+    with recorded_routing() as routes:
+        k = serve_run(torch, cfg, params, batch, SERVE_FAMILY_TOKENS)
+    launches = check_serve_launches(label, k, cfg, SERVE_FAMILY_TOKENS, none)
+    ops.unregister_kernels()
+    with recorded_routing(routes if cfg.moe else None) as plain_routes:
+        p = serve_run(torch, cfg, params, batch, SERVE_FAMILY_TOKENS, forced=k["fed"])
+    if cfg.moe:
+        print(f"  {label}: routing choices the plain run would make otherwise, per router "
+              f"call (prefill's layers, then each step's): "
+              f"{routing_diffs(routes, plain_routes)}", flush=True)
+    check_served(torch, label, k, p, cfg.dtype)
+    print(f"  {label}: prefill {k['prefill_s'] * 1e3:.1f} ms, decode "
+          f"{k['decode_s'] / SERVE_FAMILY_TOKENS * 1e3:.2f} ms a token (plain "
+          f"{p['prefill_s'] * 1e3:.1f} and {p['decode_s'] / SERVE_FAMILY_TOKENS * 1e3:.2f})",
+          flush=True)
+    del k, p
+    if incremental:
+        ops.register_kernels()
+        check_incremental(torch, label, cfg, params, batch["tokens"][:, :INCREMENTAL_TOKENS])
+        ops.unregister_kernels()
+    return {f"3m {cfg.name} prefill": launches["prefill"],
+            f"3m {cfg.name} decode, {SERVE_FAMILY_TOKENS} steps": launches["decode"]}
+
+
+def phase_serve_example(torch, none: dict) -> dict:
+    """(d) ``examples/serve_torch.py`` at its defaults (the reduced
+    qwen1.5-0.5b on the card, kernels registered), called as its
+    ``main``; its four lines are printed and its launches held exact."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    sys.path.insert(0, str(ROOT / "examples"))
+    import serve_torch
+    buf = io.StringIO()
+    ops.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        gen = serve_torch.main([])
+    launched = ops.launch_counts()
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        print(f"  (d) {line}", flush=True)
+    prefill, step = serve_launches(get_config("qwen1.5-0.5b").reduced())
+    want = {**none, **{k: prefill.get(k, 0) + 15 * step.get(k, 0) for k in prefill}}
+    if len(lines) != 4 or tuple(gen.shape) != (4, 16) or launched != want:
+        fail(f"(d) serve_torch.py: {len(lines)} lines, ids {tuple(gen.shape)}, launches "
+             f"{launched} (expected {want})")
+    return {"3m examples/serve_torch.py": launched}
+
+
 K2_AB = [(BATCH, 16, SEQ, 64), (BATCH, 16, SEQ, 128)]
 
 
@@ -3011,6 +3387,24 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    phase("3m/5 serving: init_cache, prefill and decode_step at full width")
+    served, summary_3m = phase_serve_qwen3(torch, qwen3, none)
+    counts.update({path: {**none, **launched} for path, launched in served.items()})
+    gc.collect()
+    torch.cuda.empty_cache()
+    for cfg, incremental in ((deepseek, False), (falcon, True),
+                             (dataclasses.replace(zamba2, n_layers=zamba2.hybrid_every), True),
+                             (dataclasses.replace(whisper, n_layers=FP32_LAYERS,
+                                                  n_enc_layers=FP32_LAYERS), False),
+                             (qwen2_vl, True)):
+        served = phase_serve_family(torch, cfg, none, incremental)
+        counts.update({path: {**none, **launched} for path, launched in served.items()})
+        gc.collect()
+        torch.cuda.empty_cache()
+    counts.update({path: {**none, **launched}
+                   for path, launched in phase_serve_example(torch, none).items()})
+    phase("3m/5 serving done")
+
     phase("3e/5 Piper IR: the qwen3-1b proxy traced on meta tensors, chunks of real layers")
     counts["ir"] = {**none, **phase_ir(torch)}
     gc.collect()
@@ -3111,6 +3505,7 @@ def main() -> int:
     phase("done")
     print("3g " + json.dumps(summary_3g), flush=True)
     print("3h " + json.dumps(summary_3h), flush=True)
+    print("3m " + json.dumps(summary_3m), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

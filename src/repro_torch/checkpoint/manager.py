@@ -149,9 +149,9 @@ def _load_leaf(directory: pathlib.Path, name: str, meta: dict,
 def _no_shardings(shardings) -> None:
     if shardings is not None:
         raise NotImplementedError(
-            "restore(shardings=...) places leaves on a device mesh, which comes with "
-            "parallel/sharding.py (ROADMAP Queue 1, item 13); restore full leaves "
-            "and reshard them (checkpoint.reshard_tree)")
+            "restore(shardings=...) is not ported: it places leaves on a device mesh, "
+            "which needs the port of parallel/sharding.py; restore full leaves and "
+            "reshard them (checkpoint.reshard_tree)")
 
 
 def restore_tree(tree_like, directory: pathlib.Path, *, shardings=None,

@@ -1,10 +1,11 @@
 """JAX parameters in and out, as nested dicts of numpy arrays.
 
 The port keeps the JAX pytree's names, shapes and layouts, so no
-transpose is needed.  numpy has no bfloat16 without ``ml_dtypes``: a
-bfloat16 array coming in (``np.asarray`` of a JAX bf16 array) is read
-through its 16-bit view, and a bfloat16 tensor going out becomes
-float32, which holds every bfloat16 value exactly.
+transpose is needed; a serving cache (``init_cache``, with its 0-d int32
+``len``) crosses the same way.  numpy has no bfloat16 without
+``ml_dtypes``: a bfloat16 array coming in (``np.asarray`` of a JAX bf16
+array) is read through its 16-bit view, and a bfloat16 tensor going out
+becomes float32, which holds every bfloat16 value exactly.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ def _to_tensor(a, device, dtype):
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+        # ascontiguousarray makes a 0-d array (a cache's ``len``) 1-d
+        t = torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape).copy())
     return t.to(device=device, dtype=dtype or t.dtype)
 
 

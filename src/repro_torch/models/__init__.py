@@ -1,4 +1,7 @@
-"""PyTorch port of the model zoo: every family of the JAX package, for training."""
-from .model import ArchConfig, MoECfg, SSMCfg, init, params_count, train_loss
+"""PyTorch port of the model zoo: every family of the JAX package, for
+training and for serving."""
+from .model import (ArchConfig, MoECfg, SSMCfg, decode_step, init, init_cache, params_count,
+                    prefill, train_loss)
 
-__all__ = ["ArchConfig", "MoECfg", "SSMCfg", "init", "params_count", "train_loss"]
+__all__ = ["ArchConfig", "MoECfg", "SSMCfg", "decode_step", "init", "init_cache",
+           "params_count", "prefill", "train_loss"]

@@ -9,6 +9,8 @@ PyTorch: the forward scans KV blocks with an online softmax, and the
 backward (``_flash_bwd``) recomputes the probabilities block by block
 from the saved logsumexp, as in FlashAttention-2.  It is the default
 attention of the model and the oracle of the K2 kernel.
+``decode_attention`` is the serving path's attention of new queries over
+a KV cache, in plain PyTorch, as the JAX package computes it in jnp.
 """
 from __future__ import annotations
 
@@ -185,3 +187,28 @@ def flash_attention_ref(q, k, v, *, causal=True, q_offset=0, sm_scale=None,
     """Signature-compatible wrapper used as the default attention impl."""
     check_scale(q.shape[-1], sm_scale)
     return _FlashAttentionRef.apply(q, k, v, causal, q_offset, window, block_kv)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *,
+                     sm_scale: Optional[float] = None,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """Decode: q (B, Hq, Sq, D) against a (B, Hkv, Smax, D) cache whose
+    first ``cache_len`` positions (an int or a 0-d tensor) are valid, and,
+    with ``window``, only the last ``window`` of those.  q is scaled in
+    its own dtype, then the scores and the softmax are fp32 and the
+    result takes q's dtype, as in the JAX package.  No causal mask among
+    the Sq queries: the serving path sends one at a time.  The scale is
+    fixed at ``d**-0.5`` (``check_scale``)."""
+    d = q.shape[-1]
+    check_scale(d, sm_scale)
+    n_rep = q.shape[1] // k_cache.shape[1]
+    k = repeat_kv(k_cache, n_rep)
+    v = repeat_kv(v_cache, n_rep)
+    s = torch.einsum("bhqd,bhkd->bhqk", (q * d ** -0.5).float(), k.float())
+    kpos = torch.arange(k_cache.shape[2], device=q.device)
+    mask = kpos < cache_len
+    if window is not None:
+        mask = mask & (kpos >= cache_len - window)
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .attention import flash_attention_ref
+from .attention import decode_attention, flash_attention_ref
 
 # ---------------------------------------------------------------------------
 # impl registry (kernels plug in here)
@@ -133,10 +133,20 @@ def init_attn(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int,
     return p
 
 
-def attention_block(p, x, cfg, *, mrope_positions=None, causal=True, window=None):
-    """Training self-attention (no KV cache).  With ``cfg.mrope`` q and k
-    rotate by ``mrope_positions`` (3, B, S), text-only positions when
-    none are given."""
+def attention_block(p, x, cfg, *, positions=None, mrope_positions=None, kv_cache=None,
+                    cache_len=None, causal=True, window=None):
+    """Self-attention: ``(out, new_kv)``.  Without ``kv_cache`` (training,
+    prefill) it runs the ``"attention"`` impl over x's S tokens and
+    ``new_kv`` is None.  With ``kv_cache`` = (k, v), each (B, Hkv, Smax,
+    D), the S new keys and values are written into copies of the cache at
+    ``cache_len`` (an int or a 0-d tensor; the start is clamped so that
+    the S rows fit, as JAX's ``dynamic_update_slice`` clamps it), the
+    caller's tensors untouched, and the queries attend over the first
+    ``cache_len + S`` positions (``decode_attention``); ``new_kv`` is the
+    written pair.  RoPE rotates by ``positions``, by default
+    ``arange(S) + cache_len``; with ``cfg.mrope`` q and k rotate by
+    ``mrope_positions`` (3, B, S), by default the text-only positions
+    plus ``cache_len``."""
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = x @ p["wq"]
@@ -147,19 +157,31 @@ def attention_block(p, x, cfg, *, mrope_positions=None, causal=True, window=None
     q = q.reshape(b, s, hq, hd).transpose(1, 2)
     k = k.reshape(b, s, hkv, hd).transpose(1, 2)
     v = v.reshape(b, s, hkv, hd).transpose(1, 2)
+    base = 0 if cache_len is None else cache_len
     if cfg.mrope:
         mp = (mrope_positions if mrope_positions is not None
-              else default_mrope_positions(b, s, x.device))
+              else default_mrope_positions(b, s, x.device) + base)
         q = apply_mrope(q, mp, cfg.mrope_sections, cfg.rope_theta)
         k = apply_mrope(k, mp, cfg.mrope_sections, cfg.rope_theta)
     elif cfg.rope:
-        positions = torch.arange(s, device=x.device)
+        if positions is None:
+            positions = torch.arange(s, device=x.device) + base
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    attn = get_impl("attention", flash_attention_ref)
-    out = attn(q, k, v, causal=causal, window=window)
+    new_kv = None
+    if kv_cache is not None:
+        ck, cv = kv_cache
+        start = torch.as_tensor(cache_len, device=x.device).clamp(0, ck.shape[2] - s)
+        rows = start + torch.arange(s, device=x.device)
+        ck = ck.index_copy(2, rows, k.to(ck.dtype))
+        cv = cv.index_copy(2, rows, v.to(cv.dtype))
+        new_kv = (ck, cv)
+        out = decode_attention(q, ck, cv, cache_len + s, window=window)
+    else:
+        attn = get_impl("attention", flash_attention_ref)
+        out = attn(q, k, v, causal=causal, window=window)
     out = out.transpose(1, 2).reshape(b, s, hq * hd)
-    return out @ p["wo"]
+    return out @ p["wo"], new_kv
 
 
 # ---------------------------------------------------------------------------
@@ -478,19 +500,24 @@ def _ssd_scan(x_h, dt, A, B, C, D, h0=None, chunk: int = SSM_CHUNK):
     return y.to(x_h.dtype) + x_h * D[None, None, :, None].to(x_h.dtype), state
 
 
-def mamba_block(p, x, *, state: int, version: int, headdim: int = 64,
-                chunk: int = SSM_CHUNK):
-    """Mamba block over a whole sequence from a zero state: in_proj ->
-    causal conv -> silu -> the SSM -> gate by silu(z) -> out_proj.
-    Version 1: x_proj -> softplus(dt) -> selective scan (the
-    ``"mamba_scan"`` impl).  Version 2: bc_proj gives B and C, a per-head
-    dt = softplus(xh @ dt_proj2 + dt_bias) (fp32 in a bf16 block, as
-    the fp32 bias promotes it), A = -exp(A_log) per head, and the SSD
-    scan over heads of ``headdim`` channels."""
+def mamba_block(p, x, *, state: int, version: int, conv_state=None, ssm_state=None,
+                headdim: int = 64, chunk: int = SSM_CHUNK):
+    """Mamba block: in_proj -> causal conv -> silu -> the SSM -> gate by
+    silu(z) -> out_proj.  Returns ``(out, new_conv, hT)``: the conv's
+    last K-1 inputs (B, K-1, Ci) and the SSM's last state (fp32), so a
+    sequence split in two and run with the first part's states as
+    ``conv_state`` and ``ssm_state`` gives the whole sequence's outputs
+    (decode runs one token at a time so).  Without them the block starts
+    from zeros.  Version 1: x_proj -> softplus(dt) -> selective scan (the
+    ``"mamba_scan"`` impl, with ``h0=ssm_state``; state (B, Ci, N)).
+    Version 2: bc_proj gives B and C, a per-head dt = softplus(xh @
+    dt_proj2 + dt_bias) (fp32 in a bf16 block, as the fp32 bias promotes
+    it), A = -exp(A_log) per head, and the SSD scan over heads of
+    ``headdim`` channels (state (B, H, P, N))."""
     b, s, _ = x.shape
     xz = x @ p["in_proj"]
     xh, z = torch.chunk(xz, 2, dim=-1)                    # (B, S, Ci)
-    xh, _ = _causal_conv(xh, p["conv_w"], p["conv_b"])
+    xh, new_conv = _causal_conv(xh, p["conv_w"], p["conv_b"], conv_state)
     xh = F.silu(xh)
     if version == 1:
         proj = xh @ p["x_proj"]
@@ -498,13 +525,14 @@ def mamba_block(p, x, *, state: int, version: int, headdim: int = 64,
         dt, Bm, Cm = torch.split(proj, [dt_rank, state, state], dim=-1)
         dt = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])
         A = -torch.exp(p["A_log"])
-        y, _ = get_impl("mamba_scan", ssm_scan_ref)(xh, dt, A, Bm, Cm, p["D"], chunk=chunk)
+        y, hT = get_impl("mamba_scan", ssm_scan_ref)(xh, dt, A, Bm, Cm, p["D"], h0=ssm_state,
+                                                     chunk=chunk)
     else:
         ci = xh.shape[-1]
         Bm, Cm = torch.chunk(xh @ p["bc_proj"], 2, dim=-1)        # (B, S, N)
         dt = F.softplus(xh @ p["dt_proj2"] + p["dt_bias"])        # (B, S, H)
         A = -torch.exp(p["A_log"])                                # (H,)
-        y, _ = _ssd_scan(xh.reshape(b, s, ci // headdim, headdim), dt, A, Bm, Cm, p["D"],
-                         chunk=chunk)
+        y, hT = _ssd_scan(xh.reshape(b, s, ci // headdim, headdim), dt, A, Bm, Cm, p["D"],
+                          ssm_state, chunk=chunk)
         y = y.reshape(b, s, ci)
-    return (y * F.silu(z)) @ p["out_proj"]
+    return (y * F.silu(z)) @ p["out_proj"], new_conv, hT

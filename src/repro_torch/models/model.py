@@ -11,8 +11,19 @@ the hybrid each group of ``hybrid_every`` Mamba layers with its
 application of the shared block.
 
 Public entry points:
-  init(cfg, generator, device)  -> params
-  train_loss(cfg, params, batch) -> scalar loss
+  init(cfg, generator, device)              -> params
+  train_loss(cfg, params, batch)            -> scalar loss
+  init_cache(cfg, batch, max_seq, device)   -> cache (dict of tensors)
+  prefill(cfg, params, batch, max_seq)      -> (last-token logits, cache)
+  decode_step(cfg, params, token, cache)    -> (logits, new cache)
+
+The serving functions are the JAX package's, quirks included: ``prefill``
+runs the training forward and returns the cache as ``init_cache`` made
+it (zeros) with ``len`` set to the prompt's length, so ``decode_step``
+attends over zero keys and starts from zero SSM states there; a cache
+is filled by running ``decode_step`` from ``init_cache`` over the
+prompt.  ``decode_step`` returns a new cache and leaves its argument's
+tensors as they were.
 """
 from __future__ import annotations
 
@@ -25,7 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from . import layers as L
-from .attention import flash_attention_ref
+from .attention import decode_attention, flash_attention_ref
 
 
 @dataclass(frozen=True)
@@ -247,9 +258,9 @@ def _dec_layer(cfg, lp, x, enc_out=None, cross_lp=None, mrope_positions=None):
     ``enc_out`` between its self-attention and its MLP."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.ssm:
-        return _mamba_layer(cfg, lp, x), aux
+        return _mamba_layer(cfg, lp, x)[0], aux
     x = x + L.attention_block(lp["attn"], _norm(cfg, lp["norm1"], x), cfg,
-                              mrope_positions=mrope_positions, causal=cfg.causal)
+                              mrope_positions=mrope_positions, causal=cfg.causal)[0]
     if cross_lp is not None:
         x = x + _cross_attn(cfg, cross_lp["attn"], _norm(cfg, cross_lp["norm"], x), enc_out)
     h = _norm(cfg, lp["norm2"], x)
@@ -259,16 +270,20 @@ def _dec_layer(cfg, lp, x, enc_out=None, cross_lp=None, mrope_positions=None):
     return x + L.mlp_block(lp["mlp"], h, cfg.act), aux
 
 
-def _mamba_layer(cfg, lp, x):
-    return x + L.mamba_block(lp["mamba"], _norm(cfg, lp["norm"], x), state=cfg.ssm.state,
-                             version=cfg.ssm.version, headdim=cfg.ssm.headdim,
-                             chunk=cfg.ssm_chunk)
+def _mamba_layer(cfg, lp, x, conv_state=None, ssm_state=None):
+    """x plus the layer's Mamba block: (x, new conv state, new SSM state)."""
+    h, new_conv, new_ssm = L.mamba_block(
+        lp["mamba"], _norm(cfg, lp["norm"], x), state=cfg.ssm.state, version=cfg.ssm.version,
+        conv_state=conv_state, ssm_state=ssm_state, headdim=cfg.ssm.headdim,
+        chunk=cfg.ssm_chunk)
+    return x + h, new_conv, new_ssm
 
 
 def _moe_dispatch(cfg, moe_params, h):
-    """The grouped single-device dispatch.  The JAX package's
-    expert-parallel all-to-all branch (``moe_block_ep``) waits for the
-    port's multi-rank runtime."""
+    """The training path's MoE: the grouped single-device dispatch
+    (``decode_step`` calls ``L.moe_block`` directly, as the JAX package's
+    does).  The JAX package's expert-parallel all-to-all branch
+    (``moe_block_ep``) is not ported yet."""
     return L.moe_block(moe_params, h, n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
                        act=cfg.act, capacity_factor=cfg.moe.capacity_factor)
 
@@ -321,7 +336,7 @@ def _run_decoder(cfg: ArchConfig, p: dict, x: torch.Tensor, enc_out=None,
 def _enc_layer(cfg, lp, x):
     """One encoder layer: non-causal self-attention (with RoPE, the
     config's documented deviation), then the MLP."""
-    x = x + L.attention_block(lp["attn"], _norm(cfg, lp["norm1"], x), cfg, causal=False)
+    x = x + L.attention_block(lp["attn"], _norm(cfg, lp["norm1"], x), cfg, causal=False)[0]
     return x + L.mlp_block(lp["mlp"], _norm(cfg, lp["norm2"], x), cfg.act)
 
 
@@ -340,9 +355,9 @@ def _hybrid_group(cfg, shared, group, x):
     """One group: its Mamba layers, then the shared attention (with the
     config's sliding window) and MLP."""
     for lp in group:
-        x = _mamba_layer(cfg, lp, x)
+        x = _mamba_layer(cfg, lp, x)[0]
     x = x + L.attention_block(shared["attn"], _norm(cfg, shared["norm1"], x), cfg,
-                              causal=cfg.causal, window=cfg.sliding_window or None)
+                              causal=cfg.causal, window=cfg.sliding_window or None)[0]
     return x + L.mlp_block(shared["mlp"], _norm(cfg, shared["norm2"], x), cfg.act)
 
 
@@ -413,3 +428,148 @@ def _ce_loss(cfg, p, h, labels):
             a, n = _ce_token_stats(cfg, p, hi, li)
         nll, nv = nll + a, nv + n
     return nll / torch.clamp(nv, min=1)
+
+
+# ---------------------------------------------------------------------------
+# serving: caches, prefill, decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device="cuda") -> dict:
+    """Zeroed decode state in the JAX package's layout: ``len`` (0-d
+    int32); the pure Mamba stacks' ``conv`` (L, B, d_conv-1, Ci) and fp32
+    ``ssm`` (L, B, Ci, N) or (L, B, H, P, N); the hybrid's ``conv``,
+    ``ssm`` and a K/V window of min(sliding_window or max_seq, max_seq)
+    per group; the attention stacks' ``k``/``v`` (L, B, Hkv, max_seq, D),
+    with ``cross_k``/``cross_v`` over ``enc_seq`` for the encoder-decoder."""
+    dev = resolve_device(device)
+    dt, f32 = cfg.tdtype, torch.float32
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+
+    def zeros(shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+    cache: dict[str, Any] = {"len": zeros((), torch.int32)}
+    if cfg.ssm:
+        di = cfg.ssm.expand * cfg.d_model
+        nh = di // cfg.ssm.headdim
+        cache["conv"] = zeros((cfg.n_layers, batch, cfg.ssm.d_conv - 1, di))
+        if cfg.ssm.version == 1 and not cfg.hybrid_every:
+            cache["ssm"] = zeros((cfg.n_layers, batch, di, cfg.ssm.state), f32)
+        else:
+            cache["ssm"] = zeros((cfg.n_layers, batch, nh, cfg.ssm.headdim, cfg.ssm.state), f32)
+        if cfg.hybrid_every:
+            win = min(cfg.sliding_window or max_seq, max_seq)
+            n_groups = cfg.n_layers // cfg.hybrid_every
+            cache["k"] = zeros((n_groups, batch, hkv, win, hd))
+            cache["v"] = zeros((n_groups, batch, hkv, win, hd))
+        return cache
+    cache["k"] = zeros((cfg.n_layers, batch, hkv, max_seq, hd))
+    cache["v"] = zeros((cfg.n_layers, batch, hkv, max_seq, hd))
+    if cfg.n_enc_layers:
+        cache["cross_k"] = zeros((cfg.n_layers, batch, hkv, cfg.enc_seq, hd))
+        cache["cross_v"] = zeros((cfg.n_layers, batch, hkv, cfg.enc_seq, hd))
+    return cache
+
+
+def prefill(cfg: ArchConfig, p: dict, batch: dict, max_seq: int) -> tuple:
+    """The prompt through the training forward: (logits of its last token
+    (B, 1, V), cache).  The cache is ``init_cache``'s on the params'
+    device, all zeros, with ``len`` = S and, for the encoder-decoder,
+    ``enc_out``: the JAX package's prefill fills no K/V, conv, SSM or
+    cross cache either, and the port keeps that.  ``batch`` holds
+    ``tokens`` (B, S), and ``frames`` for the encoder-decoder and
+    optionally ``mrope_positions`` for the VLM, as in ``train_loss``."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = p["embed"][tokens]
+    cache = init_cache(cfg, b, max_seq, device=x.device)
+    enc_out = None
+    if cfg.n_enc_layers:
+        enc_out = _run_encoder(cfg, p, batch["frames"].to(cfg.tdtype))
+        cache["enc_out"] = enc_out
+    h, _ = _run_decoder(cfg, p, x, enc_out=enc_out,
+                        mrope_positions=batch.get("mrope_positions"))
+    cache["len"] = torch.full((), s, dtype=torch.int32, device=x.device)
+    return _logits(cfg, p, h[:, -1:, :]), cache
+
+
+def _decode_mamba(cfg, layers, x, conv, ssm):
+    """Mamba layers one token on, each from its cached states: (x, the
+    layers' new conv states, their new SSM states)."""
+    new_conv, new_ssm = [], []
+    for lp, c, h in zip(layers, conv, ssm):
+        x, c, h = _mamba_layer(cfg, lp, x, c, h)
+        new_conv.append(c)
+        new_ssm.append(h)
+    return x, new_conv, new_ssm
+
+
+def decode_step(cfg: ArchConfig, p: dict, token: torch.Tensor, cache: dict) -> tuple:
+    """One decode step: token (B, 1) -> (logits (B, 1, V), new cache with
+    ``len`` + 1).  The layers run in a Python loop over ``_unstack``ed
+    slices, with no checkpointing.  Pure Mamba: each layer from its conv
+    and SSM state.  Hybrid: each group's Mamba layers, then the shared
+    block over that group's window cache, written at
+    ``wpos = min(len, window - 1)`` (past a full window the last slot is
+    overwritten and RoPE rotates by ``wpos``).  Attention stacks: each
+    layer's K/V written at ``len``; the encoder-decoder's cross branch
+    reads the cached ``cross_k``/``cross_v`` (``_cross_cached``); an MoE
+    layer calls ``L.moe_block`` directly (capacity per decode batch)."""
+    x = p["embed"][token]                                # (B, 1, D)
+    pos = cache["len"]
+    layers = _unstack(p["layers"], cfg.n_layers)
+    new = dict(cache, len=pos + 1)
+    if cfg.ssm and not cfg.hybrid_every:
+        x, conv, ssm = _decode_mamba(cfg, layers, x, cache["conv"], cache["ssm"])
+        new.update(conv=torch.stack(conv), ssm=torch.stack(ssm))
+    elif cfg.hybrid_every:
+        k, shared = cfg.hybrid_every, p["shared_attn"]
+        wpos = torch.clamp(pos, max=cache["k"].shape[3] - 1)
+        conv, ssm, ks, vs = [], [], [], []
+        for g in range(cfg.n_layers // k):
+            sl = slice(g * k, (g + 1) * k)
+            x, c, h = _decode_mamba(cfg, layers[sl], x, cache["conv"][sl], cache["ssm"][sl])
+            a, (kc, vc) = L.attention_block(
+                shared["attn"], _norm(cfg, shared["norm1"], x), cfg,
+                kv_cache=(cache["k"][g], cache["v"][g]), cache_len=wpos,
+                window=cfg.sliding_window or None)
+            x = x + a
+            x = x + L.mlp_block(shared["mlp"], _norm(cfg, shared["norm2"], x), cfg.act)
+            conv += c
+            ssm += h
+            ks.append(kc)
+            vs.append(vc)
+        new.update(conv=torch.stack(conv), ssm=torch.stack(ssm), k=torch.stack(ks),
+                   v=torch.stack(vs))
+    else:
+        cross = (_unstack(p["cross_layers"], cfg.n_layers) if "cross_layers" in p
+                 else [None] * cfg.n_layers)
+        ks, vs = [], []
+        for i, (lp, clp) in enumerate(zip(layers, cross)):
+            a, (kc, vc) = L.attention_block(lp["attn"], _norm(cfg, lp["norm1"], x), cfg,
+                                            kv_cache=(cache["k"][i], cache["v"][i]),
+                                            cache_len=pos)
+            x = x + a
+            if clp is not None:
+                x = x + _cross_cached(cfg, clp, x, cache["cross_k"][i], cache["cross_v"][i])
+            h = _norm(cfg, lp["norm2"], x)
+            if cfg.moe:
+                x = x + L.moe_block(lp["moe"], h, n_experts=cfg.moe.n_experts,
+                                    top_k=cfg.moe.top_k, act=cfg.act,
+                                    capacity_factor=cfg.moe.capacity_factor)[0]
+            else:
+                x = x + L.mlp_block(lp["mlp"], h, cfg.act)
+            ks.append(kc)
+            vs.append(vc)
+        new.update(k=torch.stack(ks), v=torch.stack(vs))
+    return _logits(cfg, p, x), new
+
+
+def _cross_cached(cfg, clp, x, ck, cv):
+    """Decode's cross-attention: queries from x over the whole cached
+    ``ck``/``cv`` (B, Hkv, enc_seq, D) through ``decode_attention``."""
+    b, s, _ = x.shape
+    hq, hd = cfg.n_heads, cfg.head_dim
+    ap = clp["attn"]
+    q = (_norm(cfg, clp["norm"], x) @ ap["wq"]).reshape(b, s, hq, hd).transpose(1, 2)
+    o = decode_attention(q, ck, cv, ck.shape[2])
+    return o.transpose(1, 2).reshape(b, s, hq * hd) @ ap["wo"]

@@ -210,7 +210,8 @@ class TestCheckpointIntegrity:
         # verify=False skips the sha256: the flipped bytes come back
         flipped = restore_tree(tree, ckpt.step_dir(4), verify=False)
         assert bits(flipped["w"]) != bits(tree["w"] + 1)
-        with pytest.raises(NotImplementedError, match="item 13"):
+        with pytest.raises(NotImplementedError,
+                           match="is not ported: it places leaves on a device mesh"):
             ckpt.restore(tree, step=2, shardings={"w": None, "b": None})
 
     def test_corruption_hits_the_same_file_and_offsets_as_jax(self, tmp_path):

@@ -167,7 +167,7 @@ class TestMamba2Block:
         for leaf in tree_leaves(tp):
             leaf.requires_grad_(True)
         xt = torch.from_numpy(x).requires_grad_(True)
-        out = TL.mamba_block(tp, xt, state=state, version=2, headdim=headdim, chunk=chunk)
+        out = TL.mamba_block(tp, xt, state=state, version=2, headdim=headdim, chunk=chunk)[0]
         (out * torch.from_numpy(cot)).sum().backward()
         _close(out, want, SCAN_TOL, "out")
         _close(xt.grad, want_gx, GRAD_TOL, "dx")
@@ -195,7 +195,7 @@ class TestMamba2Block:
             return real(x_h, dt, *rest, **kw)
         TL._ssd_scan = spy
         try:
-            out = TL.mamba_block(tp, x, state=state, version=2, headdim=headdim)
+            out = TL.mamba_block(tp, x, state=state, version=2, headdim=headdim)[0]
         finally:
             TL._ssd_scan = real
         assert seen == {"x_h": torch.bfloat16, "dt": torch.float32}

@@ -1,6 +1,7 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package, and call no library kernel in place of
-their own (``chip_smoke.py`` times library calls as yardsticks only)."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and
+``examples/serve_torch.py`` import neither JAX nor the JAX package, and
+call no library kernel in place of their own (``chip_smoke.py`` times
+library calls as yardsticks only)."""
 import ast
 import os
 import pathlib
@@ -13,6 +14,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
+SERVE = ROOT / "examples" / "serve_torch.py"
 
 FORBIDDEN = [r"jax", r"from repro\.", r"\bimport repro\b(?!_)", r"from repro import",
              r"scaled_dot_product_attention", r"torch\.compile", r"rms_norm"]
@@ -133,3 +135,24 @@ def test_chip_smoke_names_library_calls_only_as_yardsticks(pattern):
     if pattern in (r"scaled_dot_product_attention", r"rms_norm"):
         hits = [i for i in hits if i not in allowed]
     assert not hits, [lines[i - 1] for i in hits]
+
+
+def test_serve_example_loads_no_jax():
+    """The port's serving example, imported as a module (its ``main`` runs
+    only under ``__main__``), pulls in neither JAX nor the JAX package."""
+    code = ("import runpy, sys\n"
+            f"runpy.run_path({str(SERVE)!r}, run_name='serve_torch')\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+            "             or k == 'repro' or k.startswith('repro.'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("pattern", FORBIDDEN)
+def test_serve_example_names_nothing_forbidden(pattern):
+    hits = [i for i, line in enumerate(SERVE.read_text().splitlines(), 1)
+            if re.search(pattern, line)]
+    assert not hits, hits

@@ -61,11 +61,11 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _fwd(lib, x, dt, A, B, C, h0):
+def _fwd(lib, x, dt, A, B, C, h0, save_states=True):
     b, s, c = x.shape
     n = A.shape[1]
     y, hT = torch.empty_like(x), torch.empty((b, c, n))
-    hs = torch.empty((b, -(-s // ms.CHUNK), c, n))
+    hs = torch.empty((b, -(-s // ms.CHUNK), c, n)) if save_states else None
     rc = lib.mamba_scan_fwd(*map(_ptr, (x, dt, A, B, C, h0, y, hT, hs)), b, s, c, n, ms.CHUNK,
                             ms.DTYPES[x.dtype], None)
     assert rc == 0
@@ -110,3 +110,43 @@ def test_emulated_kernels_match_plain(lib, b, s, c, n, with_h0, dtype):
     for a, w in zip(grads, ms.mamba_scan_bwd_plain(x, dt, A, B, C, want[2], dy, dhT)):
         assert a.dtype == w.dtype
         torch.testing.assert_close(a.float(), w.float(), **TOL[a.dtype])
+
+
+# the serving path's call: one step (S = 1) from a cached state h0, no
+# chunk states saved (a null pointer), C ragged past a 128-channel block
+DECODE_CASES = [(4, 1, 200, 16), (2, 1, 1000, 8), (3, 1, 40, 4)]
+
+
+@pytest.mark.parametrize("b,s,c,n", DECODE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_emulated_decode_step_matches_plain(lib, b, s, c, n, dtype):
+    """K4 as ``decode_step`` calls it (S = 1, ``h0``, ``save_states=False``)
+    against ``mamba_scan_plain``; then eight such calls, each from the
+    last one's state, against one plain scan over the eight steps."""
+    g = torch.Generator().manual_seed(b * 1000 + c + n)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g) * scale
+    steps = 8
+    x = randn(b, steps, c, scale=0.5).to(dtype)
+    dt = torch.nn.functional.softplus(randn(b, steps, c)).to(dtype)
+    A = -torch.exp(randn(c, n, scale=0.2))
+    B, C = randn(b, steps, n, scale=0.5).to(dtype), randn(b, steps, n, scale=0.5).to(dtype)
+    h = randn(b, c, n, scale=0.5)
+
+    def step(t):
+        return [u[:, t:t + 1].contiguous() for u in (x, dt, B, C)]
+    xt, dtt, Bt, Ct = step(0)
+    y, hT, hs = _fwd(lib, xt, dtt, A, Bt, Ct, h, save_states=False)
+    assert hs is None
+    want_y, want_h, _ = ms.mamba_scan_plain(xt, dtt, A, Bt, Ct, h)
+    torch.testing.assert_close(y.float(), want_y.float(), **TOL[dtype])
+    torch.testing.assert_close(hT, want_h, **TOL[torch.float32])
+    ys, state = [], h
+    for t in range(steps):
+        xt, dtt, Bt, Ct = step(t)
+        yt, state, _ = _fwd(lib, xt, dtt, A, Bt, Ct, state, save_states=False)
+        ys.append(yt)
+    want_y, want_h, _ = ms.mamba_scan_plain(x, dt, A, B, C, h)
+    torch.testing.assert_close(torch.cat(ys, 1).float(), want_y.float(), **TOL[dtype])
+    torch.testing.assert_close(state, want_h, **TOL[torch.float32])

@@ -229,7 +229,7 @@ class TestMambaBlock:
         if kernels:
             ops.register_kernels()
         try:
-            out = TL.mamba_block(tp, xt, state=n, version=1, chunk=8)
+            out = TL.mamba_block(tp, xt, state=n, version=1, chunk=8)[0]
             (out * _t(cot)).sum().backward()
         finally:
             ops.unregister_kernels()
@@ -252,7 +252,8 @@ class TestMambaBlock:
                 for k, v in p.items()} == {k: (v.shape, str(v.dtype)) for k, v in jp.items()}
         x = _inputs(1, 12, 32, 8)["x"]
         tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
-        out = TL.mamba_block(tp, _t(x, "bfloat16"), state=8, version=2, headdim=16, chunk=4)
+        out = TL.mamba_block(tp, _t(x, "bfloat16"), state=8, version=2, headdim=16,
+                             chunk=4)[0]
         want = JL.mamba_block(jp, _j(x, "bfloat16"), state=8, version=2, headdim=16,
                               chunk=4)[0]
         assert out.dtype == torch.bfloat16 and out.shape == (1, 12, 32)

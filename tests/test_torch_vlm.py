@@ -146,8 +146,8 @@ def test_mrope_attention_block_matches_jax(positions, n_kv_heads):
     for leaf in tree_leaves(tp):
         leaf.requires_grad_(True)
     xt = torch.from_numpy(x).requires_grad_(True)
-    out = TL.attention_block(tp, xt, tcfg,
-                             mrope_positions=None if pos is None else torch.from_numpy(pos))
+    out, _ = TL.attention_block(tp, xt, tcfg,
+                                mrope_positions=None if pos is None else torch.from_numpy(pos))
     out.backward(torch.from_numpy(cot))
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), **FLASH_TOL)
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_gx), **GRAD_TOL)
