@@ -137,7 +137,7 @@ program at ``LANES_LAYERS`` (4) of its 28 layers under remat "full" and
 and K2 launches, the interpreter's order, each lane's warm step beside
 the interpreter's and its busy share (remat "full"),
 ``max_memory_allocated`` and the bytes it moved between ranks (p2p, gathers, reductions); (c) the 4-layer
-fp32 program on ``tcp``, its bytes and seconds; (d) ``tune.measure_program``
+fp32 program under ZeRO-1 on ``tcp`` (``TCP_ZERO``), its bytes and seconds; (d) ``tune.measure_program``
 on ``spmd`` for phase 3g's winner and 1F1B baseline beside their
 predicted steps (recorded, not gated); (e) the CLI's ``--strategy`` with
 ``--backend`` spmd and mpmd, each loss bit-equal to reference's.  The
@@ -154,7 +154,21 @@ and step times; (c) the CLI's ``--elastic`` on ``spmd`` and ``--chaos``
 with ``--chaos-report`` on ``mpmd`` for phase 3g's winner.  Last it
 runs the training CLI at its defaults
 for the ported archs, qwen3-1b, minicpm-2b (its WSD schedule checked
-step by step), qwen2-vl-7b and ``--d-model 128`` (head_dim 32).  It prints the card's
+step by step), qwen2-vl-7b and ``--d-model 128`` (head_dim 32).
+
+The production SPMD lane (phase 3n) runs in a one-rank NCCL world on a
+(1, 1) ("data", "model") ``DeviceMesh``, destroyed at its end: (a)
+DeepSeek-MoE-16B at 2 of its 28 layers through ``sharded_train_step``
+(ZeRO-3, ``moe_impl="a2a"``, so ``moe_block_ep`` runs its experts on
+K3), launches exact, the first step bit-equal to ``build_step`` on local
+tensors under the same axis map, loss and gradients with the kernels
+against their plain versions routed alike, the median step, busy share
+and peak beside phase 3c's; (b) Qwen3-1.7B whole through
+``sharded_prefill_step`` and 8 ``sharded_decode_step``s, launches exact,
+logits and every cache leaf bit-equal to phase 3m's functions fed the
+same tokens; (c) ``python -m repro_torch.launch.dryrun`` for (a)'s cell
+on the same mesh, its ``argument_size_in_bytes`` equal to (a)'s placed
+state and batch, and for qwen3-1b ``train_4k`` on ``pod1``.  It prints the card's
 name and power limit, one JSON line of kernel numbers (launches by path,
 the serving paths' among them), and as its last
 line ``{"ok": true, "device": {...}}``.  Any failed phase ends the run
@@ -1105,7 +1119,8 @@ def phase_train(torch, cfg, want: dict, steps: int = STEPS, save: bool = True,
           f"{peak / 2**30:.2f} GiB (max_memory_allocated); the supervised run took "
           f"{run_s:.1f} s, {run_s - sum(h['dt'] for h in sup.history):.1f} s of it outside "
           f"the steps ({'the checkpoint' if save else 'no checkpoint saved'})", flush=True)
-    return counts, {"state": state, "step_fn": step_fn, "loader": loader}
+    return counts, {"state": state, "step_fn": step_fn, "loader": loader, "step_s": step_s,
+                    "peak": peak}
 
 
 @contextlib.contextmanager
@@ -1529,6 +1544,11 @@ RUNTIME_CASE = {"pp": 4, "dp": 2, "n_mb": 8, "zero": 3, "batch": 16, "seq": 1024
 # whose whole run took 1,139.5 s of the 1,200 s limit (PERF.md, section
 # 4).  Phase 3f still holds all 28 layers on the interpreter.
 LANES_LAYERS = 4
+# the ZeRO stage of 3h (c), the fp32 program on the tcp transport: under
+# ZeRO-3 its first step moved 52.7 GB of parameter gathers over TCP in
+# 138.7 s (PERF.md, section 4); ZeRO-1 keeps the transport's sends,
+# receives and gradient reductions over the same model-sized program
+TCP_ZERO = 1
 # interpreted step against ``train_loss``'s autograd on the same batch and
 # weights: (loss relative error, relative L2 error of each gradient leaf).
 # bf16 at phase 3d's limits (the two sum the microbatches' bf16 gradients
@@ -2306,7 +2326,8 @@ def phase_lanes_grid(torch) -> None:
 
 
 def phase_lanes_model(torch, cfg, lanes=("spmd", "mpmd"), remats=("full", "none"),
-                      timed: tuple = ("full", "none"), tag: str = "(b)", **opts) -> dict:
+                      timed: tuple = ("full", "none"), tag: str = "(b)",
+                      zero: int = RUNTIME_CASE["zero"], **opts) -> dict:
     """(b) Phase 3f's program (``cfg``'s decoder as a Piper forward,
     RUNTIME_CASE's pp 4 x dp 2 1F1B ZeRO-3 Strategy, one global batch,
     weights from seed 0) on each lane under each remat policy.  The
@@ -2316,7 +2337,8 @@ def phase_lanes_model(torch, cfg, lanes=("spmd", "mpmd"), remats=("full", "none"
     interpreter's order.  For the policies in ``timed``: the warm step
     (median of 3) beside the interpreter's and the device's busy share
     (torch.profiler); for every policy ``max_memory_allocated`` and the
-    bytes moved.  Returns the launches by lane and policy."""
+    bytes moved.  ``zero`` is the Strategy's ZeRO stage.  Returns the
+    launches by lane and policy."""
     from repro_torch import core, runtime
     from repro_torch.data import SyntheticTokenSource, TokenLoader
     from repro_torch.kernels import ops
@@ -2337,7 +2359,7 @@ def phase_lanes_model(torch, cfg, lanes=("spmd", "mpmd"), remats=("full", "none"
     for remat in remats:
         strategy = core.Strategy(core.Mesh(pp=n_st, dp=rc["dp"]),
                                  core.Pipeline("1f1b", n_mb=rc["n_mb"], n_stages=n_st)
-                                 | core.ZeRO(stage=rc["zero"]) | core.Remat(remat))
+                                 | core.ZeRO(stage=zero) | core.Remat(remat))
         prog = core.compile_training(forward, bparams, {"tokens": shape, "labels": shape},
                                      strategy=strategy)
         expect = runtime_launches(cfg.n_layers, n_st, rc["n_mb"], rc["dp"], remat)
@@ -3256,6 +3278,342 @@ def phase_serve_example(torch, none: dict) -> dict:
 K2_AB = [(BATCH, 16, SEQ, 64), (BATCH, 16, SEQ, 128)]
 
 
+# the production SPMD lane (phase 3n): a one-rank world on a (1, 1)
+# ("data", "model") mesh; NCCL refuses two ranks on one card, so the
+# multi-rank worlds run on the CPU (tests/test_torch_production.py)
+SHARDED_MESH = ((1, 1), ("data", "model"))
+SHARDED_STEPS = 3
+SHARDED_LR = 3e-4
+SHARDED_DECODE = 8
+
+
+@contextlib.contextmanager
+def one_rank_world(torch):
+    """A one-rank NCCL process group at a free localhost port, destroyed
+    on the way out; a failure to start it fails the phase."""
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def same_tree_bits(torch, got: dict, want: dict, what: str) -> None:
+    """Every leaf of two trees of host tensors equal bit for bit."""
+    from repro_torch.tree import tree_flatten_with_path
+    g, w = dict(tree_flatten_with_path(got)), dict(tree_flatten_with_path(want))
+    if g.keys() != w.keys():
+        fail(f"{what}: leaves differ: {sorted(g)} != {sorted(w)}")
+    bad = [path for path in w if g[path].dtype != w[path].dtype
+           or g[path].shape != w[path].shape
+           or not torch.equal(g[path].reshape(-1).view(torch.uint8),
+                              w[path].reshape(-1).view(torch.uint8))]
+    if bad:
+        worst = max(bad, key=lambda p: (g[p].float() - w[p].float()).abs().max().item())
+        fail(f"{what}: {len(bad)} of {len(w)} leaves differ in their bits, e.g. "
+             f"{'/'.join(worst)} by {(g[worst].float() - w[worst].float()).abs().max().item():.3e}")
+
+
+def host(torch, tree):
+    """A tree's local tensors (a DTensor's shard: on one rank the whole)
+    copied to the host."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: (t.to_local() if hasattr(t, "to_local") else t).detach().cpu(),
+                    tree)
+
+
+def sharded_loss_grads(torch, cfg, fn, params, batch, replay=None) -> tuple:
+    """Loss and every gradient leaf (host) of ``train_loss`` on the
+    sharded step's placed params and batch, under its axis map, with the
+    router calls recorded (or replaying ``replay``)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch.steps import axis_map, place_tree
+    from repro_torch.models import train_loss
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+    p = place_tree(params, fn.in_shardings[0]["params"])
+    b = place_tree(batch, fn.in_shardings[1])
+    p = tree_map(lambda t: t.detach().requires_grad_(True), p)
+    with recorded_routing(replay) as calls, axis_map(fn.mesh, fn.strat), implicit_replication():
+        loss = train_loss(cfg, p, b)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+    return (loss.to_local().item(), host(torch, tree_unflatten(p, list(grads))),
+            [c.clone() for c in calls])
+
+
+def phase_sharded_train(torch, cfg, none: dict, step_3c: float, peak_3c: int) -> tuple:
+    """(a) ``cfg`` (DeepSeek-MoE-16B at DEEPSEEK_LAYERS layers, bf16,
+    remat "full") through ``sharded_train_step`` on the one-rank mesh:
+    ZeRO-3 rules with ``moe_impl="a2a"`` from ``strategy_for``, so
+    ``_moe_dispatch`` takes ``moe_block_ep`` and K3 computes its experts.
+    SHARDED_STEPS steps from seed 0's weights with exact launches; the
+    first step's loss and every new leaf (params, m, v) bit-equal to
+    ``build_step`` on local tensors under the same axis map, each run from
+    one host snapshot, one after the other; the loss and every gradient
+    leaf with the kernels against their plain versions routed alike
+    (PLAIN_RTOL); the median step, a profiled step's busy share and the
+    peak beside phase 3c's.  Returns (launches, summary)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import axis_map, local_bytes, sharded_train_step, strategy_for
+    from repro_torch.launch.train import build_step
+    from repro_torch.models import init
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_map
+
+    mesh = make_mesh(*SHARDED_MESH, device_type="cuda")
+    strat = strategy_for(mesh, zero_stage=3, moe_impl="a2a")
+    snapshot = host(torch, init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"))
+    first = path_loader(torch, cfg).next_batch()
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in first.items()}   # int32
+
+    def fresh():
+        params = tree_map(lambda t: t.cuda(), snapshot)
+        return {"params": params, "opt": adamw_init(params),
+                "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+
+    def meta(tree):
+        return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), tree)
+    state = fresh()
+    fn, _ = sharded_train_step(cfg, mesh, strat, lr=SHARDED_LR, state_avals=meta(state),
+                               batch_avals=meta(batch))
+    placed = fn.place(state, batch)
+    arg_bytes = local_bytes(placed[0]) + local_bytes(placed[1])
+    del placed
+    print(f"  (a) {cfg.name}, {cfg.n_layers} layers, bf16, batch {BATCH} x {SEQ}, remat "
+          f"{cfg.remat}, mesh {SHARDED_MESH}: {strat}; placed state and batch {arg_bytes} B",
+          flush=True)
+    ops.register_kernels()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    times, out = [], None
+    for i in range(SHARDED_STEPS):
+        t0 = time.perf_counter()
+        state, met = fn(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            out = host(torch, {"loss": met["loss"], "params": state["params"],
+                               "m": state["opt"]["m"], "v": state["opt"]["v"]})
+        if not math.isfinite(met["loss"].to_local().item()):
+            fail(f"(a) step {i}: loss {met['loss'].to_local().item()}")
+    launched = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.n_layers
+    want = {**none, "rmsnorm": (4 * L + 1) * SHARDED_STEPS,
+            "flash_attention": 2 * L * SHARDED_STEPS, "moe_gmm": 6 * L * SHARDED_STEPS,
+            "moe_gmm_bwd": 6 * L * SHARDED_STEPS}
+    print(f"  (a) launches over {SHARDED_STEPS} steps {launched}, expected {want}", flush=True)
+    if launched != want:
+        fail(f"(a) kernel launches {launched} != {want}")
+    prof = step_profile(torch, "sharded step (a)", lambda: fn(state, batch))
+    del state, met
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same step functions on local tensors, from the same snapshot
+    with axis_map(mesh, strat):
+        local, lmet = build_step(cfg, lambda step: SHARDED_LR, "cuda")(fresh(), batch)
+    ref = host(torch, {"loss": lmet["loss"], "params": local["params"], "m": local["opt"]["m"],
+                       "v": local["opt"]["v"]})
+    del local, lmet
+    gc.collect()
+    torch.cuda.empty_cache()
+    same_tree_bits(torch, out, ref, "(a) sharded step against build_step on local tensors")
+    print(f"  (a) the first sharded step: loss {out['loss'].item():.6f} and every new leaf "
+          f"(params, m, v) bit-equal to build_step on local tensors under the same axis map",
+          flush=True)
+    # kernels against plain versions, routed as the kernel run
+    params = tree_map(lambda t: t.cuda(), snapshot)
+    loss_k, grads_k, route = sharded_loss_grads(torch, cfg, fn, params, batch)
+    ops.unregister_kernels()
+    loss_p, grads_p, _ = sharded_loss_grads(torch, cfg, fn, params, batch, replay=route)
+    del params
+    loss_rtol, grad_rtol = PLAIN_RTOL[cfg.dtype]
+    from repro_torch.tree import tree_flatten_with_path
+    gp = dict(tree_flatten_with_path(grads_p))
+    errs = {"/".join(path): rel_l2(g, gp[path]) for path, g in tree_flatten_with_path(grads_k)}
+    worst = max(errs, key=errs.get)
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"  (a) kernels against plain versions on the sharded path, routed alike: loss "
+          f"{loss_k:.6f} vs {loss_p:.6f} (rel {loss_err:.3e}, limit {loss_rtol}); worst leaf "
+          f"{worst} {errs[worst]:.3e} (limit {grad_rtol}) over {len(errs)} leaves", flush=True)
+    if loss_err > loss_rtol or not all(math.isfinite(e) for e in errs.values()) \
+            or errs[worst] > grad_rtol:
+        fail(f"(a) kernels and plain versions disagree: loss {loss_err:.3e}, "
+             f"{worst} {errs[worst]:.3e}")
+    step_s = statistics.median(times[1:])
+    summary = {"step_ms": step_s * 1e3, "steps_ms": [t * 1e3 for t in times],
+               "step_3c_ms": step_3c * 1e3, "busy_share": prof["busy_share"],
+               "profiled_ms": prof["ms"], "profiled_launches": prof["launches"],
+               "peak_gib": peak / 2**30, "peak_3c_gib": peak_3c / 2**30,
+               "arg_bytes": arg_bytes, "loss_rel_err_plain": loss_err,
+               "worst_leaf_rel_l2_plain": errs[worst]}
+    print(f"  (a) sharded step median {step_s * 1e3:.1f} ms over steps 2-{SHARDED_STEPS} "
+          f"(phase 3c's step {step_3c * 1e3:.1f} ms on local tensors: DTensor's dispatch "
+          f"costs {(step_s - step_3c) * 1e3:.1f} ms of host), {BATCH * SEQ / step_s:.0f} "
+          f"tokens/s, busy {prof['busy_share']:.1%} of a profiled step, peak "
+          f"{peak / 2**30:.2f} GiB (phase 3c {peak_3c / 2**30:.2f})", flush=True)
+    ops.unregister_kernels()
+    return {f"3n {cfg.name} sharded train, {SHARDED_STEPS} steps": launched}, summary
+
+
+def phase_sharded_serve(torch, cfg, none: dict) -> tuple:
+    """(b) ``cfg`` (Qwen3-1.7B whole, bf16) through ``sharded_prefill_step``
+    over phase 3m's prompt and SHARDED_DECODE greedy
+    ``sharded_decode_step``s on the one-rank mesh, launches exact; every
+    logits and every cache leaf bit-equal to phase 3m's functions
+    (``serve_run``) on local tensors fed the same tokens."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import prefill_cache_specs
+    from repro_torch.launch.steps import sharded_decode_step, sharded_prefill_step, strategy_for
+    from repro_torch.models import init
+    from repro_torch.tree import tree_map
+    mesh = make_mesh(*SHARDED_MESH, device_type="cuda")
+    strat = strategy_for(mesh, zero_stage=3)
+    params = init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    batch = serve_inputs(torch, cfg, SERVE_PROMPT)
+    max_seq = SERVE_PROMPT + SHARDED_DECODE
+
+    def meta(tree):
+        return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), tree)
+    pfn, _ = sharded_prefill_step(cfg, mesh, strat, batch_avals=meta(batch), max_seq=max_seq)
+    dfn, _ = sharded_decode_step(cfg, mesh, strat,
+                                 cache_avals=prefill_cache_specs(cfg, BATCH, max_seq),
+                                 batch_avals={"token": torch.empty((BATCH, 1), dtype=torch.int64,
+                                                                   device="meta")})
+    placed, _ = pfn.place(params, batch)
+    ops.register_kernels()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = pfn(placed, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    prefill_launches = ops.launch_counts()
+    ops.reset_launch_counts()
+    outs, fed = [host(torch, logits)], []
+    for _ in range(SHARDED_DECODE):
+        tok = logits.to_local()[:, -1].argmax(-1).reshape(-1, 1)
+        logits, cache = dfn(placed, cache, {"token": tok})
+        outs.append(host(torch, logits))
+        fed.append(tok)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    decode_launches = ops.launch_counts()
+    prefill, step = serve_launches(cfg)
+    want = {"prefill": {**none, **prefill},
+            "decode": {**none, **{k: v * SHARDED_DECODE for k, v in step.items()}}}
+    got = {"prefill": prefill_launches, "decode": decode_launches}
+    print(f"  (b) {cfg.name}: launches {got}, expected {want}", flush=True)
+    if got != want:
+        fail(f"(b) kernel launches {got} != {want}")
+    sharded_cache = host(torch, cache)
+    del placed, logits, cache
+    gc.collect()
+    ref = serve_run(torch, cfg, params, batch, SHARDED_DECODE, forced=fed)
+    ops.unregister_kernels()
+    same_tree_bits(torch, {str(i): t for i, t in enumerate(outs)},
+                   {str(i): t.cpu() for i, t in enumerate(ref["logits"])},
+                   "(b) sharded logits against phase 3m's functions")
+    same_tree_bits(torch, sharded_cache, host(torch, ref["cache"]),
+                   "(b) sharded cache against phase 3m's functions")
+    summary = {"prefill_ms": (t1 - t0) * 1e3, "decode_ms_per_token":
+               (t2 - t1) / SHARDED_DECODE * 1e3, "local_prefill_ms": ref["prefill_s"] * 1e3,
+               "local_decode_ms_per_token": ref["decode_s"] / SHARDED_DECODE * 1e3}
+    print(f"  (b) {cfg.name}, {cfg.n_layers} layers, batch {BATCH}: prefill of {SERVE_PROMPT} "
+          f"tokens and {SHARDED_DECODE} greedy decode steps through the sharded steps, every "
+          f"logits and cache leaf bit-equal to phase 3m's functions fed the same tokens; "
+          f"prefill {summary['prefill_ms']:.1f} ms (local {summary['local_prefill_ms']:.1f}), "
+          f"decode {summary['decode_ms_per_token']:.2f} ms a token (local "
+          f"{summary['local_decode_ms_per_token']:.2f})", flush=True)
+    del ref, params
+    return {f"3n {cfg.name} sharded prefill": prefill_launches,
+            f"3n {cfg.name} sharded decode, {SHARDED_DECODE} steps": decode_launches}, summary
+
+
+def dryrun_cells(deepseek) -> list:
+    """(c) the dry run's two cells: (a)'s on the one-rank mesh, and
+    qwen3-1b ``train_4k`` on ``pod1``; each a ``python -m
+    repro_torch.launch.dryrun`` command line."""
+    one = ["--arch", deepseek.name, "--shape", "train_4k", "--mesh", "single", "--layers",
+           str(deepseek.n_layers), "--batch", str(BATCH), "--seq", str(SEQ), "--loss-chunk",
+           str(deepseek.loss_chunk), "--moe", "a2a", "--remat", deepseek.remat]
+    return [one, ["--arch", "qwen3-1b", "--shape", "train_4k", "--mesh", "pod1"]]
+
+
+def phase_dryrun(torch, deepseek, summary_a: dict) -> dict:
+    """(c) both dry-run cells in subprocesses at once (each its own fake
+    world of 1 or 256 ranks, meta tensors, no device work): the one-rank
+    cell's ``argument_size_in_bytes`` must equal (a)'s placed state and
+    batch; its peak prints beside (a)'s ``max_memory_allocated``; the pod
+    cell's memory per device, FLOPs, collective bytes by kind, roofline
+    terms and seconds print."""
+    out = ROOT / "build" / "dryrun_torch_smoke"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for cell in dryrun_cells(deepseek):
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *cell, "--device", "cuda",
+               "--out", str(out), "--force"]
+        procs.append((cell, time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)))
+    res = []
+    for cell, t0, proc in procs:
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"(c) dry run {cell} did not end in 600 s")
+        wall = time.perf_counter() - t0
+        line = [ln for ln in stdout.splitlines() if ln.startswith("DRYRUN ")]
+        if proc.returncode or not line:
+            fail(f"(c) dry run {cell} failed ({proc.returncode}): {stdout[-1500:]} "
+                 f"{stderr[-3000:]}")
+        r = json.loads(line[-1][len("DRYRUN "):])
+        r["wall_s"] = wall
+        res.append(r)
+        print(f"  (c) dry run {r['arch']} {r['shape']} {r['mesh']} ({r['chips']} ranks): memory "
+              f"{r['memory']}, flops {r['flops']:.6e}, collective {r['collective']}, roofline "
+              f"{r['roofline']}, step run in {r['run_s']} s, {wall:.1f} s in all", flush=True)
+    one, pod = res
+    got = one["memory"]["argument_size_in_bytes"]
+    print(f"  (c) one-rank cell: argument_size_in_bytes {got} against (a)'s placed state and "
+          f"batch {summary_a['arg_bytes']}; peak {one['memory']['peak_bytes'] / 2**30:.2f} GiB "
+          f"counted against (a)'s max_memory_allocated {summary_a['peak_gib']:.2f} GiB",
+          flush=True)
+    if got != summary_a["arg_bytes"]:
+        fail(f"(c) dry-run argument bytes {got} != (a)'s {summary_a['arg_bytes']}")
+    return {"single": one, "pod1": pod}
+
+
+def phase_production(torch, deepseek, qwen3, none: dict, step_3c: float, peak_3c: int) -> tuple:
+    """Phase 3n: (a)-(c) in a one-rank NCCL world, destroyed at the end."""
+    t0 = time.perf_counter()
+    with one_rank_world(torch):
+        counts, summary = phase_sharded_train(torch, deepseek, none, step_3c, peak_3c)
+        gc.collect()
+        torch.cuda.empty_cache()
+        served, summary_b = phase_sharded_serve(torch, qwen3, none)
+        counts.update(served)
+        gc.collect()
+        torch.cuda.empty_cache()
+    summary = {"a": summary, "b": summary_b,
+               "c": phase_dryrun(torch, deepseek, summary)}
+    summary["seconds"] = time.perf_counter() - t0
+    print(f"  phase 3n took {summary['seconds']:.1f} s", flush=True)
+    return {path: {**none, **launched} for path, launched in counts.items()}, summary
+
+
+
 def k2_against(other: str) -> int:
     """Time bf16 K2 in this checkout and in ``other`` (e.g. the parent
     commit unpacked with ``git archive``) on one card, in turns: other,
@@ -3373,6 +3731,8 @@ def main() -> int:
                                                   save=False, fp32_layers=cfg.hybrid_every)
         else:
             counts[cfg.name], train = phase_train(torch, cfg, want, save=tag == "3")
+        if tag == "3c":
+            step_3c, peak_3c = train["step_s"], train["peak"]
         phase(f"5/5 where a full-width {cfg.name} step's device time goes")
         if cfg.ssm:
             kernels = "K1 and K2" if cfg.hybrid_every else "K1, K4 and K4-bwd"
@@ -3404,6 +3764,12 @@ def main() -> int:
     counts.update({path: {**none, **launched}
                    for path, launched in phase_serve_example(torch, none).items()})
     phase("3m/5 serving done")
+
+    phase("3n/5 the production SPMD lane: sharded train, prefill and decode steps, the dry run")
+    launched_3n, summary_3n = phase_production(torch, deepseek, qwen3, none, step_3c, peak_3c)
+    counts.update(launched_3n)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     phase("3e/5 Piper IR: the qwen3-1b proxy traced on meta tensors, chunks of real layers")
     counts["ir"] = {**none, **phase_ir(torch)}
@@ -3452,7 +3818,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     fp32 = dataclasses.replace(qwen3, n_layers=RUNTIME_CASE["fp32_layers"], dtype="float32")
     for path, launched in phase_lanes_model(torch, fp32, lanes=("mpmd/tcp",), remats=("full",),
-                                            timed=(), tag="(c)", timeout=900.0).items():
+                                            timed=(), tag="(c)", zero=TCP_ZERO,
+                                            timeout=900.0).items():
         counts[path] = {**none, **launched}
     gc.collect()
     torch.cuda.empty_cache()
@@ -3506,6 +3873,7 @@ def main() -> int:
     print("3g " + json.dumps(summary_3g), flush=True)
     print("3h " + json.dumps(summary_3h), flush=True)
     print("3m " + json.dumps(summary_3m), flush=True)
+    print("3n " + json.dumps(summary_3n), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

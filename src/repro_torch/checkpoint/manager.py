@@ -146,34 +146,37 @@ def _load_leaf(directory: pathlib.Path, name: str, meta: dict,
     return arr
 
 
-def _no_shardings(shardings) -> None:
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...) is not ported: it places leaves on a device mesh, "
-            "which needs the port of parallel/sharding.py; restore full leaves and "
-            "reshard them (checkpoint.reshard_tree)")
-
-
 def restore_tree(tree_like, directory: pathlib.Path, *, shardings=None,
                  verify: bool = True):
     """Restore into the structure of ``tree_like``; each leaf takes the
     device and dtype of its counterpart there.  ``verify=False`` skips
-    the per-leaf sha256 (the manifest's digest is always checked)."""
-    _no_shardings(shardings)
+    the per-leaf sha256 (the manifest's digest is always checked).
+    ``shardings``: a matching tree of ``parallel.sharding.Sharding``
+    (mesh and placements) for re-placement under a (possibly different)
+    mesh: each leaf is read whole and verified, then this rank keeps its
+    shard (``distribute_tensor`` from the leaf every rank read)."""
     directory = pathlib.Path(directory)
     manifest = load_manifest(directory)
+    flat = tree_flatten_with_path(tree_like)
+    sh_flat = ([sh for _, sh in tree_flatten_with_path(shardings)]
+               if shardings is not None else [None] * len(flat))
 
-    def restore(path, like):
+    def restore(path, like, sh):
         name = _leaf_name(path)
         meta = manifest["leaves"][name]
         arr = _load_leaf(directory, name, meta, verify)
         if tuple(arr.shape) != tuple(like.shape):
             raise ValueError(f"shape mismatch for {name}: "
                              f"{arr.shape} vs {tuple(like.shape)}")
-        return _from_host(arr, meta["dtype"], like)
+        leaf = _from_host(arr, meta["dtype"], like)
+        if sh is None:
+            return leaf
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(leaf.to(sh.mesh.device_type), sh.mesh, list(sh.placements),
+                                 src_data_rank=None)
 
-    return tree_unflatten(tree_like, [restore(path, like) for path, like
-                                      in tree_flatten_with_path(tree_like)])
+    return tree_unflatten(tree_like, [restore(path, like, sh) for (path, like), sh
+                                      in zip(flat, sh_flat)])
 
 
 class CheckpointManager:
@@ -243,13 +246,12 @@ class CheckpointManager:
             work()
 
     def restore(self, tree_like, step: Optional[int] = None, shardings=None):
-        _no_shardings(shardings)
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
         d = self.step_dir(step)
-        tree = restore_tree(tree_like, d)
+        tree = restore_tree(tree_like, d, shardings=shardings)
         return tree, load_manifest(d)["extra"]
 
     def _gc(self) -> None:

@@ -109,9 +109,15 @@ def takes_plain(*tensors) -> bool:
     """True when every given tensor (None skipped) lies on the CPU, or
     every one on the meta device: a kernel's wrapper then runs its plain
     version, which on meta tensors computes shapes only (the IR traces
-    regions that way).  Anything else goes to the kernel's own checks,
-    which launch on one CUDA device or raise."""
-    devs = {t.device for t in tensors if t is not None}
+    regions that way), or every one is a ``FakeTensor`` (the dry run),
+    whatever device it names.  Anything else (a DTensor included) goes
+    to the kernel's own checks, which launch on one CUDA device or
+    raise."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    given = [t for t in tensors if t is not None]
+    if given and all(isinstance(t, FakeTensor) for t in given):
+        return True
+    devs = {t.device for t in given}
     return len(devs) == 1 and next(iter(devs)).type in ("cpu", "meta")
 
 

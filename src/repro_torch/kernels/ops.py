@@ -12,6 +12,13 @@ shapes.  The Piper IR's backward chunks differentiate these Functions
 with ``torch.autograd.grad`` (``core.autodiff``), so a chunk over a
 decoder layer launches K1 and K2 on the card.
 ``register_kernels`` swaps them into the model layers' impl registry.
+
+On DTensors (the production SPMD lane) each Function runs under
+``local_map`` on the local shards, in a layout its kernel computes
+locally (``parallel.shards``): K1 with the normalised dim whole, K2
+with batch and heads sharded or q's sequence sharded (the shard's first
+row as ``q_offset``), K3 over the experts.  The local shards of a
+DTensor on the card are CUDA tensors, so the kernels launch there.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import torch
 
 from ..models import layers as L
 from ..models.attention import _flash_bwd, check_scale
+from ..parallel.shards import attention_on_shards, experts_on_shards, is_dtensor, rows_on_shards
 from . import flash_attention as _fa
 from . import mamba_scan as _ms
 from . import moe_gmm as _mg
@@ -47,6 +55,9 @@ def flash_attention(q, k, v, *, causal=True, q_offset=0, sm_scale=None,
     """``flash_attention_ref``'s contract through K2, with or without a
     sliding window; the backward masks the same keys."""
     check_scale(q.shape[-1], sm_scale)
+    if is_dtensor(q):
+        return attention_on_shards(flash_attention, q, k, v, causal=causal, q_offset=q_offset,
+                                   window=window, block_kv=block_kv)
     return _Flash.apply(q, k, v, causal, q_offset, window, block_kv)
 
 
@@ -81,6 +92,8 @@ class _RMSNorm(torch.autograd.Function):
 
 
 def rmsnorm(x, w, eps=1e-6):
+    if is_dtensor(x):
+        return rows_on_shards(rmsnorm, x, w, eps)
     return _RMSNorm.apply(x, w, float(eps))
 
 
@@ -134,6 +147,8 @@ class _MoeGmm(torch.autograd.Function):
 
 def moe_gmm(x, w):
     """``moe_gmm_ref``'s contract through K3: x (E, M, K) @ w (E, K, N)."""
+    if is_dtensor(x):
+        return experts_on_shards(moe_gmm, x, w)
     return _MoeGmm.apply(x, w)
 
 

@@ -184,8 +184,13 @@ class _FlashAttentionRef(torch.autograd.Function):
 
 def flash_attention_ref(q, k, v, *, causal=True, q_offset=0, sm_scale=None,
                         window=None, block_kv=512):
-    """Signature-compatible wrapper used as the default attention impl."""
+    """Signature-compatible wrapper used as the default attention impl.
+    On DTensors it runs on the local shards (``parallel.shards``)."""
     check_scale(q.shape[-1], sm_scale)
+    from ..parallel.shards import attention_on_shards, is_dtensor
+    if is_dtensor(q):
+        return attention_on_shards(flash_attention_ref, q, k, v, causal=causal,
+                                   q_offset=q_offset, window=window, block_kv=block_kv)
     return _FlashAttentionRef.apply(q, k, v, causal, q_offset, window, block_kv)
 
 

@@ -10,8 +10,9 @@ run everywhere.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -31,6 +32,125 @@ def register_impl(name: str, fn: Callable) -> None:
 
 def get_impl(name: str, default: Callable) -> Callable:
     return _IMPLS.get(name, default)
+
+
+# ---------------------------------------------------------------------------
+# logical-axis sharding constraints (set by the launch layer; no-op when
+# no mapping is active or the tensor is not a DTensor)
+# ---------------------------------------------------------------------------
+
+_AXIS_MAP: dict[str, Any] = {}
+
+
+def set_axis_map(mapping: Optional[dict]) -> None:
+    """mapping: logical -> mesh axis (or tuple), e.g.
+    {"dp": ("pod", "data"), "tp": "model"}, plus the launch layer's
+    switches ("attn_tp", "moe_a2a") and its "mesh"."""
+    global _AXIS_MAP
+    _AXIS_MAP = dict(mapping or {})
+
+
+def constrain(x, *logical):
+    """The JAX package's ``with_sharding_constraint`` on logical axes
+    ('dp'/'tp'/'sp'/None): a DTensor is redistributed to the placements
+    the axes name, an axis whose size does not divide its dim dropped (as
+    ``parallel.sharding._spec`` drops it).  A plain tensor, or no active
+    map, passes through.  No other error is caught."""
+    from ..parallel.shards import is_dtensor
+    if not _AXIS_MAP or not is_dtensor(x):
+        return x
+    from ..parallel.sharding import _spec, to_placements
+    mesh = x.device_mesh
+    axes = [(_AXIS_MAP.get(a) if a else None) for a in logical]
+    placements = to_placements(_spec(mesh, tuple(x.shape), *axes), mesh)
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(mesh, placements)
+
+
+def rows(x):
+    """``x`` ready for ``x @ W`` on DTensors: a matmul views (..., d) as
+    (rows, d), and DTensor can only express that view sharded when no
+    leading dim but the first is sharded (a batch-and-sequence-sharded
+    view becomes a strided shard, which its matmul rule replicates
+    whole).  So a DTensor's sharded middle dims (the sequence of
+    sequence parallelism) are gathered here, as Megatron's sequence
+    parallelism gathers before a column-parallel matmul; the batch stays
+    sharded.  A plain tensor passes through."""
+    from ..parallel.shards import is_dtensor
+    if not is_dtensor(x) or x.ndim < 3:
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    pl = tuple(Replicate() if isinstance(p, Shard) and 0 < p.dim < x.ndim - 1 else p
+               for p in x.placements)
+    return x if pl == tuple(x.placements) else x.redistribute(x.device_mesh, pl)
+
+
+def _cached_attention(q, k, v, kv_cache, cache_len, window):
+    """The KV-cache branch: the S new keys and values written into copies
+    of the cache at ``cache_len`` (the start clamped so that they fit),
+    then ``decode_attention`` over the first ``cache_len + S``: (out, new
+    k cache, new v cache).  On DTensors it runs on the local shards with
+    the batch sharded and the sequence and heads whole (``local_map``;
+    DTensor has no sharding rule for the write), so every rank computes
+    what a single device computes on its rows; the step's out-shardings
+    shard the new cache again."""
+    from ..parallel.shards import as_dtensor, is_dtensor
+
+    def branch(q, k, v, ck, cv, n):
+        s = q.shape[2]
+        start = torch.as_tensor(n, device=q.device).clamp(0, ck.shape[2] - s)
+        slots = start + torch.arange(s, device=q.device)
+        ck = ck.index_copy(2, slots, k.to(ck.dtype))
+        cv = cv.index_copy(2, slots, v.to(cv.dtype))
+        return decode_attention(q, ck, cv, n + s, window=window), ck, cv
+
+    if not is_dtensor(q):
+        return branch(q, k, v, *kv_cache, cache_len)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    q = batch_only(q)
+    pl = tuple(q.placements)
+    k, v, ck, cv = (as_dtensor(t, mesh).redistribute(mesh, pl) for t in (k, v, *kv_cache))
+    n, n_pl = cache_len, None
+    if isinstance(cache_len, torch.Tensor):
+        n, n_pl = as_dtensor(cache_len, mesh).redistribute(mesh, (Replicate(),) * mesh.ndim), \
+            (Replicate(),) * mesh.ndim
+    f = local_map(branch, out_placements=(pl, pl, pl),
+                  in_placements=(pl, pl, pl, pl, pl, n_pl), device_mesh=mesh)
+    return f(q, k, v, ck, cv, n)
+
+
+def split_heads(t, heads: int, head_dim: int):
+    """(B, S, heads*head_dim) -> (B, heads, S, head_dim).  A DTensor whose
+    feature dim is sharded into fewer parts than the heads divide (8 KV
+    heads over a 16-way axis) has that dim gathered first: DTensor cannot
+    unflatten an uneven shard."""
+    from ..parallel.shards import is_dtensor
+    b, s, _ = t.shape
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+        last = Shard(t.ndim - 1)
+        parts = 1
+        for i, p in enumerate(t.placements):
+            if p == last:
+                parts *= t.device_mesh.size(i)
+        if heads % parts:
+            t = t.redistribute(t.device_mesh, tuple(Replicate() if p == last else p
+                                                    for p in t.placements))
+    return t.reshape(b, s, heads, head_dim).transpose(1, 2)
+
+
+def batch_only(x):
+    """A DTensor with every shard but its batch's (dim 0) gathered; a
+    plain tensor passes through."""
+    from ..parallel.shards import is_dtensor
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    pl = tuple(p if p == Shard(0) else Replicate() for p in x.placements)
+    return x if pl == tuple(x.placements) else x.redistribute(x.device_mesh, pl)
 
 
 # ---------------------------------------------------------------------------
@@ -113,6 +233,8 @@ def default_mrope_positions(batch: int, seq: int, device=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _normal(gen: torch.Generator, shape, scale: float, dtype, device) -> torch.Tensor:
+    if torch.device(device).type == "meta":        # shapes only: nothing drawn
+        return torch.empty(shape, dtype=dtype, device="meta")
     t = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
     return (t * scale).to(device=device, dtype=dtype)
 
@@ -149,14 +271,26 @@ def attention_block(p, x, cfg, *, positions=None, mrope_positions=None, kv_cache
     plus ``cache_len``."""
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x = rows(x)
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, hq, hd).transpose(1, 2)
-    k = k.reshape(b, s, hkv, hd).transpose(1, 2)
-    v = v.reshape(b, s, hkv, hd).transpose(1, 2)
+    q, k, v = split_heads(q, hq, hd), split_heads(k, hkv, hd), split_heads(v, hkv, hd)
+    if _AXIS_MAP.get("attn_tp"):
+        # tensor-parallel attention: heads over the model axis (dropped
+        # on head counts the axis does not divide)
+        q = constrain(q, "dp", "tp", None, None)
+        k = constrain(k, "dp", "tp", None, None)
+        v = constrain(v, "dp", "tp", None, None)
+    else:
+        # context-parallel attention: q sharded over seq ('sp'), k and v
+        # whole on every shard (K2 takes the shard's first row as its
+        # q_offset)
+        q = constrain(q, "dp", None, "sp", None)
+        k = constrain(k, "dp", None, None, None)
+        v = constrain(v, "dp", None, None, None)
     base = 0 if cache_len is None else cache_len
     if cfg.mrope:
         mp = (mrope_positions if mrope_positions is not None
@@ -170,18 +304,17 @@ def attention_block(p, x, cfg, *, positions=None, mrope_positions=None, kv_cache
         k = apply_rope(k, positions, cfg.rope_theta)
     new_kv = None
     if kv_cache is not None:
-        ck, cv = kv_cache
-        start = torch.as_tensor(cache_len, device=x.device).clamp(0, ck.shape[2] - s)
-        rows = start + torch.arange(s, device=x.device)
-        ck = ck.index_copy(2, rows, k.to(ck.dtype))
-        cv = cv.index_copy(2, rows, v.to(cv.dtype))
+        out, ck, cv = _cached_attention(q, k, v, kv_cache, cache_len, window)
         new_kv = (ck, cv)
-        out = decode_attention(q, ck, cv, cache_len + s, window=window)
     else:
         attn = get_impl("attention", flash_attention_ref)
         out = attn(q, k, v, causal=causal, window=window)
-    out = out.transpose(1, 2).reshape(b, s, hq * hd)
-    return out @ p["wo"], new_kv
+    out = rows(out.transpose(1, 2).reshape(b, s, hq * hd))
+    # as one (B*S, H*D) matmul: at S = 1 the reshape above is a view with
+    # an odd stride on the unit dim, which makes ``matmul`` take a batched
+    # product where a DTensor's canonical local view takes ``mm``, and the
+    # two round differently
+    return (out.reshape(b * s, hq * hd) @ p["wo"]).reshape(b, s, -1), new_kv
 
 
 # ---------------------------------------------------------------------------
@@ -199,12 +332,13 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, act: str, dtype,
 
 
 def mlp_block(p, x, act: str = "swiglu"):
+    x = rows(x)
     if act == "swiglu":
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
         # JAX's gelu defaults to the tanh approximation
         h = F.gelu(x @ p["w_up"], approximate="tanh")
-    return h @ p["w_down"]
+    return rows(h) @ p["w_down"]
 
 
 # ---------------------------------------------------------------------------
@@ -303,7 +437,8 @@ def moe_block(p, x, *, n_experts: int, top_k: int, act: str = "swiglu",
     K, E = top_k, n_experts
     n_sc = _dispatch_groups(b, s)
     G, Tg = b * n_sc, s // n_sc
-    xt = x.reshape(G * Tg, d)
+    # one layout throughout the block: groups over dp, experts over tp
+    xt = constrain(x.reshape(G, Tg, d), "dp", None, None).reshape(G * Tg, d)
     probs, gate_vals, gate_idx = _router(p, xt, K)
     cap = max(1, int(capacity_factor * Tg * K / E))
     tok, filled, slot_of_choice = _route(gate_idx.reshape(G, Tg, K), E, cap)
@@ -311,17 +446,146 @@ def moe_block(p, x, *, n_experts: int, top_k: int, act: str = "swiglu",
     group = torch.arange(G, device=x.device)[:, None]
     src = (group * Tg + tok).reshape(G, E, cap).transpose(0, 1).reshape(-1)
     fill = filled.reshape(G, E, cap).transpose(0, 1).reshape(-1, 1).to(x.dtype)
-    x_e = (xt[src] * fill).reshape(E, G * cap, d)
-    y_e = moe_expert_mm(x_e, p, act).reshape(E * G * cap, d)
+    x_e = constrain((xt[src] * fill).reshape(E, G * cap, d), "tp", "dp", None)
+    y_e = constrain(moe_expert_mm(x_e, p, act), "tp", "dp", None).reshape(E * G * cap, d)
 
     kept = slot_of_choice < E * cap                                   # (G, Tg*K)
     row = (slot_of_choice // cap) * (G * cap) + group * cap + slot_of_choice % cap
     row = torch.where(kept, row, 0)                   # a dropped choice weighs 0
     gate = (gate_vals.reshape(G, Tg * K) * kept).to(x.dtype)
     y = (y_e[row.reshape(-1)] * gate.reshape(-1, 1)).reshape(G * Tg, K, d).sum(1)
+    y = constrain(y.reshape(G, Tg, d), "dp", None, None).reshape(G * Tg, d)
     if "shared" in p:
         y = y + mlp_block(p["shared"], xt, act)
     return y.reshape(b, s, d), moe_aux_loss(probs, gate_idx, n_experts)
+
+
+def moe_block_ep(p, x, *, n_experts: int, top_k: int, act: str = "swiglu",
+                 capacity_factor: float = 1.25, mesh=None, dp_axes=("data",),
+                 tp_axis: str = "model"):
+    """True expert-parallel MoE with explicit all-to-all dispatch on the
+    local shards (``local_map``; the JAX package's ``shard_map`` body,
+    the paper's Figure 1 EP).
+
+    Each rank routes its LOCAL tokens (x: batch over ``dp_axes``, seq
+    over ``tp_axis``), packs per-destination-rank send buffers of
+    ``cap_send`` rows (rank r owns experts [r*E_loc, (r+1)*E_loc)),
+    all-to-alls tokens and local expert ids over the tp group, computes
+    its local experts at capacity ``cap_e`` through ``moe_expert_mm``
+    (the ``"moe_gmm"`` impl, K3 on the card, where the JAX package uses
+    einsums), and all-to-alls results back for the gated combine at the
+    source.  The aux loss comes from sums over every mesh axis.  Slots
+    are filled by gathers through inverse maps and the combine sums each
+    token's K rows, so nothing is accumulated by atomics.  A plain
+    ``x`` runs the same body on the whole tensor (a mesh of one rank)."""
+    from ..parallel.shards import all_to_all, as_dtensor, is_dtensor, psum
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    b, s, d = x.shape
+    K, E = top_k, n_experts
+    sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+    tp = sizes[tp_axis]
+    E_loc = E // tp
+    dp_size = int(np.prod([sizes[a] for a in dp_axes]))
+    t_loc = (b // dp_size) * (s // tp)        # local tokens per device
+    cap_send = max(1, int(capacity_factor * t_loc * K / tp))
+    cap_e = max(1, int(capacity_factor * t_loc * K / E_loc))
+    tp_group = mesh.get_group(tp_axis)
+    all_groups = [mesh.get_group(a) for a in tuple(dp_axes) + (tp_axis,)]
+
+    def psum_all(t):
+        for g in all_groups:
+            t = psum(t, g)
+        return t
+
+    def body(xl, router, *ws):
+        dev = xl.device
+        bl, sl, _ = xl.shape
+        tl = bl * sl
+        xt = xl.reshape(tl, d)
+        probs, gate_vals, gate_idx = _router({"router": router}, xt, K)   # (tl, K)
+
+        tk = tl * K
+        eid = gate_idx.reshape(tk)
+        tok = torch.arange(tk, device=dev) // K
+        dest = eid // E_loc                                            # (tk,)
+        order = torch.argsort(dest, stable=True)
+        dest_s = dest[order]
+        seg = torch.searchsorted(dest_s, torch.arange(tp, device=dev), side="left")
+        pos = torch.arange(tk, device=dev) - seg[dest_s]
+        keep = pos < cap_send
+        n_send = tp * cap_send
+        slot = torch.where(keep, dest_s * cap_send + pos, n_send)
+        # which sorted choice fills each send slot (tk = none)
+        inv = torch.full((n_send + 1,), tk, dtype=torch.long, device=dev)
+        inv = inv.scatter_(0, slot, torch.arange(tk, device=dev))[:n_send]
+        sent = inv < tk
+        src = torch.where(sent, tok[order][inv.clamp(max=tk - 1)], tl)
+        send_x = torch.cat([xt, xt.new_zeros((1, d))])[src]            # (n_send, d)
+        send_le = torch.where(sent, (eid[order] % E_loc)[inv.clamp(max=tk - 1)], E_loc)
+
+        rx = all_to_all(send_x.reshape(tp, cap_send, d), tp_group)
+        rle = all_to_all(send_le.reshape(tp, cap_send), tp_group)
+
+        # local expert compute on received tokens
+        tr = n_send
+        xr = rx.reshape(tr, d)
+        er = rle.reshape(tr)                                           # E_loc = drop
+        order2 = torch.argsort(er, stable=True)
+        er_s = er[order2]
+        seg2 = torch.searchsorted(er_s, torch.arange(E_loc, device=dev), side="left")
+        pos2 = torch.arange(tr, device=dev) - seg2[er_s.clamp(max=E_loc - 1)]
+        keep2 = (pos2 < cap_e) & (er_s < E_loc)
+        n_e = E_loc * cap_e
+        slot2_s = torch.where(keep2, er_s * cap_e + pos2, n_e)
+        slot_of_recv = torch.empty_like(slot2_s).scatter_(0, order2, slot2_s)
+        inv2 = torch.full((n_e + 1,), tr, dtype=torch.long, device=dev)
+        inv2 = inv2.scatter_(0, slot_of_recv, torch.arange(tr, device=dev))[:n_e]
+        x_e = torch.cat([xr, xr.new_zeros((1, d))])[inv2].reshape(E_loc, cap_e, d)
+        names = ("we_gate", "we_up", "we_down") if act == "swiglu" else ("we_up", "we_down")
+        y_e = moe_expert_mm(x_e, dict(zip(names, ws)), act)
+        y_flat = torch.cat([y_e.reshape(n_e, d), y_e.new_zeros((1, d))])
+        y_r = y_flat[slot_of_recv]                                     # (tr, d)
+
+        y_back = all_to_all(y_r.reshape(tp, cap_send, d), tp_group).reshape(n_send, d)
+        # combine at the source: each choice reads its send slot's result
+        slot_of_choice = torch.empty_like(slot).scatter_(0, order, slot)   # (tk,)
+        kept = slot_of_choice < n_send
+        gate = (gate_vals.reshape(tk) * kept).to(y_back.dtype)
+        rows = torch.cat([y_back, y_back.new_zeros((1, d))])[slot_of_choice]
+        y_tok = (rows * gate[:, None]).reshape(tl, K, d).sum(1)
+
+        # load-balance aux: global means via sums over every mesh axis
+        n_tok_g = psum_all(torch.full((), float(tl), dtype=torch.float32, device=dev))
+        sum_probs = psum_all(probs.sum(0))                             # (E,)
+        sum_top1 = psum_all(F.one_hot(gate_idx[:, 0], E).float().sum(0))
+        aux = E * torch.sum((sum_probs / n_tok_g) * (sum_top1 / n_tok_g))
+        return y_tok.reshape(bl, sl, d), aux
+
+    names = ("we_gate", "we_up", "we_down") if act == "swiglu" else ("we_up", "we_down")
+    ws = tuple(p[n] for n in names)
+    if not is_dtensor(x):
+        y, aux = body(x, p["router"], *ws)
+    else:
+        def per_dim(on_dp, on_tp, other):
+            return tuple(on_dp if a in dp_axes else on_tp if a == tp_axis else other
+                         for a in mesh.mesh_dim_names)
+        xp = per_dim(Shard(0), Shard(1), Replicate())
+        rep = per_dim(Replicate(), Replicate(), Replicate())
+        rg = per_dim(Partial(), Partial(), Replicate())
+        wp = per_dim(Replicate(), Shard(0), Replicate())
+        wg = per_dim(Partial(), Shard(0), Replicate())
+        f = local_map(body, out_placements=(xp, rep),
+                      in_placements=(xp, rep) + (wp,) * len(ws),
+                      in_grad_placements=(xp, rg) + (wg,) * len(ws), device_mesh=mesh)
+        args = [x.redistribute(mesh, xp), as_dtensor(p["router"], mesh).redistribute(mesh, rep)]
+        args += [as_dtensor(w, mesh).redistribute(mesh, wp) for w in ws]
+        y, aux = f(*args)
+    if "shared" in p:
+        # in the routed output's layout (the gradient stays unflattened)
+        y = y + constrain(mlp_block(p["shared"], x, act), "dp", "sp", None)
+    return y, aux
 
 
 def moe_block_dense(p, x, *, n_experts: int, top_k: int, act: str = "swiglu",
@@ -515,8 +779,12 @@ def mamba_block(p, x, *, state: int, version: int, conv_state=None, ssm_state=No
     it), A = -exp(A_log) per head, and the SSD scan over heads of
     ``headdim`` channels (state (B, H, P, N))."""
     b, s, _ = x.shape
-    xz = x @ p["in_proj"]
+    xz = rows(x) @ p["in_proj"]
     xh, z = torch.chunk(xz, 2, dim=-1)                    # (B, S, Ci)
+    # the recurrence is independent per channel: d_inner over tp (the
+    # sequence dim stays whole for the scan)
+    xh = constrain(xh, "dp", None, "tp")
+    z = constrain(z, "dp", None, "tp")
     xh, new_conv = _causal_conv(xh, p["conv_w"], p["conv_b"], conv_state)
     xh = F.silu(xh)
     if version == 1:
@@ -535,4 +803,4 @@ def mamba_block(p, x, *, state: int, version: int, conv_state=None, ssm_state=No
         y, hT = _ssd_scan(xh.reshape(b, s, ci // headdim, headdim), dt, A, Bm, Cm, p["D"],
                           ssm_state, chunk=chunk)
         y = y.reshape(b, s, ci)
-    return (y * F.silu(z)) @ p["out_proj"], new_conv, hT
+    return rows(y * F.silu(z)) @ p["out_proj"], new_conv, hT

@@ -259,15 +259,26 @@ def _dec_layer(cfg, lp, x, enc_out=None, cross_lp=None, mrope_positions=None):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.ssm:
         return _mamba_layer(cfg, lp, x)[0], aux
-    x = x + L.attention_block(lp["attn"], _norm(cfg, lp["norm1"], x), cfg,
-                              mrope_positions=mrope_positions, causal=cfg.causal)[0]
+    x = x + _block_out(L.attention_block(lp["attn"], _norm(cfg, lp["norm1"], x), cfg,
+                                         mrope_positions=mrope_positions,
+                                         causal=cfg.causal)[0])
     if cross_lp is not None:
-        x = x + _cross_attn(cfg, cross_lp["attn"], _norm(cfg, cross_lp["norm"], x), enc_out)
+        x = x + _block_out(_cross_attn(cfg, cross_lp["attn"], _norm(cfg, cross_lp["norm"], x),
+                                       enc_out))
     h = _norm(cfg, lp["norm2"], x)
     if cfg.moe:
         m, aux = _moe_dispatch(cfg, lp["moe"], h)
-        return x + m, aux
-    return x + L.mlp_block(lp["mlp"], h, cfg.act), aux
+        return x + _block_out(m), aux
+    return x + _block_out(L.mlp_block(lp["mlp"], h, cfg.act)), aux
+
+
+def _block_out(y):
+    """A block's output in the residual stream's layout (batch over dp,
+    sequence over sp; a reduce-scatter of a row-parallel projection's
+    partial sums, as Megatron's sequence parallelism does).  Its
+    gradient then leaves the residual stream in the projection's own
+    layout, so no backward view flattens a sequence-sharded gradient."""
+    return L.constrain(y, "dp", "sp", None)
 
 
 def _mamba_layer(cfg, lp, x, conv_state=None, ssm_state=None):
@@ -276,16 +287,34 @@ def _mamba_layer(cfg, lp, x, conv_state=None, ssm_state=None):
         lp["mamba"], _norm(cfg, lp["norm"], x), state=cfg.ssm.state, version=cfg.ssm.version,
         conv_state=conv_state, ssm_state=ssm_state, headdim=cfg.ssm.headdim,
         chunk=cfg.ssm_chunk)
-    return x + h, new_conv, new_ssm
+    return x + (h if conv_state is not None else _block_out(h)), new_conv, new_ssm
 
 
 def _moe_dispatch(cfg, moe_params, h):
-    """The training path's MoE: the grouped single-device dispatch
-    (``decode_step`` calls ``L.moe_block`` directly, as the JAX package's
-    does).  The JAX package's expert-parallel all-to-all branch
-    (``moe_block_ep``) is not ported yet."""
-    return L.moe_block(moe_params, h, n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
-                       act=cfg.act, capacity_factor=cfg.moe.capacity_factor)
+    """Choose the training path's MoE: the explicit all-to-all EP
+    (``moe_block_ep``) when the launch layer's axis map asks for
+    ``moe_a2a``, holds a mesh, and the experts, the sequence and the
+    batch divide over its axes; else the grouped dispatch
+    (``moe_block``).  ``decode_step`` calls ``L.moe_block`` directly, as
+    the JAX package's does."""
+    kw = dict(n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+              act=cfg.act, capacity_factor=cfg.moe.capacity_factor)
+    amap = L._AXIS_MAP
+    mesh = amap.get("mesh")
+    if amap.get("moe_a2a") and mesh is not None:
+        tp_axis = amap.get("tp")
+        dp_axes = amap.get("dp")
+        dp_axes = (dp_axes,) if isinstance(dp_axes, str) else tuple(dp_axes)
+        sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+        tp = sizes[tp_axis]
+        dp = 1
+        for a in dp_axes:
+            dp *= sizes[a]
+        b, s, _ = h.shape
+        if cfg.moe.n_experts % tp == 0 and s % tp == 0 and b % dp == 0:
+            return L.moe_block_ep(moe_params, h, mesh=mesh, dp_axes=dp_axes,
+                                  tp_axis=tp_axis, **kw)
+    return L.moe_block(moe_params, h, **kw)
 
 
 def _cross_attn(cfg, ap, x, enc_out):
@@ -296,13 +325,13 @@ def _cross_attn(cfg, ap, x, enc_out):
     computes the same function without saving each block's
     probabilities."""
     b, s, _ = x.shape
-    se = enc_out.shape[1]
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ ap["wq"]).reshape(b, s, hq, hd).transpose(1, 2)
-    k = (enc_out @ ap["wk"]).reshape(b, se, hkv, hd).transpose(1, 2)
-    v = (enc_out @ ap["wv"]).reshape(b, se, hkv, hd).transpose(1, 2)
+    x, enc_out = L.rows(x), L.rows(enc_out)
+    q = L.split_heads(x @ ap["wq"], hq, hd)
+    k = L.split_heads(enc_out @ ap["wk"], hkv, hd)
+    v = L.split_heads(enc_out @ ap["wv"], hkv, hd)
     o = L.get_impl("attention", flash_attention_ref)(q, k, v, causal=False)
-    return o.transpose(1, 2).reshape(b, s, hq * hd) @ ap["wo"]
+    return L.rows(o.transpose(1, 2).reshape(b, s, hq * hd)) @ ap["wo"]
 
 
 def _unstack(tree, n: int) -> list:
@@ -329,6 +358,7 @@ def _run_decoder(cfg: ArchConfig, p: dict, x: torch.Tensor, enc_out=None,
             x, aux = checkpoint(_dec_layer, *args, use_reentrant=False)
         else:
             x, aux = _dec_layer(*args)
+        x = L.constrain(x, "dp", "sp", None)
         total = total + aux
     return x, total
 
@@ -336,8 +366,9 @@ def _run_decoder(cfg: ArchConfig, p: dict, x: torch.Tensor, enc_out=None,
 def _enc_layer(cfg, lp, x):
     """One encoder layer: non-causal self-attention (with RoPE, the
     config's documented deviation), then the MLP."""
-    x = x + L.attention_block(lp["attn"], _norm(cfg, lp["norm1"], x), cfg, causal=False)[0]
-    return x + L.mlp_block(lp["mlp"], _norm(cfg, lp["norm2"], x), cfg.act)
+    x = x + _block_out(L.attention_block(lp["attn"], _norm(cfg, lp["norm1"], x), cfg,
+                                         causal=False)[0])
+    return x + _block_out(L.mlp_block(lp["mlp"], _norm(cfg, lp["norm2"], x), cfg.act))
 
 
 def _run_encoder(cfg: ArchConfig, p: dict, frames: torch.Tensor) -> torch.Tensor:
@@ -356,9 +387,10 @@ def _hybrid_group(cfg, shared, group, x):
     config's sliding window) and MLP."""
     for lp in group:
         x = _mamba_layer(cfg, lp, x)[0]
-    x = x + L.attention_block(shared["attn"], _norm(cfg, shared["norm1"], x), cfg,
-                              causal=cfg.causal, window=cfg.sliding_window or None)[0]
-    return x + L.mlp_block(shared["mlp"], _norm(cfg, shared["norm2"], x), cfg.act)
+    x = x + _block_out(L.attention_block(shared["attn"], _norm(cfg, shared["norm1"], x), cfg,
+                                         causal=cfg.causal,
+                                         window=cfg.sliding_window or None)[0])
+    return x + _block_out(L.mlp_block(shared["mlp"], _norm(cfg, shared["norm2"], x), cfg.act))
 
 
 def _run_hybrid(cfg: ArchConfig, p: dict, x: torch.Tensor) -> tuple:
@@ -382,7 +414,7 @@ def _run_hybrid(cfg: ArchConfig, p: dict, x: torch.Tensor) -> tuple:
 
 
 def _logits(cfg: ArchConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
-    h = _norm(cfg, p["final_norm"], h)
+    h = L.rows(_norm(cfg, p["final_norm"], h))
     if cfg.tie_embeddings:
         return h @ p["embed"].T
     return h @ p["lm_head"]
@@ -393,7 +425,7 @@ def train_loss(cfg: ArchConfig, p: dict, batch: dict) -> torch.Tensor:
     adds frames (B, enc_seq, D), cast to the config's dtype; vlm may add
     mrope_positions (3, B, S).  Cross-entropy plus 0.01 x the layers'
     summed MoE aux loss."""
-    x = p["embed"][batch["tokens"]]
+    x = L.constrain(_embed(p["embed"], batch["tokens"]), "dp", "sp", None)
     enc_out = None
     if cfg.n_enc_layers:
         enc_out = _run_encoder(cfg, p, batch["frames"].to(cfg.tdtype))
@@ -402,14 +434,103 @@ def train_loss(cfg: ArchConfig, p: dict, batch: dict) -> torch.Tensor:
     return _ce_loss(cfg, p, h, batch["labels"]) + 0.01 * aux
 
 
+def _embed(table, tokens):
+    """``table[tokens]``.  On a DTensor table whose vocab is sharded, each
+    vocab shard looks up the tokens in its range and the result is a
+    partial sum over those shards (Megatron's vocab-parallel embedding),
+    so the table's vocab is never gathered; its other dims are gathered."""
+    from ..parallel.shards import as_dtensor, is_dtensor, shard_offset
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    tp = tuple(Shard(0) if pl == Shard(0) else Replicate() for pl in table.placements)
+    tokens = as_dtensor(tokens, mesh)
+    kp = tuple(Replicate() if t == Shard(0) or not isinstance(pl, Shard) else pl
+               for t, pl in zip(tp, tokens.placements))
+    op = tuple(Partial() if t == Shard(0) else pl for t, pl in zip(tp, kp))
+    off = shard_offset(table.shape[0], mesh, tp, 0)
+
+    def lookup(tab, tok):
+        local = tok.long() - off
+        inside = (local >= 0) & (local < tab.shape[0])
+        rows = tab[local.clamp(0, tab.shape[0] - 1)]
+        return rows * inside[..., None].to(rows.dtype)
+    # the table's gradient: its own rows on a vocab shard, a partial sum
+    # where the tokens' batch is sharded
+    tg = tuple(t if t == Shard(0) else Partial() if isinstance(k, Shard) else Replicate()
+               for t, k in zip(tp, kp))
+    f = local_map(lookup, out_placements=list(op), in_placements=(tp, kp),
+                  in_grad_placements=(tg, kp), device_mesh=mesh)
+    return f(table.redistribute(mesh, tp), tokens.redistribute(mesh, kp))
+
+
 def _ce_token_stats(cfg, p, h, labels):
     logits = _logits(cfg, p, h).float()
+    # batch over dp, vocab over tp: the vocab dim is never gathered
+    logits = L.constrain(logits, "dp", None, "tp")
+    mesh = L._AXIS_MAP.get("mesh")
+    if mesh is not None:
+        return _ce_stats_sharded(logits, labels, mesh)
     valid = labels >= 0
     lbl = torch.where(valid, labels, torch.zeros_like(labels))
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, lbl[..., None].long())[..., 0]
     nll = (logz - gold) * valid
     return nll.sum(), valid.sum()
+
+
+def _ce_stats_sharded(logits, labels, mesh):
+    """The production lane's cross-entropy sums (nll, valid tokens) on
+    the local shards, with the vocab never gathered: the row max (held
+    constant, as its gradient cancels) and the sum of exps reduced over
+    the vocab shards, the gold logit read on the shard that holds it,
+    and the two sums reduced over the row shards (``psum``: the loss's
+    cotangent is the same on every rank).  On plain tensors the same ops
+    run on the whole vocab with no collective."""
+    from ..parallel.shards import as_dtensor, is_dtensor, psum, shard_offset, wait
+
+    def body(lg, lb, v_groups=(), r_groups=(), off=0):
+        import torch.distributed._functional_collectives as funcol
+        m = lg.amax(dim=-1).detach()
+        for g in v_groups:
+            m = wait(funcol.all_reduce(m, "max", g))
+        se = torch.exp(lg - m[..., None]).sum(dim=-1)
+        gold = _gold(lg, lb, off)
+        for g in v_groups:
+            se, gold = psum(se, g), psum(gold, g)
+        valid = lb >= 0
+        nll = ((m + torch.log(se) - gold) * valid).sum()
+        nv = valid.sum()
+        for g in r_groups:
+            nll, nv = psum(nll, g), psum(nv, g)
+        return nll, nv
+
+    if not is_dtensor(logits):
+        return body(logits, labels)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    last = logits.ndim - 1
+    lp = tuple(pl if isinstance(pl, Shard) else Replicate() for pl in logits.placements)
+    bp = tuple(pl if isinstance(pl, Shard) and pl.dim != last else Replicate() for pl in lp)
+    v_groups = [mesh.get_group(i) for i, pl in enumerate(lp) if pl == Shard(last)]
+    r_groups = [mesh.get_group(i) for i, pl in enumerate(bp) if isinstance(pl, Shard)]
+    off = shard_offset(logits.shape[-1], mesh, lp, last)
+    rep = (Replicate(),) * mesh.ndim
+    f = local_map(lambda lg, lb: body(lg, lb, v_groups, r_groups, off),
+                  out_placements=(rep, rep), in_placements=(lp, bp), device_mesh=mesh)
+    return f(logits.redistribute(mesh, lp), as_dtensor(labels, mesh).redistribute(mesh, bp))
+
+
+def _gold(logits, lbl, offset: int):
+    """Each token's logit at its label, read from a vocab slice that
+    starts at ``offset`` (0 where the label lies outside it, or is -1)."""
+    v = logits.shape[-1]
+    local = lbl.long() - offset
+    inside = (local >= 0) & (local < v)
+    g = torch.gather(logits, -1, local.clamp(0, v - 1)[..., None])[..., 0]
+    return torch.where(inside, g, torch.zeros_like(g))
 
 
 def _ce_loss(cfg, p, h, labels):
@@ -420,6 +541,7 @@ def _ce_loss(cfg, p, h, labels):
         return nll / torch.clamp(nv, min=1)
     nll = torch.zeros((), dtype=torch.float32, device=h.device)
     nv = torch.zeros((), dtype=torch.int64, device=h.device)
+    h = L.constrain(h, "dp", None, None)        # the chunks slice the sequence
     for i in range(s // c):
         hi, li = h[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
         if cfg.remat == "full":

@@ -210,9 +210,9 @@ class TestCheckpointIntegrity:
         # verify=False skips the sha256: the flipped bytes come back
         flipped = restore_tree(tree, ckpt.step_dir(4), verify=False)
         assert bits(flipped["w"]) != bits(tree["w"] + 1)
-        with pytest.raises(NotImplementedError,
-                           match="is not ported: it places leaves on a device mesh"):
-            ckpt.restore(tree, step=2, shardings={"w": None, "b": None})
+        # a None sharding leaves a leaf unplaced, as the JAX package's does
+        plain, _ = ckpt.restore(tree, step=2, shardings={"w": None, "b": None})
+        assert params_bits({"t": plain}) == params_bits({"t": tree})
 
     def test_corruption_hits_the_same_file_and_offsets_as_jax(self, tmp_path):
         mine, _, _ = self.save_two(tmp_path / "torch")
