@@ -17,7 +17,7 @@ On DTensors (the production SPMD lane) each Function runs under
 ``local_map`` on the local shards, in a layout its kernel computes
 locally (``parallel.shards``): K1 with the normalised dim whole, K2
 with batch and heads sharded or q's sequence sharded (the shard's first
-row as ``q_offset``), K3 over the experts.  The local shards of a
+row as ``q_offset``), K3 over the experts, K4 over the channels.  The local shards of a
 DTensor on the card are CUDA tensors, so the kernels launch there.
 """
 from __future__ import annotations
@@ -26,7 +26,8 @@ import torch
 
 from ..models import layers as L
 from ..models.attention import _flash_bwd, check_scale
-from ..parallel.shards import attention_on_shards, experts_on_shards, is_dtensor, rows_on_shards
+from ..parallel.shards import (attention_on_shards, experts_on_shards, is_dtensor, rows_on_shards,
+                               scan_on_shards)
 from . import flash_attention as _fa
 from . import mamba_scan as _ms
 from . import moe_gmm as _mg
@@ -125,6 +126,8 @@ def mamba_scan(xz, dt, A, B, C, D, h0=None, chunk=None):
     """``ssm_scan_ref``'s contract through K4 and K4-bwd: returns
     (y + x*D in x's dtype, hT fp32).  ``chunk`` is ignored, as the JAX
     wrapper ignores it."""
+    if is_dtensor(xz):
+        return scan_on_shards(mamba_scan, xz, dt, A, B, C, D, h0=h0, chunk=chunk)
     y, hT = _MambaScan.apply(xz, dt, A, B, C, h0)
     return y + xz * D.to(xz.dtype), hT
 

@@ -122,6 +122,25 @@ def _cached_attention(q, k, v, kv_cache, cache_len, window):
     return f(q, k, v, ck, cv, n)
 
 
+def merge_heads(t):
+    """(B, H, S, D) -> (B, S, H*D).  A DTensor runs it on its local
+    shards (batch, heads or sequence), so the gradient comes back in the
+    same layout: DTensor cannot unflatten a merged dim that a projection's
+    gradient shards unevenly over the heads (20 heads over 16)."""
+    from ..parallel.shards import is_dtensor
+    b, h, s, d = t.shape
+    if not is_dtensor(t):
+        return t.transpose(1, 2).reshape(b, s, h * d)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = t.device_mesh
+    ip = tuple(p if isinstance(p, Shard) and p.dim < 3 else Replicate() for p in t.placements)
+    op = tuple(Shard((0, 2, 1)[p.dim]) if isinstance(p, Shard) else p for p in ip)
+    f = local_map(lambda x: x.transpose(1, 2).reshape(x.shape[0], x.shape[2], -1),
+                  out_placements=list(op), in_placements=(ip,), device_mesh=mesh)
+    return f(t.redistribute(mesh, ip))
+
+
 def split_heads(t, heads: int, head_dim: int):
     """(B, S, heads*head_dim) -> (B, heads, S, head_dim).  A DTensor whose
     feature dim is sharded into fewer parts than the heads divide (8 KV
@@ -309,7 +328,7 @@ def attention_block(p, x, cfg, *, positions=None, mrope_positions=None, kv_cache
     else:
         attn = get_impl("attention", flash_attention_ref)
         out = attn(q, k, v, causal=causal, window=window)
-    out = rows(out.transpose(1, 2).reshape(b, s, hq * hd))
+    out = rows(merge_heads(out))
     # as one (B*S, H*D) matmul: at S = 1 the reshape above is a view with
     # an odd stride on the unit dim, which makes ``matmul`` take a batched
     # product where a DTensor's canonical local view takes ``mm``, and the
@@ -432,10 +451,22 @@ def moe_block(p, x, *, n_experts: int, top_k: int, act: str = "swiglu",
     (row ``e*G*cap + g*cap + c`` holds slot ``e*cap + c`` of group g), so
     the experts run as one grouped matmul through ``moe_expert_mm``.
     Each token sums its kept choices' rows weighted by their gates.
-    x: (B, S, D) -> (y (B, S, D), load-balancing aux loss)."""
+    x: (B, S, D) -> (y (B, S, D), load-balancing aux loss).  A DTensor x
+    runs on its batch shards (``_moe_block_on_shards``)."""
+    from ..parallel.shards import is_dtensor
+    kw = dict(n_experts=n_experts, top_k=top_k, act=act, capacity_factor=capacity_factor)
+    if is_dtensor(x):
+        return _moe_block_on_shards(p, x, **kw)
+    y, probs, gate_idx = _moe_grouped(p, x, n_sc=_dispatch_groups(*x.shape[:2]), **kw)
+    return y, moe_aux_loss(probs, gate_idx, n_experts)
+
+
+def _moe_grouped(p, x, *, n_experts: int, top_k: int, act: str, capacity_factor: float,
+                 n_sc: int):
+    """``moe_block``'s dispatch over groups of ``S // n_sc`` tokens:
+    (y, router probs, expert ids)."""
     b, s, d = x.shape
     K, E = top_k, n_experts
-    n_sc = _dispatch_groups(b, s)
     G, Tg = b * n_sc, s // n_sc
     # one layout throughout the block: groups over dp, experts over tp
     xt = constrain(x.reshape(G, Tg, d), "dp", None, None).reshape(G * Tg, d)
@@ -457,7 +488,48 @@ def moe_block(p, x, *, n_experts: int, top_k: int, act: str = "swiglu",
     y = constrain(y.reshape(G, Tg, d), "dp", None, None).reshape(G * Tg, d)
     if "shared" in p:
         y = y + mlp_block(p["shared"], xt, act)
-    return y.reshape(b, s, d), moe_aux_loss(probs, gate_idx, n_experts)
+    return y.reshape(b, s, d), probs, gate_idx
+
+
+def _moe_block_on_shards(p, x, *, n_experts: int, top_k: int, act: str,
+                         capacity_factor: float):
+    """``moe_block`` on a DTensor x: each rank dispatches the groups of
+    its batch shard (the groups are the whole run's, so routing and
+    drops are unchanged) with the experts gathered, under ``local_map``
+    (DTensor has no rule for the routing's sorts and searches); the aux
+    loss takes its means from sums over the batch shards.  The ranks of
+    a mesh dim that does not shard the batch compute alike."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..parallel.shards import as_dtensor, psum
+    from ..tree import tree_flatten_with_path, tree_unflatten
+    mesh = x.device_mesh
+    n_sc = _dispatch_groups(*x.shape[:2])
+    xp = tuple(Shard(0) if pl == Shard(0) else Replicate() for pl in x.placements)
+    rep = (Replicate(),) * mesh.ndim
+    wg = tuple(Partial() if pl == Shard(0) else Replicate() for pl in xp)
+    groups = [mesh.get_group(i) for i, pl in enumerate(xp) if pl == Shard(0)]
+    leaves = [leaf for _, leaf in tree_flatten_with_path(p)]
+
+    def psum_rows(t):
+        for g in groups:
+            t = psum(t, g)
+        return t
+
+    def body(xl, *ws):
+        y, probs, gate_idx = _moe_grouped(tree_unflatten(p, list(ws)), xl, n_experts=n_experts,
+                                          top_k=top_k, act=act,
+                                          capacity_factor=capacity_factor, n_sc=n_sc)
+        n = psum_rows(torch.full((), float(probs.shape[0]), device=xl.device))
+        me = psum_rows(probs.sum(0)) / n
+        top1 = psum_rows(F.one_hot(gate_idx[:, 0], n_experts).float().sum(0)) / n
+        return y, n_experts * torch.sum(me * top1)
+
+    f = local_map(body, out_placements=(xp, rep), in_placements=(xp,) + (rep,) * len(leaves),
+                  in_grad_placements=(xp,) + (wg,) * len(leaves), device_mesh=mesh)
+    return f(x.redistribute(mesh, xp),
+             *(as_dtensor(w, mesh).redistribute(mesh, rep) for w in leaves))
 
 
 def moe_block_ep(p, x, *, n_experts: int, top_k: int, act: str = "swiglu",
@@ -702,7 +774,11 @@ def ssm_scan_ref(xz, dt, A, B, C, D, h0=None, chunk: int = SSM_CHUNK):
     D: (C,).  Returns (y (B, S, C) in xz's dtype, last state (B, C, N)
     fp32).  Each chunk runs under ``torch.utils.checkpoint``, so autograd
     keeps only the chunk-boundary states and the decay terms exp(dt*A)
-    are rebuilt per step: no (B, S, C, N) tensor exists."""
+    are rebuilt per step: no (B, S, C, N) tensor exists.  On DTensors it
+    runs on the local shards (``parallel.shards.scan_on_shards``)."""
+    from ..parallel.shards import is_dtensor, scan_on_shards
+    if is_dtensor(xz):
+        return scan_on_shards(ssm_scan_ref, xz, dt, A, B, C, D, h0=h0, chunk=chunk)
     b, s, c = xz.shape
     n = A.shape[1]
     h = (torch.zeros((b, c, n), dtype=torch.float32, device=xz.device) if h0 is None
@@ -747,7 +823,11 @@ def _ssd_scan(x_h, dt, A, B, C, D, h0=None, chunk: int = SSM_CHUNK):
     A and D shared by each head's P channels; written per head, nothing of
     size (B, S, H*P, N) or a repeated dt exists.  Each chunk runs under
     ``torch.utils.checkpoint``, so autograd keeps only the chunk-boundary
-    states.  No kernel: the JAX package runs it in jnp too."""
+    states.  No kernel: the JAX package runs it in jnp too.  On DTensors
+    it runs on the local shards, heads as x_h holds them."""
+    from ..parallel.shards import is_dtensor, scan_on_shards
+    if is_dtensor(x_h):
+        return scan_on_shards(_ssd_scan, x_h, dt, A, B, C, D, h0=h0, chunk=chunk)
     b, s, h, p_ = x_h.shape
     n = B.shape[-1]
     state = (torch.zeros((b, h, p_, n), dtype=torch.float32, device=x_h.device)

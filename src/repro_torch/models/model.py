@@ -324,14 +324,13 @@ def _cross_attn(cfg, ap, x, enc_out):
     on the card, with the flash backward from its logsumexp), which
     computes the same function without saving each block's
     probabilities."""
-    b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     x, enc_out = L.rows(x), L.rows(enc_out)
     q = L.split_heads(x @ ap["wq"], hq, hd)
     k = L.split_heads(enc_out @ ap["wk"], hkv, hd)
     v = L.split_heads(enc_out @ ap["wv"], hkv, hd)
     o = L.get_impl("attention", flash_attention_ref)(q, k, v, causal=False)
-    return L.rows(o.transpose(1, 2).reshape(b, s, hq * hd)) @ ap["wo"]
+    return L.rows(L.merge_heads(o)) @ ap["wo"]
 
 
 def _unstack(tree, n: int) -> list:

@@ -13,7 +13,9 @@ inputs' placements:
                  sequence sharded with k and v whole ("cp"), the shard's
                  first row passed as ``q_offset`` so the causal mask
                  holds;
-  grouped mm (K3) the experts dim sharded alike on x and w, or x's rows.
+  grouped mm (K3) the experts dim sharded alike on x and w, or x's rows;
+  the scans (K4)  the channels (Mamba-1) or heads (Mamba-2) as x holds
+                 them, the sequence whole.
 
 Its backward runs under the same layout; a weight or a key that is
 replicated for the compute takes its gradient as a partial sum over the
@@ -224,3 +226,38 @@ def experts_on_shards(fn, x, w):
     f = local_map(fn, out_placements=list(xp), in_placements=(xp, wp),
                   in_grad_placements=(xp, wg), device_mesh=mesh)
     return f(x.redistribute(mesh, xp), w.redistribute(mesh, wp))
+
+
+def scan_on_shards(fn, x, dt, A, B, C, D, h0=None, **kw):
+    """``fn(x, dt, A, B, C, D, h0=h0, **kw)``, a selective scan (x (B, S,
+    C) with A (C, N), or the SSD scan's x (B, S, H, P) with dt (B, S, H)
+    and A (H,)), on shards: the batch and x's channels (heads, dim 2) as
+    x holds them, dt, A, D and the state alike, B and C whole over the
+    channel shards (their gradients partial there), the sequence whole.
+    Each channel's recurrence is independent, so every rank runs its
+    own."""
+    mesh = x.device_mesh
+    parts = {0: 1, 2: 1}
+    xp = []
+    for i, pl in enumerate(x.placements):
+        d = pl.dim if isinstance(pl, Shard) else None
+        if d in (0, 2) and x.shape[d] % (parts[d] * mesh.size(i)) == 0:
+            xp.append(Shard(d))
+            parts[d] *= mesh.size(i)
+        else:
+            xp.append(Replicate())
+    xp = tuple(xp)
+
+    def per(on_batch, on_channel, other):
+        return tuple(on_batch if p == Shard(0) else on_channel if p == Shard(2) else other
+                     for p in xp)
+    ap, ag = per(Replicate(), Shard(0), Replicate()), per(Partial(), Shard(0), Replicate())
+    bp, bg = per(Shard(0), Replicate(), Replicate()), per(Shard(0), Partial(), Replicate())
+    hp = per(Shard(0), Shard(1), Replicate())
+    f = local_map(lambda *a: fn(*a[:6], h0=a[6], **kw), out_placements=(xp, hp),
+                  in_placements=(xp, xp, ap, bp, bp, ap, None if h0 is None else hp),
+                  in_grad_placements=(xp, xp, ag, bg, bg, ag, None if h0 is None else hp),
+                  device_mesh=mesh)
+    put = [as_dtensor(t, mesh).redistribute(mesh, pl)
+           for t, pl in ((x, xp), (dt, xp), (A, ap), (B, bp), (C, bp), (D, ap))]
+    return f(*put, None if h0 is None else as_dtensor(h0, mesh).redistribute(mesh, hp))
