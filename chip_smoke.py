@@ -162,8 +162,9 @@ DeepSeek-MoE-16B at 2 of its 28 layers through ``sharded_train_step``
 (ZeRO-3, ``moe_impl="a2a"``, so ``moe_block_ep`` runs its experts on
 K3), launches exact, the first step bit-equal to ``build_step`` on local
 tensors under the same axis map, loss and gradients with the kernels
-against their plain versions routed alike, the median step, busy share
-and peak beside phase 3c's; (b) Qwen3-1.7B whole through
+against their plain versions routed alike, the median step beside the
+local steps' (DTensor's dispatch), busy share and peak beside phase
+3c's; (b) Qwen3-1.7B whole through
 ``sharded_prefill_step`` and 8 ``sharded_decode_step``s, launches exact,
 logits and every cache leaf bit-equal to phase 3m's functions fed the
 same tokens; (c) ``python -m repro_torch.launch.dryrun`` for (a)'s cell
@@ -3282,7 +3283,7 @@ K2_AB = [(BATCH, 16, SEQ, 64), (BATCH, 16, SEQ, 128)]
 # ("data", "model") mesh; NCCL refuses two ranks on one card, so the
 # multi-rank worlds run on the CPU (tests/test_torch_production.py)
 SHARDED_MESH = ((1, 1), ("data", "model"))
-SHARDED_STEPS = 3
+SHARDED_STEPS = 5
 SHARDED_LR = 3e-4
 SHARDED_DECODE = 8
 
@@ -3356,8 +3357,10 @@ def phase_sharded_train(torch, cfg, none: dict, step_3c: float, peak_3c: int) ->
     ``build_step`` on local tensors under the same axis map, each run from
     one host snapshot, one after the other; the loss and every gradient
     leaf with the kernels against their plain versions routed alike
-    (PLAIN_RTOL); the median step, a profiled step's busy share and the
-    peak beside phase 3c's.  Returns (launches, summary)."""
+    (PLAIN_RTOL); the median sharded step beside the median of the local
+    steps (their difference is DTensor's dispatch), a profiled step's
+    busy share, and the peak beside phase 3c's.  Returns (launches,
+    summary)."""
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import axis_map, local_bytes, sharded_train_step, strategy_for
@@ -3418,11 +3421,20 @@ def phase_sharded_train(torch, cfg, none: dict, step_3c: float, peak_3c: int) ->
     del state, met
     gc.collect()
     torch.cuda.empty_cache()
-    # the same step functions on local tensors, from the same snapshot
+    # the same step functions on local tensors, from the same snapshot,
+    # timed as the sharded steps: the difference is DTensor's dispatch
+    local, ref, local_times = fresh(), None, []
+    step = build_step(cfg, lambda step: SHARDED_LR, "cuda")
     with axis_map(mesh, strat):
-        local, lmet = build_step(cfg, lambda step: SHARDED_LR, "cuda")(fresh(), batch)
-    ref = host(torch, {"loss": lmet["loss"], "params": local["params"], "m": local["opt"]["m"],
-                       "v": local["opt"]["v"]})
+        for i in range(SHARDED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            local, lmet = step(local, batch)
+            torch.cuda.synchronize()
+            local_times.append(time.perf_counter() - t0)
+            if i == 0:
+                ref = host(torch, {"loss": lmet["loss"], "params": local["params"],
+                                   "m": local["opt"]["m"], "v": local["opt"]["v"]})
     del local, lmet
     gc.collect()
     torch.cuda.empty_cache()
@@ -3450,17 +3462,22 @@ def phase_sharded_train(torch, cfg, none: dict, step_3c: float, peak_3c: int) ->
         fail(f"(a) kernels and plain versions disagree: loss {loss_err:.3e}, "
              f"{worst} {errs[worst]:.3e}")
     step_s = statistics.median(times[1:])
+    local_s = statistics.median(local_times[1:])
     summary = {"step_ms": step_s * 1e3, "steps_ms": [t * 1e3 for t in times],
+               "local_step_ms": local_s * 1e3, "local_steps_ms": [t * 1e3 for t in local_times],
+               "dispatch_ms": (step_s - local_s) * 1e3,
                "step_3c_ms": step_3c * 1e3, "busy_share": prof["busy_share"],
                "profiled_ms": prof["ms"], "profiled_launches": prof["launches"],
                "peak_gib": peak / 2**30, "peak_3c_gib": peak_3c / 2**30,
                "arg_bytes": arg_bytes, "loss_rel_err_plain": loss_err,
                "worst_leaf_rel_l2_plain": errs[worst]}
-    print(f"  (a) sharded step median {step_s * 1e3:.1f} ms over steps 2-{SHARDED_STEPS} "
-          f"(phase 3c's step {step_3c * 1e3:.1f} ms on local tensors: DTensor's dispatch "
-          f"costs {(step_s - step_3c) * 1e3:.1f} ms of host), {BATCH * SEQ / step_s:.0f} "
-          f"tokens/s, busy {prof['busy_share']:.1%} of a profiled step, peak "
-          f"{peak / 2**30:.2f} GiB (phase 3c {peak_3c / 2**30:.2f})", flush=True)
+    print(f"  (a) sharded step median {step_s * 1e3:.1f} ms over steps 2-{SHARDED_STEPS}, "
+          f"the same step functions on local tensors {local_s * 1e3:.1f} ms (steps "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in local_times)}): DTensor's "
+          f"dispatch costs {(step_s - local_s) * 1e3:.1f} ms of host; "
+          f"{BATCH * SEQ / step_s:.0f} tokens/s, busy {prof['busy_share']:.1%} of a profiled "
+          f"step, peak {peak / 2**30:.2f} GiB (phase 3c, through the grouped moe_block: "
+          f"step {step_3c * 1e3:.1f} ms, peak {peak_3c / 2**30:.2f} GiB)", flush=True)
     ops.unregister_kernels()
     return {f"3n {cfg.name} sharded train, {SHARDED_STEPS} steps": launched}, summary
 

@@ -17,6 +17,7 @@ joined with ``__``, as the JAX package names them.
 from __future__ import annotations
 
 import hashlib
+import itertools
 import json
 import os
 import pathlib
@@ -158,8 +159,17 @@ def restore_tree(tree_like, directory: pathlib.Path, *, shardings=None,
     directory = pathlib.Path(directory)
     manifest = load_manifest(directory)
     flat = tree_flatten_with_path(tree_like)
-    sh_flat = ([sh for _, sh in tree_flatten_with_path(shardings)]
-               if shardings is not None else [None] * len(flat))
+    if shardings is None:
+        sh_flat = [None] * len(flat)
+    else:
+        sh_paths = tree_flatten_with_path(shardings)
+        for (path, _), (sh_path, _) in itertools.zip_longest(flat, sh_paths,
+                                                             fillvalue=(None, None)):
+            if path != sh_path:
+                name = (lambda q: "nothing" if q is None else _leaf_name(q))
+                raise ValueError(f"shardings do not match the tree: leaf {name(path)} "
+                                 f"against the shardings' {name(sh_path)}")
+        sh_flat = [sh for _, sh in sh_paths]
 
     def restore(path, like, sh):
         name = _leaf_name(path)

@@ -549,13 +549,17 @@ def moe_block_ep(p, x, *, n_experts: int, top_k: int, act: str = "swiglu",
     source.  The aux loss comes from sums over every mesh axis.  Slots
     are filled by gathers through inverse maps and the combine sums each
     token's K rows, so nothing is accumulated by atomics.  A plain
-    ``x`` runs the same body on the whole tensor (a mesh of one rank)."""
+    ``x`` runs the same body on the whole tensor, which is the local
+    shard only on a mesh of one rank: a larger mesh raises ValueError."""
     from ..parallel.shards import all_to_all, as_dtensor, is_dtensor, psum
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     b, s, d = x.shape
     K, E = top_k, n_experts
+    if not is_dtensor(x) and mesh.size() > 1:
+        raise ValueError(f"moe_block_ep: a plain x on a mesh of {mesh.size()} ranks; "
+                         f"give it a DTensor, whose local shard each rank routes")
     sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
     tp = sizes[tp_axis]
     E_loc = E // tp

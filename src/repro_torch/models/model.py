@@ -469,25 +469,18 @@ def _ce_token_stats(cfg, p, h, labels):
     logits = _logits(cfg, p, h).float()
     # batch over dp, vocab over tp: the vocab dim is never gathered
     logits = L.constrain(logits, "dp", None, "tp")
-    mesh = L._AXIS_MAP.get("mesh")
-    if mesh is not None:
-        return _ce_stats_sharded(logits, labels, mesh)
-    valid = labels >= 0
-    lbl = torch.where(valid, labels, torch.zeros_like(labels))
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lbl[..., None].long())[..., 0]
-    nll = (logz - gold) * valid
-    return nll.sum(), valid.sum()
+    return _ce_stats(logits, labels)
 
 
-def _ce_stats_sharded(logits, labels, mesh):
-    """The production lane's cross-entropy sums (nll, valid tokens) on
-    the local shards, with the vocab never gathered: the row max (held
-    constant, as its gradient cancels) and the sum of exps reduced over
+def _ce_stats(logits, labels):
+    """Cross-entropy sums (nll, valid tokens), ``m + log Σ exp(x - m)``
+    less the gold logit, with the row max m held constant (its gradient
+    cancels).  On a DTensor the same ops run on the local shards with
+    the vocab never gathered: the max and the sum of exps reduced over
     the vocab shards, the gold logit read on the shard that holds it,
     and the two sums reduced over the row shards (``psum``: the loss's
-    cotangent is the same on every rank).  On plain tensors the same ops
-    run on the whole vocab with no collective."""
+    cotangent is the same on every rank).  On plain tensors they run on
+    the whole vocab with no collective."""
     from ..parallel.shards import as_dtensor, is_dtensor, psum, shard_offset, wait
 
     def body(lg, lb, v_groups=(), r_groups=(), off=0):
@@ -510,6 +503,7 @@ def _ce_stats_sharded(logits, labels, mesh):
         return body(logits, labels)
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
+    mesh = logits.device_mesh
     last = logits.ndim - 1
     lp = tuple(pl if isinstance(pl, Shard) else Replicate() for pl in logits.placements)
     bp = tuple(pl if isinstance(pl, Shard) and pl.dim != last else Replicate() for pl in lp)

@@ -214,6 +214,13 @@ class TestCheckpointIntegrity:
         plain, _ = ckpt.restore(tree, step=2, shardings={"w": None, "b": None})
         assert params_bits({"t": plain}) == params_bits({"t": tree})
 
+    @pytest.mark.parametrize("shardings", [{"w": None}, {"w": None, "b": None, "c": None},
+                                           {"a": None, "w": None}])
+    def test_restore_refuses_shardings_of_another_tree(self, tmp_path, shardings):
+        ckpt, tree, _ = self.save_two(tmp_path)
+        with pytest.raises(ValueError, match="shardings do not match the tree"):
+            ckpt.restore(tree, step=2, shardings=shardings)
+
     def test_corruption_hits_the_same_file_and_offsets_as_jax(self, tmp_path):
         mine, _, _ = self.save_two(tmp_path / "torch")
         theirs, _, _ = self.save_two(tmp_path / "jax", jckpt.CheckpointManager, np)

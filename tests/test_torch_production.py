@@ -180,7 +180,6 @@ WORKER = textwrap.dedent('''
                 piece = piece.narrow(d, idx * size, size)
             local = t.to_local()
             ok.append(bool(local.dtype == piece.dtype and local.shape == piece.shape
-                           and torch.equal(local.view(torch.uint8) if False else local, piece)
                            and local.contiguous().view(-1).view(torch.uint8).equal(
                                piece.contiguous().view(-1).view(torch.uint8))))
         out["restored_ok"] = ok
@@ -430,6 +429,18 @@ def test_moe_block_ep_world_8(inputs, jax_multi_device, tmp_path):
     for k in g_d:
         np.testing.assert_allclose(drop["grads"][k].numpy(), ref["ep_g_" + k], err_msg=k,
                                    **EP_TOL)
+
+
+def test_moe_block_ep_refuses_a_plain_tensor_on_many_ranks(inputs):
+    # a plain x is the local shard only on a one-rank mesh; on a larger
+    # one its capacities would be sized for shards it does not hold
+    from types import SimpleNamespace
+    from repro_torch.models.layers import moe_block_ep
+    tp = {k: torch.from_numpy(v) for k, v in inputs["ep"].items()}
+    with pytest.raises(ValueError, match="plain x on a mesh of 8 ranks"):
+        moe_block_ep(tp, torch.from_numpy(inputs["ep_x"]), n_experts=EP["E"], top_k=EP["K"],
+                     mesh=SimpleNamespace(size=lambda: 8), dp_axes=("data",),
+                     tp_axis="model")
 
 
 def test_pipeline_loss_world_4(inputs, jax_multi_device, tmp_path):
