@@ -1779,8 +1779,8 @@ def phase_runtime_model(torch, cfg, timed: bool = True) -> dict:
         if not all(math.isfinite(e) for e in errs.values()) or errs[worst] > grad_rtol:
             fail(f"runtime (b) remat={remat}: {worst} at {errs[worst]:.3e}")
         check_ledgers(res, f"runtime (b) remat={remat}")
-        if timed:
-            step_profile(torch, f"interpreted step, remat {remat}", lambda: ex.run(batch))
+        # no profiled interpreted step since phase 3o came (the script's
+        # time limit); the lanes' profiles in phase 3h stand in for it
         if timed and remat == "none":
             stash_profile(torch, prog, bparams, batch, forward, shape)
         del ex, res, prog
@@ -3347,7 +3347,10 @@ def sharded_loss_grads(torch, cfg, fn, params, batch, replay=None) -> tuple:
             [c.clone() for c in calls])
 
 
-def phase_sharded_train(torch, cfg, none: dict, step_3c: float, peak_3c: int) -> tuple:
+def phase_sharded_train(torch, cfg, none: dict, step_3c: float, peak_3c: int,
+                        per_step: dict | None = None, ref_phase: str = "3c",
+                        strategy_kw: dict | None = None, tag: str = "(a)",
+                        path: str = "3n") -> tuple:
     """(a) ``cfg`` (DeepSeek-MoE-16B at DEEPSEEK_LAYERS layers, bf16,
     remat "full") through ``sharded_train_step`` on the one-rank mesh:
     ZeRO-3 rules with ``moe_impl="a2a"`` from ``strategy_for``, so
@@ -3359,8 +3362,10 @@ def phase_sharded_train(torch, cfg, none: dict, step_3c: float, peak_3c: int) ->
     leaf with the kernels against their plain versions routed alike
     (PLAIN_RTOL); the median sharded step beside the median of the local
     steps (their difference is DTensor's dispatch), a profiled step's
-    busy share, and the peak beside phase 3c's.  Returns (launches,
-    summary)."""
+    busy share, and the peak beside phase 3c's.  Phase 3o(a) runs
+    Falcon-Mamba-7B so (``per_step`` its launches a step, ``ref_phase``
+    the phase whose step and peak it prints beside its own, ``strategy_kw``
+    the rules' options).  Returns (launches, summary)."""
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import axis_map, local_bytes, sharded_train_step, strategy_for
@@ -3370,7 +3375,8 @@ def phase_sharded_train(torch, cfg, none: dict, step_3c: float, peak_3c: int) ->
     from repro_torch.tree import tree_map
 
     mesh = make_mesh(*SHARDED_MESH, device_type="cuda")
-    strat = strategy_for(mesh, zero_stage=3, moe_impl="a2a")
+    strat = strategy_for(mesh, zero_stage=3,
+                         **(strategy_kw if strategy_kw is not None else {"moe_impl": "a2a"}))
     snapshot = host(torch, init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"))
     first = path_loader(torch, cfg).next_batch()
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in first.items()}   # int32
@@ -3388,7 +3394,7 @@ def phase_sharded_train(torch, cfg, none: dict, step_3c: float, peak_3c: int) ->
     placed = fn.place(state, batch)
     arg_bytes = local_bytes(placed[0]) + local_bytes(placed[1])
     del placed
-    print(f"  (a) {cfg.name}, {cfg.n_layers} layers, bf16, batch {BATCH} x {SEQ}, remat "
+    print(f"  {tag} {cfg.name}, {cfg.n_layers} layers, bf16, batch {BATCH} x {SEQ}, remat "
           f"{cfg.remat}, mesh {SHARDED_MESH}: {strat}; placed state and batch {arg_bytes} B",
           flush=True)
     ops.register_kernels()
@@ -3407,17 +3413,19 @@ def phase_sharded_train(torch, cfg, none: dict, step_3c: float, peak_3c: int) ->
             out = host(torch, {"loss": met["loss"], "params": state["params"],
                                "m": state["opt"]["m"], "v": state["opt"]["v"]})
         if not math.isfinite(met["loss"].to_local().item()):
-            fail(f"(a) step {i}: loss {met['loss'].to_local().item()}")
+            fail(f"{tag} step {i}: loss {met['loss'].to_local().item()}")
     launched = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     L = cfg.n_layers
-    want = {**none, "rmsnorm": (4 * L + 1) * SHARDED_STEPS,
-            "flash_attention": 2 * L * SHARDED_STEPS, "moe_gmm": 6 * L * SHARDED_STEPS,
-            "moe_gmm_bwd": 6 * L * SHARDED_STEPS}
-    print(f"  (a) launches over {SHARDED_STEPS} steps {launched}, expected {want}", flush=True)
+    if per_step is None:
+        per_step = {"rmsnorm": 4 * L + 1, "flash_attention": 2 * L, "moe_gmm": 6 * L,
+                    "moe_gmm_bwd": 6 * L}
+    want = {**none, **{k: v * SHARDED_STEPS for k, v in per_step.items()}}
+    print(f"  {tag} launches over {SHARDED_STEPS} steps {launched}, expected {want}",
+          flush=True)
     if launched != want:
-        fail(f"(a) kernel launches {launched} != {want}")
-    prof = step_profile(torch, "sharded step (a)", lambda: fn(state, batch))
+        fail(f"{tag} kernel launches {launched} != {want}")
+    prof = step_profile(torch, f"sharded step {tag}", lambda: fn(state, batch))
     del state, met
     gc.collect()
     torch.cuda.empty_cache()
@@ -3438,8 +3446,8 @@ def phase_sharded_train(torch, cfg, none: dict, step_3c: float, peak_3c: int) ->
     del local, lmet
     gc.collect()
     torch.cuda.empty_cache()
-    same_tree_bits(torch, out, ref, "(a) sharded step against build_step on local tensors")
-    print(f"  (a) the first sharded step: loss {out['loss'].item():.6f} and every new leaf "
+    same_tree_bits(torch, out, ref, f"{tag} sharded step against build_step on local tensors")
+    print(f"  {tag} the first sharded step: loss {out['loss'].item():.6f} and every new leaf "
           f"(params, m, v) bit-equal to build_step on local tensors under the same axis map",
           flush=True)
     # kernels against plain versions, routed as the kernel run
@@ -3454,32 +3462,32 @@ def phase_sharded_train(torch, cfg, none: dict, step_3c: float, peak_3c: int) ->
     errs = {"/".join(path): rel_l2(g, gp[path]) for path, g in tree_flatten_with_path(grads_k)}
     worst = max(errs, key=errs.get)
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
-    print(f"  (a) kernels against plain versions on the sharded path, routed alike: loss "
+    print(f"  {tag} kernels against plain versions on the sharded path, routed alike: loss "
           f"{loss_k:.6f} vs {loss_p:.6f} (rel {loss_err:.3e}, limit {loss_rtol}); worst leaf "
           f"{worst} {errs[worst]:.3e} (limit {grad_rtol}) over {len(errs)} leaves", flush=True)
     if loss_err > loss_rtol or not all(math.isfinite(e) for e in errs.values()) \
             or errs[worst] > grad_rtol:
-        fail(f"(a) kernels and plain versions disagree: loss {loss_err:.3e}, "
+        fail(f"{tag} kernels and plain versions disagree: loss {loss_err:.3e}, "
              f"{worst} {errs[worst]:.3e}")
     step_s = statistics.median(times[1:])
     local_s = statistics.median(local_times[1:])
     summary = {"step_ms": step_s * 1e3, "steps_ms": [t * 1e3 for t in times],
                "local_step_ms": local_s * 1e3, "local_steps_ms": [t * 1e3 for t in local_times],
                "dispatch_ms": (step_s - local_s) * 1e3,
-               "step_3c_ms": step_3c * 1e3, "busy_share": prof["busy_share"],
+               "ref": ref_phase, "step_3c_ms": step_3c * 1e3, "busy_share": prof["busy_share"],
                "profiled_ms": prof["ms"], "profiled_launches": prof["launches"],
                "peak_gib": peak / 2**30, "peak_3c_gib": peak_3c / 2**30,
                "arg_bytes": arg_bytes, "loss_rel_err_plain": loss_err,
                "worst_leaf_rel_l2_plain": errs[worst]}
-    print(f"  (a) sharded step median {step_s * 1e3:.1f} ms over steps 2-{SHARDED_STEPS}, "
+    print(f"  {tag} sharded step median {step_s * 1e3:.1f} ms over steps 2-{SHARDED_STEPS}, "
           f"the same step functions on local tensors {local_s * 1e3:.1f} ms (steps "
           f"{', '.join(f'{t * 1e3:.1f}' for t in local_times)}): DTensor's "
           f"dispatch costs {(step_s - local_s) * 1e3:.1f} ms of host; "
           f"{BATCH * SEQ / step_s:.0f} tokens/s, busy {prof['busy_share']:.1%} of a profiled "
-          f"step, peak {peak / 2**30:.2f} GiB (phase 3c, through the grouped moe_block: "
-          f"step {step_3c * 1e3:.1f} ms, peak {peak_3c / 2**30:.2f} GiB)", flush=True)
+          f"step, peak {peak / 2**30:.2f} GiB (phase {ref_phase} on local tensors: step "
+          f"{step_3c * 1e3:.1f} ms, peak {peak_3c / 2**30:.2f} GiB)", flush=True)
     ops.unregister_kernels()
-    return {f"3n {cfg.name} sharded train, {SHARDED_STEPS} steps": launched}, summary
+    return {f"{path} {cfg.name} sharded train, {SHARDED_STEPS} steps": launched}, summary
 
 
 def phase_sharded_serve(torch, cfg, none: dict) -> tuple:
@@ -3557,58 +3565,93 @@ def phase_sharded_serve(torch, cfg, none: dict) -> tuple:
             f"3n {cfg.name} sharded decode, {SHARDED_DECODE} steps": decode_launches}, summary
 
 
+def one_rank_cell(cfg, moe: str = "grouped") -> list:
+    """The dry run's command line for ``cfg``'s cell cut to one card, as
+    the sharded training phases run it."""
+    return ["--arch", cfg.name, "--shape", "train_4k", "--mesh", "single", "--layers",
+            str(cfg.n_layers), "--batch", str(BATCH), "--seq", str(SEQ), "--loss-chunk",
+            str(cfg.loss_chunk), "--moe", moe, "--remat", cfg.remat]
+
+
 def dryrun_cells(deepseek) -> list:
     """(c) the dry run's two cells: (a)'s on the one-rank mesh, and
     qwen3-1b ``train_4k`` on ``pod1``; each a ``python -m
     repro_torch.launch.dryrun`` command line."""
-    one = ["--arch", deepseek.name, "--shape", "train_4k", "--mesh", "single", "--layers",
-           str(deepseek.n_layers), "--batch", str(BATCH), "--seq", str(SEQ), "--loss-chunk",
-           str(deepseek.loss_chunk), "--moe", "a2a", "--remat", deepseek.remat]
-    return [one, ["--arch", "qwen3-1b", "--shape", "train_4k", "--mesh", "pod1"]]
+    return [one_rank_cell(deepseek, "a2a"),
+            ["--arch", "qwen3-1b", "--shape", "train_4k", "--mesh", "pod1"]]
 
 
-def phase_dryrun(torch, deepseek, summary_a: dict) -> dict:
-    """(c) both dry-run cells in subprocesses at once (each its own fake
-    world of 1 or 256 ranks, meta tensors, no device work): the one-rank
-    cell's ``argument_size_in_bytes`` must equal (a)'s placed state and
-    batch; its peak prints beside (a)'s ``max_memory_allocated``; the pod
-    cell's memory per device, FLOPs, collective bytes by kind, roofline
-    terms and seconds print."""
+def start_dryruns(cells: list) -> list:
+    """Dry-run cells started in subprocesses at once (each its own fake
+    world, meta tensors, no device work): [(cell, start, process)]."""
     out = ROOT / "build" / "dryrun_torch_smoke"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     procs = []
-    for cell in dryrun_cells(deepseek):
+    for cell in cells:
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *cell, "--device", "cuda",
                "--out", str(out), "--force"]
         procs.append((cell, time.perf_counter(), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)))
+    return procs
+
+
+def run_dryruns(cells, tag: str, timeout: float = 600.0) -> list:
+    """Dry-run cells (command lines, or ``start_dryruns``' processes)
+    each within ``timeout`` seconds of its start (the phase fails
+    otherwise); every cell's memory per device, FLOPs, collective bytes
+    by kind, roofline terms and seconds print.  Returns the cells'
+    records, each with its wall seconds."""
+    procs = cells if cells and isinstance(cells[0], tuple) else start_dryruns(cells)
     res = []
     for cell, t0, proc in procs:
+        left = max(timeout - (time.perf_counter() - t0), 1.0)
         try:
-            stdout, stderr = proc.communicate(timeout=600)
+            stdout, stderr = proc.communicate(timeout=left)
         except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.communicate()
-            fail(f"(c) dry run {cell} did not end in 600 s")
+            for _, _, other in procs:
+                other.kill()
+                other.communicate()
+            fail(f"{tag} dry run {cell} did not end in {timeout:.0f} s")
         wall = time.perf_counter() - t0
         line = [ln for ln in stdout.splitlines() if ln.startswith("DRYRUN ")]
         if proc.returncode or not line:
-            fail(f"(c) dry run {cell} failed ({proc.returncode}): {stdout[-1500:]} "
+            fail(f"{tag} dry run {cell} failed ({proc.returncode}): {stdout[-1500:]} "
                  f"{stderr[-3000:]}")
         r = json.loads(line[-1][len("DRYRUN "):])
         r["wall_s"] = wall
         res.append(r)
-        print(f"  (c) dry run {r['arch']} {r['shape']} {r['mesh']} ({r['chips']} ranks): memory "
-              f"{r['memory']}, flops {r['flops']:.6e}, collective {r['collective']}, roofline "
-              f"{r['roofline']}, step run in {r['run_s']} s, {wall:.1f} s in all", flush=True)
-    one, pod = res
+        print(f"  {tag} dry run {r['arch']} {r['shape']} {r['mesh']} ({r['chips']} ranks): "
+              f"memory {r['memory']}, flops {r['flops']:.6e}, collective {r['collective']}, "
+              f"roofline {r['roofline']}, step run in {r['run_s']} s, {wall:.1f} s in all",
+              flush=True)
+    return res
+
+
+def check_one_rank_cell(one: dict, summary_a: dict, tag: str, peak_rtol=None) -> None:
+    """The one-rank cell's ``argument_size_in_bytes`` must equal the
+    sharded phase's placed state and batch; its counted peak prints
+    beside that phase's ``max_memory_allocated`` (and must lie within
+    ``peak_rtol`` of it when given)."""
     got = one["memory"]["argument_size_in_bytes"]
-    print(f"  (c) one-rank cell: argument_size_in_bytes {got} against (a)'s placed state and "
-          f"batch {summary_a['arg_bytes']}; peak {one['memory']['peak_bytes'] / 2**30:.2f} GiB "
-          f"counted against (a)'s max_memory_allocated {summary_a['peak_gib']:.2f} GiB",
-          flush=True)
+    peak = one["memory"]["peak_bytes"] / 2**30
+    print(f"  {tag} one-rank cell: argument_size_in_bytes {got} against the sharded step's "
+          f"placed state and batch {summary_a['arg_bytes']}; peak {peak:.2f} GiB counted "
+          f"against its max_memory_allocated {summary_a['peak_gib']:.2f} GiB "
+          f"({peak / summary_a['peak_gib'] - 1:+.2%})", flush=True)
     if got != summary_a["arg_bytes"]:
-        fail(f"(c) dry-run argument bytes {got} != (a)'s {summary_a['arg_bytes']}")
+        fail(f"{tag} dry-run argument bytes {got} != the sharded step's {summary_a['arg_bytes']}")
+    if peak_rtol is not None and abs(peak / summary_a["peak_gib"] - 1) > peak_rtol:
+        fail(f"{tag} dry-run peak {peak:.2f} GiB not within {peak_rtol:.0%} of "
+             f"{summary_a['peak_gib']:.2f} GiB")
+
+
+def phase_dryrun(torch, deepseek, summary_a: dict) -> dict:
+    """(c) both dry-run cells in subprocesses at once (each its own fake
+    world of 1 or 256 ranks): the one-rank cell's
+    ``argument_size_in_bytes`` must equal (a)'s placed state and batch;
+    its peak prints beside (a)'s ``max_memory_allocated``."""
+    one, pod = run_dryruns(dryrun_cells(deepseek), "(c)")
+    check_one_rank_cell(one, summary_a, "(c)")
     return {"single": one, "pod1": pod}
 
 
@@ -3629,6 +3672,116 @@ def phase_production(torch, deepseek, qwen3, none: dict, step_3c: float, peak_3c
     print(f"  phase 3n took {summary['seconds']:.1f} s", flush=True)
     return {path: {**none, **launched} for path, launched in counts.items()}, summary
 
+
+
+# phase 3o: the SSM family through the production SPMD lane, the SSM and
+# hybrid dry-run cells, and the ported examples
+SSM_POD_CELLS = [["--arch", "zamba2-2.7b", "--shape", "train_4k", "--mesh", "pod1"],
+                 ["--arch", "falcon-mamba-7b", "--shape", "prefill_32k", "--mesh", "pod1"]]
+SSM_POD_TIMEOUT = 300.0
+DRYRUN_PEAK_RTOL = 0.10
+QUICKSTART_STEPS = 100
+
+
+def quickstart_launches(none: dict) -> dict:
+    """K1 and K2 launches of ``examples/quickstart_torch.py``: the CLI's
+    reduced qwen1.5-0.5b (2 layers at width 128), QUICKSTART_STEPS steps;
+    each layer's two norms and attention run again in a "full" remat's
+    recompute, the final norm once."""
+    from types import SimpleNamespace
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import _reduced
+    cfg = _reduced(get_config("qwen1.5-0.5b"), SimpleNamespace(layers=2, d_model=128, vocab=512))
+    runs = 2 if cfg.remat == "full" else 1
+    return {**none, "rmsnorm": (2 * runs * cfg.n_layers + 1) * QUICKSTART_STEPS,
+            "flash_attention": runs * cfg.n_layers * QUICKSTART_STEPS}
+
+
+def run_example_main(name: str, argv: list):
+    """``examples/<name>.py``'s ``main(argv)`` with its lines captured;
+    returns (its result, the lines)."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    module = __import__(name)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = module.main(argv)
+    return result, buf.getvalue().strip().splitlines()
+
+
+def phase_examples(torch, none: dict) -> tuple:
+    """(d) ``examples/quickstart_torch.py`` (the Strategy scored on the
+    simulator, then QUICKSTART_STEPS steps of the CLI on the card with the
+    kernels registered: K1 and K2 launches exact, the loss falling) and
+    ``examples/dualpipe_moe_torch.py`` (three schedules' interpreter
+    losses against the unscheduled oracle within 1e-6, on the card), each
+    called as its ``main``."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, lines = run_example_main("quickstart_torch", [])
+    torch.cuda.synchronize()
+    launched = ops.launch_counts()
+    ops.unregister_kernels()
+    secs = time.perf_counter() - t0
+    for line in lines[:2] + lines[-1:]:
+        print(f"  (d) quickstart_torch: {line}", flush=True)
+    want = quickstart_launches(none)
+    print(f"  (d) quickstart_torch: {secs:.1f} s, launches {launched}, expected {want}",
+          flush=True)
+    if rc != 0 or launched != want:
+        fail(f"(d) quickstart_torch: exit {rc}, launches {launched} (expected {want})")
+    t1 = time.perf_counter()
+    results, lines = run_example_main("dualpipe_moe_torch", [])
+    for line in lines:
+        if line:
+            print(f"  (d) dualpipe_moe_torch: {line}", flush=True)
+    worst = max(abs(loss - oracle) for loss, oracle, _ in results.values())
+    print(f"  (d) dualpipe_moe_torch: {len(results)} schedules, worst |loss - oracle| "
+          f"{worst:.3e} (limit 1e-6), {time.perf_counter() - t1:.1f} s", flush=True)
+    if len(results) != 3 or worst >= 1e-6:
+        fail(f"(d) dualpipe_moe_torch: {results}")
+    return ({"3o examples/quickstart_torch.py": launched},
+            {"quickstart_s": secs, "dualpipe_s": time.perf_counter() - t1,
+             "dualpipe_worst_loss_err": worst,
+             "makespans_ms": {k: v[2] * 1e3 for k, v in results.items()}})
+
+
+def phase_production_ssm(torch, falcon, none: dict, step_3b: float, peak_3b: int) -> tuple:
+    """Phase 3o: (a) ``falcon`` (Falcon-Mamba-7B at FALCON_LAYERS, as phase
+    3b) through ``sharded_train_step`` in a one-rank NCCL world on phase
+    3n's (1, 1) mesh with ZeRO-3, K4 and K4-bwd on local shards under
+    ``scan_on_shards``, against ``build_step`` on local tensors; (b) the
+    dry run of the same cut cell on one rank: its argument bytes equal
+    (a)'s placed state and batch, its counted peak within
+    DRYRUN_PEAK_RTOL of (a)'s ``max_memory_allocated``; (c) the SSM and
+    the hybrid family's pod cells (SSM_POD_CELLS) at once, each within
+    SSM_POD_TIMEOUT s; (d) the ported examples."""
+    t0 = time.perf_counter()
+    L = falcon.n_layers
+    # the dry runs take the host's other cores while (a) and (d) run
+    dry = start_dryruns([one_rank_cell(falcon)] + SSM_POD_CELLS)
+    try:
+        with one_rank_world(torch):
+            counts, summary_a = phase_sharded_train(
+                torch, falcon, none, step_3b, peak_3b,
+                per_step={"rmsnorm": 2 * L + 1, "mamba_scan": 2 * L, "mamba_scan_bwd": L},
+                ref_phase="3b", strategy_kw={}, path="3o")
+            gc.collect()
+            torch.cuda.empty_cache()
+        launched, summary_d = phase_examples(torch, none)
+        counts.update(launched)
+        (one,) = run_dryruns(dry[:1], "(b)")
+        check_one_rank_cell(one, summary_a, "(b)", peak_rtol=DRYRUN_PEAK_RTOL)
+        pods = run_dryruns(dry[1:], "(c)", timeout=SSM_POD_TIMEOUT)
+    finally:
+        for _, _, proc in dry:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    summary = {"a": summary_a, "b": one, "c": pods, "d": summary_d,
+               "seconds": time.perf_counter() - t0}
+    print(f"  phase 3o took {summary['seconds']:.1f} s", flush=True)
+    return {path: {**none, **launched} for path, launched in counts.items()}, summary
 
 
 def k2_against(other: str) -> int:
@@ -3750,6 +3903,8 @@ def main() -> int:
             counts[cfg.name], train = phase_train(torch, cfg, want, save=tag == "3")
         if tag == "3c":
             step_3c, peak_3c = train["step_s"], train["peak"]
+        if tag == "3b":
+            step_3b, peak_3b = train["step_s"], train["peak"]
         phase(f"5/5 where a full-width {cfg.name} step's device time goes")
         if cfg.ssm:
             kernels = "K1 and K2" if cfg.hybrid_every else "K1, K4 and K4-bwd"
@@ -3785,6 +3940,12 @@ def main() -> int:
     phase("3n/5 the production SPMD lane: sharded train, prefill and decode steps, the dry run")
     launched_3n, summary_3n = phase_production(torch, deepseek, qwen3, none, step_3c, peak_3c)
     counts.update(launched_3n)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("3o/5 the SSM family on the production SPMD lane, the SSM dry-run cells, the examples")
+    launched_3o, summary_3o = phase_production_ssm(torch, falcon, none, step_3b, peak_3b)
+    counts.update(launched_3o)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3891,6 +4052,7 @@ def main() -> int:
     print("3h " + json.dumps(summary_3h), flush=True)
     print("3m " + json.dumps(summary_3m), flush=True)
     print("3n " + json.dumps(summary_3n), flush=True)
+    print("3o " + json.dumps(summary_3o), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

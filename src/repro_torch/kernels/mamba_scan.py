@@ -39,6 +39,7 @@ import ctypes
 
 import torch
 
+from .. import shapeonly
 from . import _build
 
 CHUNK = 16              # steps between saved states (the kernel's kChunk)
@@ -85,12 +86,33 @@ def _n_chunks(s: int) -> int:
     return -(-s // CHUNK)
 
 
+def _sizes(x, dt, A, B, C, h0_or_hs, s: int, dy=None, dhT=None, **kw):
+    """The plain versions' arguments at ``k`` whole chunks of CHUNK steps
+    and this call's remainder (the forward's, or with ``dy`` the
+    backward's, whose chunk states hold one state per started chunk)."""
+    r = s % CHUNK
+    x, dt, A, B, C, h0_or_hs, dy, dhT = shapeonly.specs(x, dt, A, B, C, h0_or_hs, dy, dhT)
+
+    def make(k):
+        L, S = shapeonly.like, k * CHUNK + r
+        head = (L(x, d1=S), L(dt, d1=S), L(A), L(B, d1=S), L(C, d1=S))
+        if dy is None:
+            return head + (L(h0_or_hs),), kw
+        return head + (L(h0_or_hs, d1=k + (r > 0)), L(dy, d1=S), L(dhT)), kw
+    return make
+
+
 def mamba_scan_plain(x, dt, A, B, C, h0=None, save_states: bool = False):
     """The kernel's arithmetic in plain PyTorch, one step at a time over
     (B, C, N).  Returns (y in x's dtype without the x*D term, hT fp32,
     the state at the start of every ``CHUNK`` steps or None)."""
     _check(x, dt, A, B, C, h0)
     b, s, c = x.shape
+    if s >= shapeonly.MIN_STEPS and shapeonly.applies(x, dt, A, B, C, h0):
+        return shapeonly.run(mamba_scan_plain, (x, dt, A, B, C, h0),
+                             {"save_states": save_states},
+                             _sizes(x, dt, A, B, C, h0, s, save_states=save_states),
+                             (s // CHUNK,))
     n = A.shape[1]
     h = (torch.zeros((b, c, n), dtype=torch.float32, device=x.device) if h0 is None
          else h0.float())
@@ -113,6 +135,9 @@ def mamba_scan_bwd_plain(x, dt, A, B, C, hs, dy, dhT=None):
     then walked backwards one step at a time over (B, C, N).  Returns
     (dx, ddt, dA, dB, dC, dh0), each in its input's dtype (dh0 fp32)."""
     b, s, c = x.shape
+    if s >= shapeonly.MIN_STEPS and shapeonly.applies(x, dt, A, B, C, hs, dy, dhT):
+        return shapeonly.run(mamba_scan_bwd_plain, (x, dt, A, B, C, hs, dy, dhT), {},
+                             _sizes(x, dt, A, B, C, hs, s, dy, dhT), (s // CHUNK,))
     x32, dt32, B32, C32, dy32 = x.float(), dt.float(), B.float(), C.float(), dy.float()
     g = (torch.zeros_like(hs[:, 0]) if dhT is None else dhT.float().clone())
     dx, ddt = torch.empty_like(x32), torch.empty_like(x32)

@@ -42,6 +42,7 @@ from collections import defaultdict
 
 import torch
 
+from .. import shapeonly
 from ..configs import ASSIGNED, get_config
 from ..runtime.costmodel import HBM_BW, ICI_BW, PEAK_FLOPS_BF16
 from . import hlo_stats
@@ -74,11 +75,15 @@ def _tensors(x):
     return [t for t in tree_leaves(x) if isinstance(t, torch.Tensor)]
 
 
-class LocalCounter(LocalDispatchMode):
+class LocalCounter(shapeonly.Charged, LocalDispatchMode):
     """FLOPs (``torch.utils.flop_counter``'s formulas, matmuls and
     convolutions), bytes accessed (each op's inputs read and outputs
     written once, no fusion: an upper bound) and the peak of live local
-    storage bytes over the ops a rank runs."""
+    storage bytes over the ops a rank runs.  The scans' shape-only path
+    charges the FLOPs and bytes of the steps it skips and allocates what
+    they would hold."""
+
+    tracks_storage = True
 
     def __init__(self):
         super().__init__()
@@ -122,6 +127,21 @@ class LocalCounter(LocalDispatchMode):
         self.bytes_accessed += sum(t.numel() * t.element_size() for t in ins + outs)
         for t in outs:
             self.track(t)
+
+    def allocated(self, out) -> None:
+        for t in _tensors(out):
+            self.track(t)
+
+    def tally(self) -> dict:
+        return {"flops": self.flops, "bytes": self.bytes_accessed,
+                **{("op", k): v for k, v in self.by_op.items()}}
+
+    def charge(self, delta: dict) -> None:
+        self.flops += delta.get("flops", 0)
+        self.bytes_accessed += delta.get("bytes", 0)
+        for key, v in delta.items():
+            if isinstance(key, tuple):
+                self.by_op[key[1]] += v
 
 
 MESH_NAMES = ("pod1", "pod2", "single")
@@ -208,6 +228,32 @@ def save(result: dict, out_dir: pathlib.Path) -> pathlib.Path:
     return path
 
 
+def all_cells() -> list:
+    """The JAX package's cells: every assigned arch x shape x {pod1, pod2}."""
+    return [(arch, shape, mesh) for arch in ASSIGNED for shape in SHAPES
+            for mesh in ("pod1", "pod2")]
+
+
+def run_all(argv: list, jobs: int = 1) -> int:
+    """Every cell, each in a process of its own (one fake world each),
+    ``jobs`` at a time; the cells' other flags are ``argv``'s (a cell
+    ignores ``--jobs``).  Returns 1 if any cell failed."""
+    passed = [a for a in argv if a != "--all"]
+    cmds = [[sys.executable, "-m", "repro_torch.launch.dryrun", *passed, "--arch", arch,
+             "--shape", shape, "--mesh", mesh] for arch, shape, mesh in all_cells()]
+    failures, running = 0, []
+    while cmds or running:
+        while cmds and len(running) < max(jobs, 1):
+            running.append(subprocess.Popen(cmds.pop(0)))
+        done = next((p for p in running if p.poll() is not None), None)
+        if done is None:
+            time.sleep(0.2)
+            continue
+        running.remove(done)
+        failures += done.returncode != 0
+    return 1 if failures else 0
+
+
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.dryrun")
     ap.add_argument("--arch", default=None)
@@ -226,6 +272,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--moe", default="grouped", choices=["grouped", "a2a"])
     ap.add_argument("--tag", default="")
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--jobs", type=int, default=1, help="with --all: cells run at once")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="the mesh's device type (no device work is done)")
@@ -256,16 +303,7 @@ def main(argv=None) -> int:
               "CLI flags cover attn/seq)")
 
     if args.all:
-        # each cell in a process of its own (one fake world each)
-        failures = 0
-        passed = [a for a in (argv if argv is not None else sys.argv[1:]) if a != "--all"]
-        for arch in ASSIGNED:
-            for shape in SHAPES:
-                for mesh in ("pod1", "pod2"):    # the JAX package's cells
-                    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *passed,
-                           "--arch", arch, "--shape", shape, "--mesh", mesh]
-                    failures += subprocess.run(cmd).returncode != 0
-        return 1 if failures else 0
+        return run_all(argv if argv is not None else sys.argv[1:], args.jobs)
     if not args.arch or not args.shape:
         ap.error("--arch and --shape required without --all")
 

@@ -26,6 +26,8 @@ from collections import defaultdict
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from .. import shapeonly
+
 _DTYPE_BYTES = {
     "f64": 8, "f32": 4, "f16": 2, "bf16": 2, "f8e4m3fn": 1, "f8e5m2": 1,
     "s64": 8, "s32": 4, "s16": 2, "s8": 1, "u64": 8, "u32": 4, "u16": 2,
@@ -84,24 +86,35 @@ class LocalDispatchMode(TorchDispatchMode):
     is handed back to DTensor (``NotImplemented``), whose local ops and
     collectives then come through the mode on local tensors; the ops
     DTensor runs on global shapes to propagate shardings are not
-    counted."""
+    counted, nor are metadata queries (``prim.device``, which a
+    ``FakeTensor`` dispatches for its ``.device``: no rank runs it)."""
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         if has_dtensor(args, kwargs):
             return NotImplemented
         out = func(*args, **kwargs)
-        if not _in_sharding_propagation():
+        if func.namespace == "prim":
+            pass
+        elif shapeonly.is_quiet():
+            self.allocated(out)
+        elif not _in_sharding_propagation():
             self.seen(func, args, kwargs, out)
         return out
 
     def seen(self, func, args, kwargs, out) -> None:
         raise NotImplementedError
 
+    def allocated(self, out) -> None:
+        """Outputs the scans' shape-only path allocates (counted by its
+        charge, not as ops)."""
 
-class CollectiveCounter(LocalDispatchMode):
+
+class CollectiveCounter(shapeonly.Charged, LocalDispatchMode):
     """Records every functional collective (kind, payload bytes) and
-    counts every other op a rank runs while it is active."""
+    counts every other op a rank runs while it is active.  The scans'
+    shape-only path charges it their op histogram: a scan runs on local
+    shards and issues no collective."""
 
     def __init__(self):
         super().__init__()
@@ -117,6 +130,15 @@ class CollectiveCounter(LocalDispatchMode):
             self.records.append((kind, _nbytes(args[0] if side == "input" else out)))
         elif name != "wait_tensor":
             self.ops[f"{ns}.{name}" if ns != "aten" else name] += 1
+
+    def tally(self) -> dict:
+        if self.records:
+            raise RuntimeError(f"a shape-only probe issued collectives: {self.records[:3]}")
+        return dict(self.ops)
+
+    def charge(self, delta: dict) -> None:
+        for name, n in delta.items():
+            self.ops[name] += n
 
 
 def collective_bytes(counter: CollectiveCounter) -> dict:

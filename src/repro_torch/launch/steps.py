@@ -214,7 +214,7 @@ def fake_inputs(avals, device):
 
 
 def lower_cell(cfg: ArchConfig, mesh, strat: ShardingRules, shape_name: str, modes=(),
-               batch: int | None = None, seq: int | None = None):
+               batch: int | None = None, seq: int | None = None, run: bool = True):
     """The counterpart of the JAX package's ``lower_cell``: the right
     step for this cell, run once on fake tensors (``FakeTensorMode``:
     shapes, dtypes and placements, no memory and no device work) with
@@ -222,7 +222,8 @@ def lower_cell(cfg: ArchConfig, mesh, strat: ShardingRules, shape_name: str, mod
     dispatch modes entered around the step's call alone (memory, FLOP
     and collective counters); a mode with an ``inputs`` method is shown
     the placed inputs first.  ``batch``/``seq`` override the cell's.
-    Returns (placed inputs, outputs)."""
+    Returns (placed inputs, outputs); with ``run=False`` the inputs are
+    placed and the step is not run (outputs None)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     kind = CELL_KIND[shape_name]
     device = mesh.device_type
@@ -235,6 +236,8 @@ def lower_cell(cfg: ArchConfig, mesh, strat: ShardingRules, shape_name: str, mod
         else:
             fn, avals = sharded_decode_step(cfg, mesh, strat, shape_name, batch_avals=b_avals)
         args = fn.place(*(fake_inputs(a, device) for a in avals))
+        if not run:
+            return args, None
         with contextlib.ExitStack() as stack:
             for m in modes:
                 getattr(m, "inputs", lambda args: None)(args)

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from .. import shapeonly
 from .attention import decode_attention, flash_attention_ref
 
 # ---------------------------------------------------------------------------
@@ -120,6 +121,26 @@ def _cached_attention(q, k, v, kv_cache, cache_len, window):
     f = local_map(branch, out_placements=(pl, pl, pl),
                   in_placements=(pl, pl, pl, pl, pl, n_pl), device_mesh=mesh)
     return f(q, k, v, ck, cv, n)
+
+
+def cross_decode_attention(q, ck, cv):
+    """``decode_attention`` of q over the whole cached encoder keys and
+    values.  On DTensors it runs on the local shards with the batch
+    sharded and heads whole, as ``_cached_attention`` does: DTensor's
+    batched matmul over (B*H, 1, enc_seq) would flatten the sharded batch
+    and heads into one strided shard, whose redistribution cost it cannot
+    compute on fake tensors."""
+    from ..parallel.shards import as_dtensor, is_dtensor
+    if not is_dtensor(q):
+        return decode_attention(q, ck, cv, ck.shape[2])
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    q = batch_only(q)
+    pl = tuple(q.placements)
+    ck, cv = (as_dtensor(t, mesh).redistribute(mesh, pl) for t in (ck, cv))
+    f = local_map(lambda q, k, v: decode_attention(q, k, v, k.shape[2]), out_placements=list(pl),
+                  in_placements=(pl, pl, pl), device_mesh=mesh)
+    return f(q, ck, cv)
 
 
 def merge_heads(t):
@@ -761,6 +782,25 @@ def _pick_chunk(s: int, chunk: int) -> int:
     return max(chunk, 1)
 
 
+def _shaped(s: int, q: int, *tensors) -> bool:
+    """The chunked scans take the shape-only path on meta or fake inputs
+    of at least ``shapeonly.MIN_STEPS`` steps in two chunks or more."""
+    return (s >= shapeonly.MIN_STEPS and min(s // q, q) >= shapeonly.GRID[0]
+            and shapeonly.applies(*tensors))
+
+
+def _scan_sizes(*tensors):
+    """A chunked scan's arguments (x, dt, A, B, C, D, h0) at n chunks of q
+    steps (sequence dim 1)."""
+    x, dt, A, B, C, D, h0 = shapeonly.specs(*tensors)
+
+    def make(n, q):
+        L = shapeonly.like
+        return ((L(x, d1=n * q), L(dt, d1=n * q), L(A), L(B, d1=n * q), L(C, d1=n * q), L(D)),
+                {"h0": L(h0), "chunk": q})
+    return make
+
+
 def _ssm_chunk(A, h, xc, dtc, Bc, Cc):
     """One chunk of the scan, steps in order: (final state, y (B, q, C) fp32)."""
     ys = []
@@ -785,9 +825,12 @@ def ssm_scan_ref(xz, dt, A, B, C, D, h0=None, chunk: int = SSM_CHUNK):
         return scan_on_shards(ssm_scan_ref, xz, dt, A, B, C, D, h0=h0, chunk=chunk)
     b, s, c = xz.shape
     n = A.shape[1]
+    q = _pick_chunk(s, chunk)
+    if _shaped(s, q, xz, dt, A, B, C, D, h0):
+        return shapeonly.run(ssm_scan_ref, (xz, dt, A, B, C, D), {"h0": h0, "chunk": q},
+                             _scan_sizes(xz, dt, A, B, C, D, h0), (s // q, q))
     h = (torch.zeros((b, c, n), dtype=torch.float32, device=xz.device) if h0 is None
          else h0.float())
-    q = _pick_chunk(s, chunk)
     x32, dt32, B32, C32 = xz.float(), dt.float(), B.float(), C.float()
     ys = []
     for i in range(s // q):
@@ -834,9 +877,12 @@ def _ssd_scan(x_h, dt, A, B, C, D, h0=None, chunk: int = SSM_CHUNK):
         return scan_on_shards(_ssd_scan, x_h, dt, A, B, C, D, h0=h0, chunk=chunk)
     b, s, h, p_ = x_h.shape
     n = B.shape[-1]
+    q = _pick_chunk(s, chunk)
+    if _shaped(s, q, x_h, dt, A, B, C, D, h0):
+        return shapeonly.run(_ssd_scan, (x_h, dt, A, B, C, D), {"h0": h0, "chunk": q},
+                             _scan_sizes(x_h, dt, A, B, C, D, h0), (s // q, q))
     state = (torch.zeros((b, h, p_, n), dtype=torch.float32, device=x_h.device)
              if h0 is None else h0.float())
-    q = _pick_chunk(s, chunk)
     x32, dt32, B32, C32 = x_h.float(), dt.float(), B.float(), C.float()
     ys = []
     for i in range(s // q):
@@ -872,7 +918,10 @@ def mamba_block(p, x, *, state: int, version: int, conv_state=None, ssm_state=No
     xh, new_conv = _causal_conv(xh, p["conv_w"], p["conv_b"], conv_state)
     xh = F.silu(xh)
     if version == 1:
-        proj = xh @ p["x_proj"]
+        # the projections over the channel shards are partial sums: they
+        # are reduced before a bias is added (torch 2.11's DTensor cannot
+        # make a sharded bias partial)
+        proj = constrain(xh @ p["x_proj"], "dp", None, None)
         dt_rank = p["dt_proj"].shape[0]
         dt, Bm, Cm = torch.split(proj, [dt_rank, state, state], dim=-1)
         dt = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])
@@ -882,7 +931,8 @@ def mamba_block(p, x, *, state: int, version: int, conv_state=None, ssm_state=No
     else:
         ci = xh.shape[-1]
         Bm, Cm = torch.chunk(xh @ p["bc_proj"], 2, dim=-1)        # (B, S, N)
-        dt = F.softplus(xh @ p["dt_proj2"] + p["dt_bias"])        # (B, S, H)
+        dt = F.softplus(constrain(xh @ p["dt_proj2"], "dp", None, "tp")
+                        + p["dt_bias"])                           # (B, S, H)
         A = -torch.exp(p["A_log"])                                # (H,)
         y, hT = _ssd_scan(xh.reshape(b, s, ci // headdim, headdim), dt, A, Bm, Cm, p["D"],
                           ssm_state, chunk=chunk)

@@ -415,7 +415,12 @@ def _run_hybrid(cfg: ArchConfig, p: dict, x: torch.Tensor) -> tuple:
 def _logits(cfg: ArchConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
     h = L.rows(_norm(cfg, p["final_norm"], h))
     if cfg.tie_embeddings:
-        return h @ p["embed"].T
+        from ..parallel.shards import grad_placed, is_dtensor
+        # a tied table's two gradients (the logits', the lookup's) meet
+        # in its own placements: torch 2.11's DTensor would otherwise ask
+        # to make a sharded one partial, which it cannot
+        table = grad_placed(p["embed"]) if is_dtensor(p["embed"]) else p["embed"]
+        return h @ table.T
     return h @ p["lm_head"]
 
 
@@ -595,7 +600,7 @@ def prefill(cfg: ArchConfig, p: dict, batch: dict, max_seq: int) -> tuple:
     optionally ``mrope_positions`` for the VLM, as in ``train_loss``."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = p["embed"][tokens]
+    x = L.constrain(_embed(p["embed"], tokens), "dp", "sp", None)
     cache = init_cache(cfg, b, max_seq, device=x.device)
     enc_out = None
     if cfg.n_enc_layers:
@@ -629,7 +634,7 @@ def decode_step(cfg: ArchConfig, p: dict, token: torch.Tensor, cache: dict) -> t
     layer's K/V written at ``len``; the encoder-decoder's cross branch
     reads the cached ``cross_k``/``cross_v`` (``_cross_cached``); an MoE
     layer calls ``L.moe_block`` directly (capacity per decode batch)."""
-    x = p["embed"][token]                                # (B, 1, D)
+    x = L.constrain(_embed(p["embed"], token), "dp", "sp", None)    # (B, 1, D)
     pos = cache["len"]
     layers = _unstack(p["layers"], cfg.n_layers)
     new = dict(cache, len=pos + 1)
@@ -685,6 +690,5 @@ def _cross_cached(cfg, clp, x, ck, cv):
     b, s, _ = x.shape
     hq, hd = cfg.n_heads, cfg.head_dim
     ap = clp["attn"]
-    q = (_norm(cfg, clp["norm"], x) @ ap["wq"]).reshape(b, s, hq, hd).transpose(1, 2)
-    o = decode_attention(q, ck, cv, ck.shape[2])
-    return o.transpose(1, 2).reshape(b, s, hq * hd) @ ap["wo"]
+    q = L.split_heads(_norm(cfg, clp["norm"], x) @ ap["wq"], hq, hd)
+    return L.merge_heads(L.cross_decode_attention(q, ck, cv)) @ ap["wo"]

@@ -82,6 +82,24 @@ class _ReduceFwd(torch.autograd.Function):
         return g, None
 
 
+class _GradPlaced(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.placements)
+
+
+def grad_placed(x: DTensor) -> DTensor:
+    """``x`` itself, whose gradient comes back in ``x``'s own placements
+    (a partial sum reduced or scattered there) before it is added to any
+    other gradient of ``x``."""
+    return _GradPlaced.apply(x)
+
+
 def psum(x: torch.Tensor, group) -> torch.Tensor:
     return _ReduceFwd.apply(x, group)
 

@@ -16,6 +16,7 @@ from typing import Any, Callable, Optional
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+from .. import shapeonly
 from ..core.trace import meta_tree
 from ..tree import tree_leaves
 
@@ -77,6 +78,21 @@ class CostModel:
         return self.dcn_bw if cross_pod else self.ici_bw
 
 
+class _FlopCounter(shapeonly.Charged, FlopCounterMode):
+    """``FlopCounterMode``, charged by the scans' shape-only path with
+    the FLOPs of the steps it skips."""
+
+    def fresh(self):
+        return type(self)(display=False)
+
+    def tally(self) -> dict:
+        return dict(self.flop_counts["Global"])
+
+    def charge(self, delta: dict) -> None:
+        for packet, n in delta.items():
+            self.flop_counts["Global"][packet] += n
+
+
 # (fn identity, input shapes) -> (fn, (flops, bytes)); holding ``fn`` keeps
 # its id from being reused by another function while the entry lives
 _ANALYSIS_CACHE: dict[Any, tuple[Callable, tuple[float, float]]] = {}
@@ -106,7 +122,7 @@ def analyze_fn(fn, bucket_params, sample_inputs, name: Optional[str] = None,
         return _ANALYSIS_CACHE[key][1]
     ins = [meta_tree(x) if x is not None else None for x in sample_inputs]
     bucket = meta_tree(bucket_params) if bucket_params is not None else None
-    counter = FlopCounterMode(display=False)
+    counter = _FlopCounter(display=False)
     try:
         if before is not None:
             before()

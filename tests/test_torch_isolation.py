@@ -1,5 +1,6 @@
-"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and
-``examples/serve_torch.py`` import neither JAX nor the JAX package, and
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
+ported examples (``examples/*_torch.py``) import neither JAX nor the JAX
+package, and
 call no library kernel in place of their own (``chip_smoke.py`` times
 library calls as yardsticks only)."""
 import ast
@@ -15,6 +16,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
 SERVE = ROOT / "examples" / "serve_torch.py"
+EXAMPLES = ["quickstart_torch", "autotune_torch", "dualpipe_moe_torch", "zero_pp_memory_torch"]
 
 FORBIDDEN = [r"jax", r"from repro\.", r"\bimport repro\b(?!_)", r"from repro import",
              r"scaled_dot_product_attention", r"torch\.compile", r"rms_norm"]
@@ -156,3 +158,30 @@ def test_serve_example_names_nothing_forbidden(pattern):
     hits = [i for i, line in enumerate(SERVE.read_text().splitlines(), 1)
             if re.search(pattern, line)]
     assert not hits, hits
+
+
+@pytest.mark.parametrize("example", EXAMPLES)
+def test_ported_examples_load_no_jax(example):
+    """Each ported example, imported as a module (its ``main`` runs only
+    under ``__main__``), pulls in neither JAX nor the JAX package."""
+    path = ROOT / "examples" / f"{example}.py"
+    code = ("import runpy, sys\n"
+            f"runpy.run_path({str(path)!r}, run_name={example!r})\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+            "             or k == 'repro' or k.startswith('repro.') or k == 'benchmarks'\n"
+            "             or k.startswith('benchmarks.'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("pattern", FORBIDDEN + [r"(import|from)\s+benchmarks", r"sys\.path"])
+@pytest.mark.parametrize("example", EXAMPLES)
+def test_ported_examples_name_nothing_forbidden(example, pattern):
+    """No ported example names JAX, the JAX package or a library kernel,
+    nor imports the JAX benchmarks (it names their files only)."""
+    lines = (ROOT / "examples" / f"{example}.py").read_text().splitlines()
+    hits = [i for i, line in enumerate(lines, 1) if re.search(pattern, line)]
+    assert not hits, [lines[i - 1] for i in hits]

@@ -398,6 +398,39 @@ def test_sharded_prefill_decode_and_restore_world_4(tmp_path):
     assert got["restored_all"] == [True] * 4
 
 
+def test_sharded_encdec_prefill_and_decode_world_4(tmp_path):
+    """The encoder-decoder served on a (2, 2) world: the prompt's tokens
+    looked up on local shards (``model._embed``) and decode's
+    cross-attention on local shards with the query's heads split whole
+    (``layers.cross_decode_attention``, ``split_heads``), against the
+    JAX package's ``prefill`` and three ``decode_step``s."""
+    from repro_torch.configs import get_config
+    jcfg = jconfigs.get_config("whisper-large-v3").reduced()
+    tcfg = get_config("whisper-large-v3").reduced()
+    jp = jmodels.init(jcfg, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(4)
+    b, s, max_seq = 4, 16, 32
+    prompt = rng.integers(0, jcfg.vocab, (b, s)).astype(np.int32)
+    frames = (rng.standard_normal((b, jcfg.enc_seq, jcfg.d_model)) * 0.5).astype(np.float32)
+    tokens = [rng.integers(0, jcfg.vocab, (b, 1)).astype(np.int32) for _ in range(3)]
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    got = run_world(tmp_path, "serve", {
+        "cfg": tcfg, "params": tparams,
+        "prompt": {"tokens": torch.from_numpy(prompt), "frames": torch.from_numpy(frames)},
+        "tokens": [torch.from_numpy(t) for t in tokens], "max_seq": max_seq,
+        "ckpt": str(tmp_path / "ckpt")}, (2, 2), ("data", "model"))
+    logits, cache = jmodels.prefill(jcfg, jp, {"tokens": jnp.asarray(prompt),
+                                               "frames": jnp.asarray(frames)}, max_seq)
+    np.testing.assert_allclose(got["prefill"].numpy(), np.asarray(logits), atol=2e-5, rtol=2e-5)
+    for tok, mine in zip(tokens, got["steps"]):
+        logits, cache = jmodels.decode_step(jcfg, jp, jnp.asarray(tok), cache)
+        np.testing.assert_allclose(mine.numpy(), np.asarray(logits), atol=2e-5, rtol=2e-5)
+    for key in cache:
+        np.testing.assert_allclose(got["cache"][key].numpy(), np.asarray(cache[key]),
+                                   atol=2e-5, rtol=2e-5, err_msg=key)
+    assert got["cache_placed"]
+
+
 def test_moe_block_ep_world_8(inputs, jax_multi_device, tmp_path):
     e = EP
     tp = {k: torch.from_numpy(v) for k, v in inputs["ep"].items()}
