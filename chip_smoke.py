@@ -167,7 +167,10 @@ local steps' (DTensor's dispatch), busy share and peak beside phase
 3c's; (b) Qwen3-1.7B whole through
 ``sharded_prefill_step`` and 8 ``sharded_decode_step``s, launches exact,
 logits and every cache leaf bit-equal to phase 3m's functions fed the
-same tokens; (c) ``python -m repro_torch.launch.dryrun`` for (a)'s cell
+same tokens, the cache written in place in the caller's buffers (same
+``data_ptr``, new contents), and the ms a token and decode peak beside
+those of a decode step that copies its cache and of the local path; (c)
+``python -m repro_torch.launch.dryrun`` for (a)'s cell
 on the same mesh, its ``argument_size_in_bytes`` equal to (a)'s placed
 state and batch, and for qwen3-1b ``train_4k`` on ``pod1``.  It prints the card's
 name and power limit, one JSON line of kernel numbers (launches by path,
@@ -3073,8 +3076,9 @@ def serve_run(torch, cfg, params, batch: dict, n_steps: int, forced=None) -> dic
     fed ``forced`` (a list of (BATCH, 1) tokens), in a cache of prompt +
     n_steps positions, under inference mode.  Returns every logits
     (prefill's first), the tokens fed, the last step's inputs, each part's
-    seconds by the host clock around synchronised work, and each part's
-    kernel launches (counts set to 0 just before it)."""
+    seconds by the host clock around synchronised work, each part's
+    kernel launches (counts set to 0 just before it) and the decode
+    steps' peak (``max_memory_allocated``, reset after prefill)."""
     from repro_torch.kernels import ops
     from repro_torch.models import decode_step, prefill
     with torch.inference_mode():
@@ -3085,6 +3089,7 @@ def serve_run(torch, cfg, params, batch: dict, n_steps: int, forced=None) -> dic
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         prefill_launches = ops.launch_counts()
+        torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         out, fed = [logits], []
         for i in range(n_steps):
@@ -3098,7 +3103,8 @@ def serve_run(torch, cfg, params, batch: dict, n_steps: int, forced=None) -> dic
         decode_launches = ops.launch_counts()
     return {"logits": out, "fed": fed, "last": last, "cache": cache, "prefill_s": t1 - t0,
             "decode_s": t2 - t1, "prefill_launches": prefill_launches,
-            "decode_launches": decode_launches}
+            "decode_launches": decode_launches,
+            "decode_peak": torch.cuda.max_memory_allocated()}
 
 
 def check_serve_launches(label: str, run: dict, cfg, n_steps: int, none: dict) -> dict:
@@ -3495,11 +3501,18 @@ def phase_sharded_serve(torch, cfg, none: dict) -> tuple:
     over phase 3m's prompt and SHARDED_DECODE greedy
     ``sharded_decode_step``s on the one-rank mesh, launches exact; every
     logits and every cache leaf bit-equal to phase 3m's functions
-    (``serve_run``) on local tensors fed the same tokens."""
+    (``serve_run``) on local tensors fed the same tokens.  The decode
+    steps consume their cache: each leaf must stay in the caller's buffer
+    (its ``data_ptr``) with new contents.  The same steps on a copy of the
+    prefilled cache through a step that does not donate it (a new cache a
+    step, as before the cache was written in place), fed the same tokens,
+    give the same logits; the ms a token and the decode peak
+    (``max_memory_allocated``) of both print beside the local path's."""
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.specs import prefill_cache_specs
-    from repro_torch.launch.steps import sharded_decode_step, sharded_prefill_step, strategy_for
+    from repro_torch.launch.steps import (place_tree, sharded_decode_step, sharded_prefill_step,
+                                          strategy_for)
     from repro_torch.models import init
     from repro_torch.tree import tree_map
     mesh = make_mesh(*SHARDED_MESH, device_type="cuda")
@@ -3515,6 +3528,11 @@ def phase_sharded_serve(torch, cfg, none: dict) -> tuple:
                                  cache_avals=prefill_cache_specs(cfg, BATCH, max_seq),
                                  batch_avals={"token": torch.empty((BATCH, 1), dtype=torch.int64,
                                                                    device="meta")})
+    copying, _ = sharded_decode_step(cfg, mesh, strat,
+                                     cache_avals=prefill_cache_specs(cfg, BATCH, max_seq),
+                                     batch_avals={"token": torch.empty(
+                                         (BATCH, 1), dtype=torch.int64, device="meta")},
+                                     donate=False)
     placed, _ = pfn.place(params, batch)
     ops.register_kernels()
     torch.cuda.synchronize()
@@ -3524,6 +3542,11 @@ def phase_sharded_serve(torch, cfg, none: dict) -> tuple:
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     prefill_launches = ops.launch_counts()
+    before = host(torch, cache)
+    buffers = {k: t.to_local().data_ptr() for k, t in cache.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    td = time.perf_counter()
     ops.reset_launch_counts()
     outs, fed = [host(torch, logits)], []
     for _ in range(SHARDED_DECODE):
@@ -3534,6 +3557,42 @@ def phase_sharded_serve(torch, cfg, none: dict) -> tuple:
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     decode_launches = ops.launch_counts()
+    decode_peak = torch.cuda.max_memory_allocated()
+    moved = [k for k, ptr in buffers.items() if cache[k].to_local().data_ptr() != ptr]
+    sharded_cache = host(torch, cache)
+    same = [k for k in before if torch.equal(before[k], sharded_cache[k])]
+    print(f"  (b) the decode steps wrote the caller's cache in place: every leaf's data_ptr "
+          f"kept ({len(buffers) - len(moved)} of {len(buffers)}), contents changed in "
+          f"{len(before) - len(same)} of {len(before)} (len {before['len'].item()} -> "
+          f"{sharded_cache['len'].item()})", flush=True)
+    if moved or same:
+        fail(f"(b) the donated cache was not written in place: moved {moved}, unchanged {same}")
+    del logits, cache
+    gc.collect()
+    # the donated step and one that copies its cache, in turns (copying,
+    # donated, donated, copying), each from the prefilled cache placed
+    # anew and fed the same tokens: ms a step (steps 2 on) and the peak
+    turns = {"donated": [], "copying": []}
+    peaks = dict.fromkeys(turns, 0)
+    for name in ("copying", "donated", "donated", "copying"):
+        fn = dfn if name == "donated" else copying
+        c = place_tree(tree_map(lambda t: t.cuda(), before), dfn.in_shardings[1])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        got = []
+        for i, tok in enumerate(fed):
+            t3 = time.perf_counter()
+            clogits, c = fn(placed, c, {"token": tok})
+            torch.cuda.synchronize()
+            if i:
+                turns[name].append(time.perf_counter() - t3)
+            got.append(host(torch, clogits))
+        peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated())
+        same_tree_bits(torch, {str(i): t for i, t in enumerate(got)},
+                       {str(i): t for i, t in enumerate(outs[1:])},
+                       f"(b) the {name} decode steps in turn against the first run")
+        del c, clogits
+    del before
     prefill, step = serve_launches(cfg)
     want = {"prefill": {**none, **prefill},
             "decode": {**none, **{k: v * SHARDED_DECODE for k, v in step.items()}}}
@@ -3541,8 +3600,7 @@ def phase_sharded_serve(torch, cfg, none: dict) -> tuple:
     print(f"  (b) {cfg.name}: launches {got}, expected {want}", flush=True)
     if got != want:
         fail(f"(b) kernel launches {got} != {want}")
-    sharded_cache = host(torch, cache)
-    del placed, logits, cache
+    del placed
     gc.collect()
     ref = serve_run(torch, cfg, params, batch, SHARDED_DECODE, forced=fed)
     ops.unregister_kernels()
@@ -3552,14 +3610,23 @@ def phase_sharded_serve(torch, cfg, none: dict) -> tuple:
     same_tree_bits(torch, sharded_cache, host(torch, ref["cache"]),
                    "(b) sharded cache against phase 3m's functions")
     summary = {"prefill_ms": (t1 - t0) * 1e3, "decode_ms_per_token":
-               (t2 - t1) / SHARDED_DECODE * 1e3, "local_prefill_ms": ref["prefill_s"] * 1e3,
-               "local_decode_ms_per_token": ref["decode_s"] / SHARDED_DECODE * 1e3}
+               (t2 - td) / SHARDED_DECODE * 1e3, "local_prefill_ms": ref["prefill_s"] * 1e3,
+               "local_decode_ms_per_token": ref["decode_s"] / SHARDED_DECODE * 1e3,
+               "decode_peak_gib": decode_peak / 2**30,
+               "local_decode_peak_gib": ref["decode_peak"] / 2**30,
+               **{f"{k}_step_ms_median": statistics.median(v) * 1e3 for k, v in turns.items()},
+               **{f"{k}_peak_gib": v / 2**30 for k, v in peaks.items()}}
     print(f"  (b) {cfg.name}, {cfg.n_layers} layers, batch {BATCH}: prefill of {SERVE_PROMPT} "
           f"tokens and {SHARDED_DECODE} greedy decode steps through the sharded steps, every "
           f"logits and cache leaf bit-equal to phase 3m's functions fed the same tokens; "
           f"prefill {summary['prefill_ms']:.1f} ms (local {summary['local_prefill_ms']:.1f}), "
           f"decode {summary['decode_ms_per_token']:.2f} ms a token (local "
-          f"{summary['local_decode_ms_per_token']:.2f})", flush=True)
+          f"{summary['local_decode_ms_per_token']:.2f}), peak {summary['decode_peak_gib']:.2f} "
+          f"GiB (local {summary['local_decode_peak_gib']:.2f}); in turns, median step "
+          f"{summary['donated_step_ms_median']:.2f} ms and peak "
+          f"{summary['donated_peak_gib']:.2f} GiB with the cache written in place, "
+          f"{summary['copying_step_ms_median']:.2f} ms and {summary['copying_peak_gib']:.2f} "
+          f"GiB copying it", flush=True)
     del ref, params
     return {f"3n {cfg.name} sharded prefill": prefill_launches,
             f"3n {cfg.name} sharded decode, {SHARDED_DECODE} steps": decode_launches}, summary

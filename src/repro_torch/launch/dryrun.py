@@ -85,7 +85,7 @@ class LocalCounter(shapeonly.Charged, LocalDispatchMode):
 
     tracks_storage = True
 
-    def __init__(self):
+    def __init__(self, sites: bool = False):
         super().__init__()
         from torch.utils.flop_counter import flop_registry
         self.registry = flop_registry
@@ -95,18 +95,25 @@ class LocalCounter(shapeonly.Charged, LocalDispatchMode):
         self.live = 0
         self.peak = 0
         self._storages: dict[int, int] = {}
+        # with ``sites``: live bytes by the call site that made them, and
+        # their split at the peak
+        self._sites: dict[int, str] | None = {} if sites else None
+        self._by_site: dict[str, int] = defaultdict(int)
+        self.peak_sites: dict[str, int] = {}
 
     def inputs(self, args) -> None:
         """The step's placed inputs, live from the start (their local
         shards; views of them allocate nothing)."""
         for leaf in _tensors(args):
-            self.track(leaf.to_local() if hasattr(leaf, "to_local") else leaf)
+            self.track(leaf.to_local() if hasattr(leaf, "to_local") else leaf, site="inputs")
 
     def _free(self, key: int, nbytes: int) -> None:
         self._storages.pop(key, None)
         self.live -= nbytes
+        if self._sites is not None and key in self._sites:
+            self._by_site[self._sites.pop(key)] -= nbytes
 
-    def track(self, t: torch.Tensor) -> None:
+    def track(self, t: torch.Tensor, site: str | None = None) -> None:
         st = t.untyped_storage()
         key = st._cdata
         if key in self._storages:
@@ -114,7 +121,13 @@ class LocalCounter(shapeonly.Charged, LocalDispatchMode):
         nbytes = st.nbytes()
         self._storages[key] = nbytes
         self.live += nbytes
-        self.peak = max(self.peak, self.live)
+        if self._sites is not None:
+            self._sites[key] = site or call_site()
+            self._by_site[self._sites[key]] += nbytes
+        if self.live > self.peak:
+            self.peak = self.live
+            if self._sites is not None:
+                self.peak_sites = {k: v for k, v in self._by_site.items() if v}
         weakref.finalize(st, self._free, key, nbytes)
 
     def seen(self, func, args, kwargs, out) -> None:
@@ -144,6 +157,37 @@ class LocalCounter(shapeonly.Charged, LocalDispatchMode):
                 self.by_op[key[1]] += v
 
 
+_COUNTING = ("dryrun.py", "hlo_stats.py", "shapeonly.py")
+
+
+def _port_frame(lines) -> str | None:
+    for fn, line, name in lines:
+        if "repro_torch" in fn and not fn.endswith(_COUNTING):
+            return f"{fn.split('repro_torch/')[-1]}:{line} {name}"
+    return None
+
+
+def call_site() -> str:
+    """Where the port made a tensor: the innermost frame of the port's
+    code (not the counters') on the Python stack; in the backward, the
+    forward's, from the autograd node's anomaly-mode traceback."""
+    f, lines = sys._getframe(1), []
+    while f is not None:
+        lines.append((f.f_code.co_filename, f.f_lineno, f.f_code.co_name))
+        f = f.f_back
+    node = torch._C._current_autograd_node()
+    if node is None:
+        return _port_frame(lines) or "elsewhere"
+    import re
+    stack = "".join(node.metadata.get("traceback_") or [])
+    frames = [m.groups() for m in (re.search(r'File "([^"]+)", line (\d+), in (\S+)', ln)
+                                   for ln in stack.splitlines()) if m]
+    # a custom Function's backward runs the port's code; else the forward's site
+    site = _port_frame(lines[:next((i for i, fr in enumerate(lines)
+                                    if fr[0].endswith("autograd/__init__.py")), len(lines))])
+    return site or f"backward of {_port_frame(list(reversed(frames))) or node.name()}"
+
+
 MESH_NAMES = ("pod1", "pod2", "single")
 
 
@@ -158,11 +202,14 @@ def mesh_shape(name: str) -> tuple:
 
 def run_cell(arch: str, shape: str, mesh_name: str, zero_stage: int = 3,
              strategy_kw=None, cfg_kw=None, core_strategy=None,
-             device: str = "cuda", batch: int | None = None, seq: int | None = None) -> dict:
+             device: str = "cuda", batch: int | None = None, seq: int | None = None,
+             peak_sites: int = 0) -> dict:
     """One cell in this process, which holds the fake process group of
     the mesh's size (``init_fake_world``).  ``batch``/``seq`` override
     the cell's, and ``cfg_kw`` may cut ``n_layers`` (the port's
-    additions, for a cell one card runs)."""
+    additions, for a cell one card runs).  ``peak_sites`` > 0 records the
+    call sites holding the most bytes at the peak (autograd's anomaly
+    mode on, for the backward's forward sites: slower)."""
     from .mesh import make_mesh
     from .steps import local_bytes, lower_cell, strategy_for
     cfg0 = get_config(arch)
@@ -181,9 +228,11 @@ def run_cell(arch: str, shape: str, mesh_name: str, zero_stage: int = 3,
     strat = strategy_for(mesh, zero_stage=zero_stage, core=core_strategy,
                          **(strategy_kw or {}))
     out["zero_stage"] = strat.zero_stage
-    counter, coll = LocalCounter(), hlo_stats.CollectiveCounter()
+    counter, coll = LocalCounter(sites=peak_sites > 0), hlo_stats.CollectiveCounter()
     t0 = time.time()
-    args, res = lower_cell(cfg, mesh, strat, shape, modes=(counter, coll), batch=batch, seq=seq)
+    with torch.autograd.set_detect_anomaly(peak_sites > 0, check_nan=False):
+        args, res = lower_cell(cfg, mesh, strat, shape, modes=(counter, coll), batch=batch,
+                               seq=seq)
     arg_bytes = sum(local_bytes(a) for a in args)
     out_bytes = sum(local_bytes(r) for r in res)
     out.update({"run_s": round(time.time() - t0, 2), "chips": chips})
@@ -193,6 +242,9 @@ def run_cell(arch: str, shape: str, mesh_name: str, zero_stage: int = 3,
         "temp_size_in_bytes": counter.peak - arg_bytes,
         "peak_bytes": counter.peak,
         "per_device_total_gb": round(counter.peak / 2**30, 3)}
+    if peak_sites:
+        top = sorted(counter.peak_sites.items(), key=lambda kv: -kv[1])[:peak_sites]
+        out["memory"]["peak_sites"] = dict(top)
     out["flops"] = float(counter.flops)
     out["flops_by_op"] = dict(counter.by_op)
     out["bytes_accessed"] = float(counter.bytes_accessed)
@@ -281,6 +333,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--layers", type=int, default=None, help="cut the config's depth")
     ap.add_argument("--batch", type=int, default=None, help="override the cell's batch")
     ap.add_argument("--seq", type=int, default=None, help="override the cell's sequence")
+    ap.add_argument("--peak-sites", type=int, default=0, metavar="N",
+                    help="record the N call sites holding the most bytes at the peak")
     return ap
 
 
@@ -332,7 +386,7 @@ def main(argv=None) -> int:
         res = run_cell(args.arch, args.shape, args.mesh, zero_stage=args.zero,
                        strategy_kw=strategy_kw, cfg_kw=cfg_kw,
                        core_strategy=core_strategy, device=args.device,
-                       batch=args.batch, seq=args.seq)
+                       batch=args.batch, seq=args.seq, peak_sites=args.peak_sites)
     except Exception as e:
         print(f"  FAILED: {type(e).__name__}: {e}", flush=True)
         traceback.print_exc()
@@ -348,6 +402,8 @@ def main(argv=None) -> int:
           f" dominant={rf.get('dominant')}  -> {p}", flush=True)
     if res.get("memory"):
         print(f"  memory: {res['memory']}")
+        for site, n in res["memory"].get("peak_sites", {}).items():
+            print(f"  at the peak {n / 2**30:9.3f} GiB  {site}")
     if res.get("flops") is not None:
         print(f"  flops={res.get('flops'):.6e} bytes={res.get('bytes_accessed'):.6e}")
         print(f"  collective: {res.get('collective')}")

@@ -10,7 +10,10 @@ pjit).
 step's function on DTensors (with the launch layer's axis map set, so
 ``layers.constrain`` redistributes activations as the JAX package's
 constraints shard them), and returns DTensors with the out-shardings the
-JAX package names.  Nothing is donated: the step returns new state.
+JAX package names.  The decode step consumes its cache argument, as the
+JAX package donates it (``make_decode_fn``: new rows, states and ``len``
+are written into the placed cache's buffers, which come back); the train
+and prefill steps return new state and leave their arguments as they were.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import torch
 from ..models import ArchConfig, decode_step, prefill, train_loss
 from ..models import layers as L
 from ..optim import adamw_update
-from ..parallel.shards import is_dtensor, place
+from ..parallel.shards import is_dtensor, place, placed_like
 from ..parallel.sharding import (Sharding, ShardingRules, axis_sizes, batch_shardings,
                                  cache_shardings, opt_state_shardings, params_shardings,
                                  sharding)
@@ -59,10 +62,16 @@ def strategy_for(mesh, zero_stage: int = 3, core=None, **kw) -> ShardingRules:
 
 
 def make_train_fn(cfg: ArchConfig, lr: float = 3e-4):
+    """The train step.  On DTensors every gradient reaches ``adamw_update``
+    in its parameter's placements: a layer's ZeRO-3-sharded weights come
+    back reduce-scattered from their gathers (``layers.gathered``), and a
+    gradient still partial (a norm's, a head's) is reduced here."""
     def step(state, batch):
         params = tree_map(lambda t: t.detach().requires_grad_(True), state["params"])
         loss = train_loss(cfg, params, batch)
-        grads = tree_unflatten(params, torch.autograd.grad(loss, tree_leaves(params)))
+        grads = tree_unflatten(params, [
+            placed_like(g, p) for g, p in zip(torch.autograd.grad(loss, tree_leaves(params)),
+                                              tree_leaves(params))])
         new_params, new_opt, gnorm = adamw_update(params, grads, state["opt"], lr)
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}
@@ -77,11 +86,13 @@ def make_prefill_fn(cfg: ArchConfig, max_seq: int):
     return step
 
 
-def make_decode_fn(cfg: ArchConfig):
+def make_decode_fn(cfg: ArchConfig, donate: bool = True):
+    """The decode step, by default on a donated cache
+    (``decode_step(donate=True)``: the step writes its argument's buffers
+    and returns them); ``donate=False`` returns a new cache."""
     def step(params, cache, batch):
         with torch.no_grad():
-            logits, new_cache = decode_step(cfg, params, batch["token"], cache)
-        return logits, new_cache
+            return decode_step(cfg, params, batch["token"], cache, donate=donate)
     return step
 
 
@@ -95,10 +106,11 @@ def axis_map_for(strat: ShardingRules) -> dict:
 
 @contextlib.contextmanager
 def axis_map(mesh, strat: ShardingRules):
-    """The launch layer's axis map (with its mesh) set for the body,
-    cleared in a ``finally``."""
+    """The launch layer's axis map (with its mesh and the ZeRO-3 axis that
+    ``layers.gathered`` gathers over) set for the body, cleared in a
+    ``finally``."""
     amap = axis_map_for(strat)
-    amap["mesh"] = mesh
+    amap["mesh"], amap["fsdp"] = mesh, strat.fsdp_axis
     L.set_axis_map(amap)
     try:
         yield amap
@@ -189,16 +201,19 @@ def sharded_prefill_step(cfg: ArchConfig, mesh, strat: ShardingRules,
 
 
 def sharded_decode_step(cfg: ArchConfig, mesh, strat: ShardingRules,
-                        shape_name: str = "decode_32k", cache_avals=None, batch_avals=None):
+                        shape_name: str = "decode_32k", cache_avals=None, batch_avals=None,
+                        donate: bool = True):
     """The counterpart of ``jit_decode_step``: (ShardedStep over
-    ``make_decode_fn``, (params_avals, cache_avals, batch_avals))."""
+    ``make_decode_fn``, (params_avals, cache_avals, batch_avals)).  The
+    step consumes its cache argument, as the JAX package donates it;
+    ``donate=False`` leaves it as it was (a copy a step)."""
     p_avals = params_specs(cfg)
     cache_avals = cache_avals if cache_avals is not None else cache_specs(cfg, shape_name)
     batch_avals = batch_avals if batch_avals is not None else batch_specs(cfg, shape_name)
     p_sh = params_shardings(p_avals, mesh, strat)
     c_sh = cache_shardings(cache_avals, mesh, strat)
     b_sh = batch_shardings(batch_avals, mesh, strat)
-    fn = ShardedStep(make_decode_fn(cfg), mesh, strat, (p_sh, c_sh, b_sh),
+    fn = ShardedStep(make_decode_fn(cfg, donate), mesh, strat, (p_sh, c_sh, b_sh),
                      (_logits_sharding(mesh, strat, batch_avals["token"].shape[0]), c_sh))
     return fn, (p_avals, cache_avals, batch_avals)
 

@@ -217,3 +217,38 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
     s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def decode_attention_on_shards(q, k_shard, v_shard, cache_len, *, offset, groups=(),
+                               window: Optional[int] = None) -> torch.Tensor:
+    """``decode_attention`` over a cache whose sequence is split over the
+    ranks of ``groups`` (process groups, nested): ``k_shard``/``v_shard``
+    hold the positions from ``offset`` on.  Each rank scores its valid
+    slots (the ``cache_len`` and window masks on global positions); the
+    row max m is reduced over the groups first, then each rank's sum of
+    exps l and its probability-weighted values acc, so out = acc / l is
+    the softmax over the whole cache.  A rank with no valid slot adds
+    nothing: its masked scores sit at NEG_INF, far below m."""
+    import torch.distributed._functional_collectives as funcol
+
+    from ..parallel.shards import wait
+    d = q.shape[-1]
+    n_rep = q.shape[1] // k_shard.shape[1]
+    k = repeat_kv(k_shard, n_rep)
+    v = repeat_kv(v_shard, n_rep)
+    s = torch.einsum("bhqd,bhkd->bhqk", (q * d ** -0.5).float(), k.float())
+    kpos = offset + torch.arange(k_shard.shape[2], device=q.device)
+    mask = kpos < cache_len
+    if window is not None:
+        mask = mask & (kpos >= cache_len - window)
+    s = s.masked_fill(~mask, NEG_INF)
+    m = s.amax(dim=-1)
+    for g in groups:
+        m = wait(funcol.all_reduce(m, "max", g))
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    for g in groups:
+        l = wait(funcol.all_reduce(l, "sum", g))
+        acc = wait(funcol.all_reduce(acc, "sum", g))
+    return (acc / l[..., None]).to(q.dtype)

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .. import shapeonly
-from .attention import decode_attention, flash_attention_ref
+from .attention import decode_attention, decode_attention_on_shards, flash_attention_ref
 
 # ---------------------------------------------------------------------------
 # impl registry (kernels plug in here)
@@ -69,6 +69,44 @@ def constrain(x, *logical):
     return x.redistribute(mesh, placements)
 
 
+_EXPERT_STACKS = ("we_gate", "we_up", "we_down")
+
+
+def gathered(tree):
+    """A layer's parameters in their compute placements: each DTensor
+    leaf that the ZeRO-3 axis (the axis map's ``"fsdp"``) shards is
+    gathered over it by a ``redistribute`` that autograd records, so its
+    gradient comes back reduce-scattered to the parameter's own
+    placements (FSDP's gather and reduce-scatter).  Called where a layer's
+    weights are used, inside its checkpoint, so the backward's recompute
+    gathers them again.  Plain tensors, and every leaf when no ZeRO-3
+    axis is mapped, pass through, and so do the expert stacks: the MoE
+    blocks redistribute them from their own placements under
+    ``local_map``, whose backward reduce-scatters their gradients already
+    (gathered first over the ZeRO axis alone, the grouped block's
+    gradient would come back all-reduced whole over it)."""
+    from ..parallel.shards import is_dtensor
+    fsdp = _AXIS_MAP.get("fsdp")
+    if tree is None or not fsdp:
+        return tree
+    from torch.distributed.tensor import Replicate, Shard
+
+    def one(t):
+        if not is_dtensor(t) or fsdp not in t.device_mesh.mesh_dim_names:
+            return t
+        i = t.device_mesh.mesh_dim_names.index(fsdp)
+        if not isinstance(t.placements[i], Shard):
+            return t
+        pl = list(t.placements)
+        pl[i] = Replicate()
+        return t.redistribute(t.device_mesh, tuple(pl))
+    if isinstance(tree, dict):
+        return {k: v if k in _EXPERT_STACKS else gathered(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(gathered(v) for v in tree)
+    return one(tree)
+
+
 def rows(x):
     """``x`` ready for ``x @ W`` on DTensors: a matmul views (..., d) as
     (rows, d), and DTensor can only express that view sharded when no
@@ -87,39 +125,67 @@ def rows(x):
     return x if pl == tuple(x.placements) else x.redistribute(x.device_mesh, pl)
 
 
-def _cached_attention(q, k, v, kv_cache, cache_len, window):
-    """The KV-cache branch: the S new keys and values written into copies
-    of the cache at ``cache_len`` (the start clamped so that they fit),
-    then ``decode_attention`` over the first ``cache_len + S``: (out, new
-    k cache, new v cache).  On DTensors it runs on the local shards with
-    the batch sharded and the sequence and heads whole (``local_map``;
-    DTensor has no sharding rule for the write), so every rank computes
-    what a single device computes on its rows; the step's out-shardings
-    shard the new cache again."""
-    from ..parallel.shards import as_dtensor, is_dtensor
+def _cached_attention(q, k, v, kv_cache, cache_len, window, donate=False):
+    """The KV-cache branch: the S new keys and values written into the
+    cache at ``cache_len`` (the start clamped so that they fit), then
+    ``decode_attention`` over the first ``cache_len + S``: (out, new k
+    cache, new v cache).  The write goes into copies of the cache or, with
+    ``donate``, into the cache's own buffers, which come back.
 
-    def branch(q, k, v, ck, cv, n):
+    On DTensors it runs on the local shards (``local_map``; DTensor has
+    no sharding rule for the write) in the cache's own layout: the batch
+    and the sequence as the cache shards them, the heads whole.  The rank
+    whose shard holds a new row's slot writes it.  With the sequence split
+    over ranks each scores its own slots and the softmax is combined over
+    them (``decode_attention_on_shards``); with it whole on every rank
+    (one shard), ``decode_attention`` runs on the local tensors, as on one
+    device."""
+    from ..parallel.shards import as_dtensor, is_dtensor, shard_offset
+
+    def write(c, new, start, offset):
+        s, n_loc = new.shape[2], c.shape[2]
+        new = new.to(c.dtype)
+        if offset is None:                      # the sequence whole
+            slots = start + torch.arange(s, device=c.device)
+            return c.index_copy_(2, slots, new) if donate else c.index_copy(2, slots, new)
+        for j in range(s):                      # one row at a time: no index repeats
+            at = start + j - offset
+            idx = at.clamp(0, n_loc - 1).reshape(1).long()
+            row = torch.where((at >= 0) & (at < n_loc), new[:, :, j:j + 1],
+                              c.index_select(2, idx))
+            c = c.index_copy_(2, idx, row) if donate else c.index_copy(2, idx, row)
+        return c
+
+    def branch(q, k, v, ck, cv, n, seq=None, offset=None, groups=()):
         s = q.shape[2]
-        start = torch.as_tensor(n, device=q.device).clamp(0, ck.shape[2] - s)
-        slots = start + torch.arange(s, device=q.device)
-        ck = ck.index_copy(2, slots, k.to(ck.dtype))
-        cv = cv.index_copy(2, slots, v.to(cv.dtype))
-        return decode_attention(q, ck, cv, n + s, window=window), ck, cv
+        seq = ck.shape[2] if seq is None else seq
+        start = torch.as_tensor(n, device=q.device).clamp(0, seq - s)
+        ck, cv = write(ck, k, start, offset), write(cv, v, start, offset)
+        if offset is None:
+            return decode_attention(q, ck, cv, n + s, window=window), ck, cv
+        return decode_attention_on_shards(q, ck, cv, n + s, offset=offset, groups=groups,
+                                          window=window), ck, cv
 
     if not is_dtensor(q):
         return branch(q, k, v, *kv_cache, cache_len)
-    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = q.device_mesh
-    q = batch_only(q)
-    pl = tuple(q.placements)
-    k, v, ck, cv = (as_dtensor(t, mesh).redistribute(mesh, pl) for t in (k, v, *kv_cache))
+    ck, cv = (as_dtensor(t, mesh) for t in kv_cache)
+    cp = tuple(p if p in (Shard(0), Shard(2)) else Replicate() for p in ck.placements)
+    qp = tuple(p if p == Shard(0) else Replicate() for p in cp)
+    groups = [mesh.get_group(i) for i, p in enumerate(cp) if p == Shard(2) and mesh.size(i) > 1]
+    seq = ck.shape[2]
+    offset = shard_offset(seq, mesh, cp, 2) if groups else None
+    q, k, v = (as_dtensor(t, mesh).redistribute(mesh, qp) for t in (q, k, v))
+    ck, cv = ck.redistribute(mesh, cp), cv.redistribute(mesh, cp)
     n, n_pl = cache_len, None
     if isinstance(cache_len, torch.Tensor):
-        n, n_pl = as_dtensor(cache_len, mesh).redistribute(mesh, (Replicate(),) * mesh.ndim), \
-            (Replicate(),) * mesh.ndim
-    f = local_map(branch, out_placements=(pl, pl, pl),
-                  in_placements=(pl, pl, pl, pl, pl, n_pl), device_mesh=mesh)
+        n_pl = (Replicate(),) * mesh.ndim
+        n = as_dtensor(cache_len, mesh).redistribute(mesh, n_pl)
+    f = local_map(lambda *a: branch(*a, seq=seq, offset=offset, groups=groups),
+                  out_placements=(qp, cp, cp), in_placements=(qp, qp, qp, cp, cp, n_pl),
+                  device_mesh=mesh)
     return f(q, k, v, ck, cv, n)
 
 
@@ -296,14 +362,15 @@ def init_attn(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int,
 
 
 def attention_block(p, x, cfg, *, positions=None, mrope_positions=None, kv_cache=None,
-                    cache_len=None, causal=True, window=None):
+                    cache_len=None, causal=True, window=None, donate=False):
     """Self-attention: ``(out, new_kv)``.  Without ``kv_cache`` (training,
     prefill) it runs the ``"attention"`` impl over x's S tokens and
     ``new_kv`` is None.  With ``kv_cache`` = (k, v), each (B, Hkv, Smax,
     D), the S new keys and values are written into copies of the cache at
     ``cache_len`` (an int or a 0-d tensor; the start is clamped so that
     the S rows fit, as JAX's ``dynamic_update_slice`` clamps it), the
-    caller's tensors untouched, and the queries attend over the first
+    caller's tensors untouched (with ``donate``, into the caller's
+    tensors themselves), and the queries attend over the first
     ``cache_len + S`` positions (``decode_attention``); ``new_kv`` is the
     written pair.  RoPE rotates by ``positions``, by default
     ``arange(S) + cache_len``; with ``cfg.mrope`` q and k rotate by
@@ -344,7 +411,7 @@ def attention_block(p, x, cfg, *, positions=None, mrope_positions=None, kv_cache
         k = apply_rope(k, positions, cfg.rope_theta)
     new_kv = None
     if kv_cache is not None:
-        out, ck, cv = _cached_attention(q, k, v, kv_cache, cache_len, window)
+        out, ck, cv = _cached_attention(q, k, v, kv_cache, cache_len, window, donate)
         new_kv = (ck, cv)
     else:
         attn = get_impl("attention", flash_attention_ref)

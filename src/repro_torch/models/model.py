@@ -255,7 +255,9 @@ def _norm(cfg, w, x):
 def _dec_layer(cfg, lp, x, enc_out=None, cross_lp=None, mrope_positions=None):
     """One layer: (x, aux), where aux is the MoE load-balancing loss (0
     for dense and SSM layers).  With ``cross_lp`` the layer attends to
-    ``enc_out`` between its self-attention and its MLP."""
+    ``enc_out`` between its self-attention and its MLP.  Its ZeRO-3-sharded
+    weights are gathered here (``L.gathered``), inside its checkpoint."""
+    lp, cross_lp = L.gathered(lp), L.gathered(cross_lp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.ssm:
         return _mamba_layer(cfg, lp, x)[0], aux
@@ -365,6 +367,7 @@ def _run_decoder(cfg: ArchConfig, p: dict, x: torch.Tensor, enc_out=None,
 def _enc_layer(cfg, lp, x):
     """One encoder layer: non-causal self-attention (with RoPE, the
     config's documented deviation), then the MLP."""
+    lp = L.gathered(lp)
     x = x + _block_out(L.attention_block(lp["attn"], _norm(cfg, lp["norm1"], x), cfg,
                                          causal=False)[0])
     return x + _block_out(L.mlp_block(lp["mlp"], _norm(cfg, lp["norm2"], x), cfg.act))
@@ -384,6 +387,7 @@ def _run_encoder(cfg: ArchConfig, p: dict, frames: torch.Tensor) -> torch.Tensor
 def _hybrid_group(cfg, shared, group, x):
     """One group: its Mamba layers, then the shared attention (with the
     config's sliding window) and MLP."""
+    shared, group = L.gathered(shared), L.gathered(group)
     for lp in group:
         x = _mamba_layer(cfg, lp, x)[0]
     x = x + _block_out(L.attention_block(shared["attn"], _norm(cfg, shared["norm1"], x), cfg,
@@ -537,6 +541,9 @@ def _ce_loss(cfg, p, h, labels):
     if not c or s % c or s == c:
         nll, nv = _ce_token_stats(cfg, p, h, labels)
         return nll / torch.clamp(nv, min=1)
+    if _vocab_whole(cfg, h):
+        nll, nv = _ce_on_row_shards(cfg, p, h, labels, c)
+        return nll / torch.clamp(nv, min=1)
     nll = torch.zeros((), dtype=torch.float32, device=h.device)
     nv = torch.zeros((), dtype=torch.int64, device=h.device)
     h = L.constrain(h, "dp", None, None)        # the chunks slice the sequence
@@ -550,9 +557,102 @@ def _ce_loss(cfg, p, h, labels):
     return nll / torch.clamp(nv, min=1)
 
 
+def _vocab_whole(cfg, h) -> bool:
+    """True on a DTensor ``h`` under an axis map whose tp axis (more than
+    one rank) does not divide the vocab: ``_ce_token_stats``' logits would
+    then hold the whole vocab on every rank."""
+    from ..parallel.shards import is_dtensor
+    tp = L._AXIS_MAP.get("tp")
+    if not is_dtensor(h) or tp is None or tp not in h.device_mesh.mesh_dim_names:
+        return False
+    n = h.device_mesh.size(h.device_mesh.mesh_dim_names.index(tp))
+    return n > 1 and cfg.vocab % n != 0
+
+
+def _ce_chunk_local(cfg, norm_w, head, tied, h, labels):
+    """One chunk's cross-entropy sums on local tensors, the whole vocab."""
+    h = L.rmsnorm(h, norm_w)
+    return _ce_stats((h @ (head.T if tied else head)).float(), labels)
+
+
+def _ce_on_row_shards(cfg, p, h, labels, c):
+    """The chunked cross-entropy sums with the rows kept where the
+    residual stream holds them (batch over dp, sequence over sp), for a
+    vocab that no tp split divides: each rank chunks its own rows, c
+    tokens of the sequence split as the sequence is (so a chunk's logits
+    take a rank's share of the JAX package's chunk), with the final norm
+    and the head gathered whole; the (nll, count) sums are then reduced
+    over the row shards (``psum``: the loss's cotangent is the same on
+    every rank) and the head's gradient comes back partial there."""
+    import math
+
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..parallel.shards import as_dtensor, grad_placed, psum
+    h = L.constrain(h, "dp", "sp", None)
+    mesh = h.device_mesh
+    hp = tuple(pl if isinstance(pl, Shard) and pl.dim < 2 else Replicate()
+               for pl in h.placements)
+    groups = [mesh.get_group(i) for i, pl in enumerate(hp) if isinstance(pl, Shard)]
+    parts = math.prod(mesh.size(i) for i, pl in enumerate(hp) if pl == Shard(1))
+    rep = (Replicate(),) * mesh.ndim
+    wg = tuple(Partial() if isinstance(pl, Shard) else Replicate() for pl in hp)
+    tied = cfg.tie_embeddings
+    head = grad_placed(p["embed"]) if tied else as_dtensor(p["lm_head"], mesh)
+
+    def body(hl, ll, nw, w):
+        n = hl.shape[1]
+        step = max(c // parts, 1)
+        step = step if n % step == 0 else n
+        nll = torch.zeros((), dtype=torch.float32, device=hl.device)
+        nv = torch.zeros((), dtype=torch.int64, device=hl.device)
+        for i in range(n // step):
+            args = (cfg, nw, w, tied, hl[:, i * step:(i + 1) * step],
+                    ll[:, i * step:(i + 1) * step])
+            if cfg.remat == "full":
+                a, k = checkpoint(_ce_chunk_local, *args, use_reentrant=False)
+            else:
+                a, k = _ce_chunk_local(*args)
+            nll, nv = nll + a, nv + k
+        for g in groups:
+            nll, nv = psum(nll, g), psum(nv, g)
+        return nll, nv
+
+    f = local_map(body, out_placements=(rep, rep), in_placements=(hp, hp, rep, rep),
+                  in_grad_placements=(hp, hp, wg, wg), device_mesh=mesh)
+    return f(h.redistribute(mesh, hp), as_dtensor(labels, mesh).redistribute(mesh, hp),
+             as_dtensor(p["final_norm"], mesh).redistribute(mesh, rep),
+             head.redistribute(mesh, rep))
+
+
 # ---------------------------------------------------------------------------
 # serving: caches, prefill, decode
 # ---------------------------------------------------------------------------
+
+def _cache_layout(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
+    """{leaf name: (shape, dtype)} of ``init_cache``'s leaves."""
+    dt, f32 = cfg.tdtype, torch.float32
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    out: dict[str, Any] = {"len": ((), torch.int32)}
+    if cfg.ssm:
+        di = cfg.ssm.expand * cfg.d_model
+        nh = di // cfg.ssm.headdim
+        out["conv"] = ((cfg.n_layers, batch, cfg.ssm.d_conv - 1, di), dt)
+        if cfg.ssm.version == 1 and not cfg.hybrid_every:
+            out["ssm"] = ((cfg.n_layers, batch, di, cfg.ssm.state), f32)
+        else:
+            out["ssm"] = ((cfg.n_layers, batch, nh, cfg.ssm.headdim, cfg.ssm.state), f32)
+        if cfg.hybrid_every:
+            win = min(cfg.sliding_window or max_seq, max_seq)
+            n_groups = cfg.n_layers // cfg.hybrid_every
+            out["k"] = out["v"] = ((n_groups, batch, hkv, win, hd), dt)
+        return out
+    out["k"] = out["v"] = ((cfg.n_layers, batch, hkv, max_seq, hd), dt)
+    if cfg.n_enc_layers:
+        out["cross_k"] = out["cross_v"] = ((cfg.n_layers, batch, hkv, cfg.enc_seq, hd), dt)
+    return out
+
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device="cuda") -> dict:
     """Zeroed decode state in the JAX package's layout: ``len`` (0-d
@@ -562,38 +662,32 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device="cuda") -> dict
     per group; the attention stacks' ``k``/``v`` (L, B, Hkv, max_seq, D),
     with ``cross_k``/``cross_v`` over ``enc_seq`` for the encoder-decoder."""
     dev = resolve_device(device)
-    dt, f32 = cfg.tdtype, torch.float32
-    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    return {name: torch.zeros(shape, dtype=dtype, device=dev)
+            for name, (shape, dtype) in _cache_layout(cfg, batch, max_seq).items()}
 
-    def zeros(shape, dtype=dt):
-        return torch.zeros(shape, dtype=dtype, device=dev)
-    cache: dict[str, Any] = {"len": zeros((), torch.int32)}
-    if cfg.ssm:
-        di = cfg.ssm.expand * cfg.d_model
-        nh = di // cfg.ssm.headdim
-        cache["conv"] = zeros((cfg.n_layers, batch, cfg.ssm.d_conv - 1, di))
-        if cfg.ssm.version == 1 and not cfg.hybrid_every:
-            cache["ssm"] = zeros((cfg.n_layers, batch, di, cfg.ssm.state), f32)
-        else:
-            cache["ssm"] = zeros((cfg.n_layers, batch, nh, cfg.ssm.headdim, cfg.ssm.state), f32)
-        if cfg.hybrid_every:
-            win = min(cfg.sliding_window or max_seq, max_seq)
-            n_groups = cfg.n_layers // cfg.hybrid_every
-            cache["k"] = zeros((n_groups, batch, hkv, win, hd))
-            cache["v"] = zeros((n_groups, batch, hkv, win, hd))
-        return cache
-    cache["k"] = zeros((cfg.n_layers, batch, hkv, max_seq, hd))
-    cache["v"] = zeros((cfg.n_layers, batch, hkv, max_seq, hd))
-    if cfg.n_enc_layers:
-        cache["cross_k"] = zeros((cfg.n_layers, batch, hkv, cfg.enc_seq, hd))
-        cache["cross_v"] = zeros((cfg.n_layers, batch, hkv, cfg.enc_seq, hd))
-    return cache
+
+def _prefill_cache(cfg: ArchConfig, batch: int, max_seq: int, x) -> dict:
+    """``init_cache``'s zeros on x's device.  On a DTensor x under the
+    launch layer's axis map each leaf is built in its placements of
+    ``parallel.sharding.cache_shardings`` (the JAX package's out-shardings
+    of its prefill), every rank making only its own shard."""
+    from ..parallel.shards import is_dtensor, zeros_on_shards
+    dp, tp = L._AXIS_MAP.get("dp"), L._AXIS_MAP.get("tp")
+    if not is_dtensor(x) or dp is None or tp is None:
+        return init_cache(cfg, batch, max_seq, device=x.device)
+    from ..parallel.sharding import cache_spec, to_placements
+    mesh = x.device_mesh
+    return {name: zeros_on_shards(shape, dtype, mesh,
+                                  to_placements(cache_spec(name, shape, mesh, dp, tp), mesh),
+                                  x.device)
+            for name, (shape, dtype) in _cache_layout(cfg, batch, max_seq).items()}
 
 
 def prefill(cfg: ArchConfig, p: dict, batch: dict, max_seq: int) -> tuple:
     """The prompt through the training forward: (logits of its last token
     (B, 1, V), cache).  The cache is ``init_cache``'s on the params'
-    device, all zeros, with ``len`` = S and, for the encoder-decoder,
+    device (under the launch layer's axis map, built in its shards:
+    ``_prefill_cache``), all zeros, with ``len`` = S and, for the encoder-decoder,
     ``enc_out``: the JAX package's prefill fills no K/V, conv, SSM or
     cross cache either, and the port keeps that.  ``batch`` holds
     ``tokens`` (B, S), and ``frames`` for the encoder-decoder and
@@ -601,7 +695,7 @@ def prefill(cfg: ArchConfig, p: dict, batch: dict, max_seq: int) -> tuple:
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = L.constrain(_embed(p["embed"], tokens), "dp", "sp", None)
-    cache = init_cache(cfg, b, max_seq, device=x.device)
+    cache = _prefill_cache(cfg, b, max_seq, x)
     enc_out = None
     if cfg.n_enc_layers:
         enc_out = _run_encoder(cfg, p, batch["frames"].to(cfg.tdtype))
@@ -623,7 +717,8 @@ def _decode_mamba(cfg, layers, x, conv, ssm):
     return x, new_conv, new_ssm
 
 
-def decode_step(cfg: ArchConfig, p: dict, token: torch.Tensor, cache: dict) -> tuple:
+def decode_step(cfg: ArchConfig, p: dict, token: torch.Tensor, cache: dict, *,
+                donate: bool = False) -> tuple:
     """One decode step: token (B, 1) -> (logits (B, 1, V), new cache with
     ``len`` + 1).  The layers run in a Python loop over ``_unstack``ed
     slices, with no checkpointing.  Pure Mamba: each layer from its conv
@@ -633,14 +728,28 @@ def decode_step(cfg: ArchConfig, p: dict, token: torch.Tensor, cache: dict) -> t
     overwritten and RoPE rotates by ``wpos``).  Attention stacks: each
     layer's K/V written at ``len``; the encoder-decoder's cross branch
     reads the cached ``cross_k``/``cross_v`` (``_cross_cached``); an MoE
-    layer calls ``L.moe_block`` directly (capacity per decode batch)."""
+    layer calls ``L.moe_block`` directly (capacity per decode batch).
+
+    The cache argument is left as it was (the JAX package's functional
+    update).  With ``donate`` the step consumes it, as the JAX package's
+    donated ``jit_decode_step`` does: the new rows, states and ``len`` are
+    written into the argument's own tensors, which come back as the new
+    cache."""
     x = L.constrain(_embed(p["embed"], token), "dp", "sp", None)    # (B, 1, D)
     pos = cache["len"]
     layers = _unstack(p["layers"], cfg.n_layers)
-    new = dict(cache, len=pos + 1)
+    new = cache if donate else dict(cache, len=pos + 1)
+
+    def store(name, parts):
+        if not donate:
+            new[name] = torch.stack(parts)
+        elif name not in ("k", "v"):            # K/V were written in their buffers
+            for i, t in enumerate(parts):
+                cache[name][i].copy_(t)
     if cfg.ssm and not cfg.hybrid_every:
         x, conv, ssm = _decode_mamba(cfg, layers, x, cache["conv"], cache["ssm"])
-        new.update(conv=torch.stack(conv), ssm=torch.stack(ssm))
+        store("conv", conv)
+        store("ssm", ssm)
     elif cfg.hybrid_every:
         k, shared = cfg.hybrid_every, p["shared_attn"]
         wpos = torch.clamp(pos, max=cache["k"].shape[3] - 1)
@@ -651,15 +760,15 @@ def decode_step(cfg: ArchConfig, p: dict, token: torch.Tensor, cache: dict) -> t
             a, (kc, vc) = L.attention_block(
                 shared["attn"], _norm(cfg, shared["norm1"], x), cfg,
                 kv_cache=(cache["k"][g], cache["v"][g]), cache_len=wpos,
-                window=cfg.sliding_window or None)
+                window=cfg.sliding_window or None, donate=donate)
             x = x + a
             x = x + L.mlp_block(shared["mlp"], _norm(cfg, shared["norm2"], x), cfg.act)
             conv += c
             ssm += h
             ks.append(kc)
             vs.append(vc)
-        new.update(conv=torch.stack(conv), ssm=torch.stack(ssm), k=torch.stack(ks),
-                   v=torch.stack(vs))
+        for name, parts in (("conv", conv), ("ssm", ssm), ("k", ks), ("v", vs)):
+            store(name, parts)
     else:
         cross = (_unstack(p["cross_layers"], cfg.n_layers) if "cross_layers" in p
                  else [None] * cfg.n_layers)
@@ -667,7 +776,7 @@ def decode_step(cfg: ArchConfig, p: dict, token: torch.Tensor, cache: dict) -> t
         for i, (lp, clp) in enumerate(zip(layers, cross)):
             a, (kc, vc) = L.attention_block(lp["attn"], _norm(cfg, lp["norm1"], x), cfg,
                                             kv_cache=(cache["k"][i], cache["v"][i]),
-                                            cache_len=pos)
+                                            cache_len=pos, donate=donate)
             x = x + a
             if clp is not None:
                 x = x + _cross_cached(cfg, clp, x, cache["cross_k"][i], cache["cross_v"][i])
@@ -680,7 +789,10 @@ def decode_step(cfg: ArchConfig, p: dict, token: torch.Tensor, cache: dict) -> t
                 x = x + L.mlp_block(lp["mlp"], h, cfg.act)
             ks.append(kc)
             vs.append(vc)
-        new.update(k=torch.stack(ks), v=torch.stack(vs))
+        store("k", ks)
+        store("v", vs)
+    if donate:
+        pos.add_(1)
     return _logits(cfg, p, x), new
 
 

@@ -20,8 +20,35 @@ def adamw_init(params) -> dict:
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
-                          for leaf in tree_leaves(tree)))
+    """The fp32 norm of every leaf together.  A DTensor leaf squares its
+    local shard; the sums are then reduced over the mesh dims that shard
+    their leaves, one all-reduce of a vector of scalars per set of dims
+    (a leaf holding a partial sum is reduced first), and added in leaf
+    order, as on plain tensors."""
+    from ..parallel.shards import is_dtensor, wait
+    sums, reduce_over = [], {}
+    for i, leaf in enumerate(tree_leaves(tree)):
+        if is_dtensor(leaf):
+            from torch.distributed.tensor import Partial, Replicate, Shard
+            mesh = leaf.device_mesh
+            if any(isinstance(pl, Partial) for pl in leaf.placements):
+                leaf = leaf.redistribute(mesh, tuple(Replicate() if isinstance(pl, Partial)
+                                                     else pl for pl in leaf.placements))
+            dims = tuple(d for d, pl in enumerate(leaf.placements)
+                         if isinstance(pl, Shard) and mesh.size(d) > 1)
+            if dims:
+                reduce_over.setdefault((id(mesh), dims), (mesh, []))[1].append(i)
+            leaf = leaf.to_local()
+        sums.append(torch.sum(torch.square(leaf.float())))
+    if reduce_over:
+        import torch.distributed._functional_collectives as funcol
+        for (_, dims), (mesh, idx) in reduce_over.items():
+            v = torch.stack([sums[i] for i in idx])
+            for d in dims:
+                v = wait(funcol.all_reduce(v, "sum", mesh.get_group(d)))
+            for j, i in enumerate(idx):
+                sums[i] = v[j]
+    return torch.sqrt(sum(sums))
 
 
 @torch.no_grad()

@@ -258,32 +258,33 @@ def batch_shardings(batch_avals, mesh, strat: ShardingRules):
     return tree_map(one, batch_avals)
 
 
+def cache_spec(name: str, shape: tuple, mesh, dp, tp) -> tuple:
+    """The spec of the cache leaf ``name`` of ``shape``, its batch over
+    ``dp`` (an axis or a tuple of axes) and its long dim over ``tp``."""
+    if name == "len" or not shape:
+        return ()
+    if name in ("k", "v", "cross_k", "cross_v"):
+        return _spec(mesh, shape, None, dp, None, tp, None)
+    if name == "ssm":
+        if len(shape) == 4:   # (L, B, d_inner, N)
+            return _spec(mesh, shape, None, dp, tp, None)
+        return _spec(mesh, shape, None, dp, tp, None, None)
+    if name == "conv":
+        return _spec(mesh, shape, None, dp, None, tp)
+    if name == "enc_out":
+        return _spec(mesh, shape, dp, None, None)
+    return (None,) * len(shape)
+
+
 def cache_shardings(cache_avals, mesh, strat: ShardingRules):
     """Decode caches: batch over dp axes, long dims over the tp axis.
     k/v: (L, B, Hkv, S, D) -> seq over tp; ssm: (L, B, …, N) -> d_inner
     (or heads) over tp; conv: (L, B, K-1, di) -> di over tp."""
     dp = strat.dp_axes if len(strat.dp_axes) > 1 else strat.dp_axes[0]
-    tp = strat.tp_axis
-
-    def one_path(path, aval):
-        name = path[-1] if path else ""
-        shape = tuple(aval.shape)
-        if name == "len" or not shape:
-            return sharding(mesh, ())
-        if name in ("k", "v", "cross_k", "cross_v"):
-            return sharding(mesh, _spec(mesh, shape, None, dp, None, tp, None))
-        if name == "ssm":
-            if len(shape) == 4:   # (L, B, d_inner, N)
-                return sharding(mesh, _spec(mesh, shape, None, dp, tp, None))
-            return sharding(mesh, _spec(mesh, shape, None, dp, tp, None, None))
-        if name == "conv":
-            return sharding(mesh, _spec(mesh, shape, None, dp, None, tp))
-        if name == "enc_out":
-            return sharding(mesh, _spec(mesh, shape, dp, None, None))
-        return sharding(mesh, (None,) * len(shape))
-
-    return tree_unflatten(cache_avals, [one_path(path, leaf) for path, leaf
-                                        in tree_flatten_with_path(cache_avals)])
+    return tree_unflatten(cache_avals, [
+        sharding(mesh, cache_spec(path[-1] if path else "", tuple(leaf.shape), mesh, dp,
+                                  strat.tp_axis))
+        for path, leaf in tree_flatten_with_path(cache_avals)])
 
 
 def __getattr__(name: str):

@@ -53,6 +53,32 @@ def place(t, mesh, placements) -> DTensor:
     return as_dtensor(t, mesh).redistribute(mesh, tuple(placements))
 
 
+def placed_like(t, ref):
+    """``t`` redistributed to ``ref``'s placements where both are DTensors
+    and they differ (a partial sum reduced or reduce-scattered there);
+    anything else passes through."""
+    if not is_dtensor(t) or not is_dtensor(ref) or tuple(t.placements) == tuple(ref.placements):
+        return t
+    return t.redistribute(ref.device_mesh, tuple(ref.placements))
+
+
+def zeros_on_shards(shape, dtype, mesh, placements, device) -> DTensor:
+    """Zeros of global ``shape`` as a DTensor in ``placements``, each rank
+    making only its own shard (the shards are even: a spec keeps only the
+    axes that divide their dim)."""
+    local = list(shape)
+    for i, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            local[pl.dim] //= mesh.size(i)
+    stride, n = [], 1
+    for size in reversed(shape):
+        stride.insert(0, n)
+        n *= size
+    return DTensor.from_local(torch.zeros(local, dtype=dtype, device=device), mesh,
+                              tuple(placements), run_check=False, shape=torch.Size(shape),
+                              stride=tuple(stride))
+
+
 def shard_offset(global_size: int, mesh, placements, dim: int) -> int:
     """Index of this rank's first element along tensor dim ``dim`` (mesh
     dims that shard it nest in mesh order, as DTensor lays them out)."""

@@ -346,38 +346,61 @@ def test_ssm_argument_bytes_equal_the_jax_package():
     assert len(port) == 8 and all(v > 0 for v in port.values())
 
 
-def cell_table(results_dir) -> str:
+def cell_table(results_dir, before_dir=None) -> str:
     """The 80 cells of a ``--all`` run (its JSON records under
     ``results_dir``) as a markdown table, pod1 and pod2 side by side:
     seconds, argument bytes against the JAX package's, counted peak per
     device, FLOPs per device, collective bytes by kind and the dominant
-    roofline term on the H100 constants.  Counts of a CPU run, not card
-    times."""
+    roofline term on the H100 constants.  With ``before_dir`` (another
+    ``--all`` run, say the parent commit's) each peak and each collective
+    total reads before → after.  Counts of a CPU run, not card times."""
     results_dir = pathlib.Path(results_dir)
     cells = [list(c) for c in dryrun.all_cells()]
     jax_side = jax_argument_bytes([c for c in cells
                                    if specs.cell_status(get_config(c[0]), c[1]) == "ok"])
     kinds = ("all-gather", "reduce-scatter", "all-reduce", "all-to-all")
-    rows = ["| arch | shape | run s | arg bytes = JAX | peak GiB/dev | TFLOP/dev | "
-            "collectives GB/dev, AG / RS / AR / A2A | dominant |", "|" + "---|" * 8]
+
+    def load(d, arch, shape):
+        return [json.loads((pathlib.Path(d) / f"{arch}__{shape}__{m}.json").read_text())
+                for m in ("pod1", "pod2")]
+    if before_dir is None:
+        rows = ["| arch | shape | run s | arg bytes = JAX | peak GiB/dev | TFLOP/dev | "
+                "collectives GB/dev, AG / RS / AR / A2A | dominant |", "|" + "---|" * 8]
+    else:
+        rows = ["| arch | shape | run s | arg bytes = JAX | peak GiB/dev, before → after | "
+                "collectives GB/dev, before → after (AG / RS / AR after) | dominant |",
+                "|" + "---|" * 7]
     skipped = []
     for arch in ASSIGNED:
         for shape in specs.SHAPES:
-            recs = [json.loads((results_dir / f"{arch}__{shape}__{m}.json").read_text())
-                    for m in ("pod1", "pod2")]
+            recs = load(results_dir, arch, shape)
             if any(r["status"] != "ok" for r in recs):
                 skipped.append((f"{shape} {' / '.join(r['status'] for r in recs)}", arch))
                 continue
             same = ["yes" if r["memory"]["argument_size_in_bytes"]
                     == jax_side[f"{arch}__{shape}__{r['mesh']}"] else "NO" for r in recs]
-            cols = [[str(r["run_s"]) for r in recs], same,
-                    [f"{r['memory']['peak_bytes'] / 2**30:.3f}" for r in recs],
-                    [f"{r['flops'] / 1e12:.2f}" for r in recs]]
-            coll = " ; ".join(" / ".join(f"{r['collective']['per_kind_bytes'].get(k, 0) / 1e9:.2f}"
-                                         for k in kinds) for r in recs)
             dom = " / ".join(r["roofline"]["dominant"] for r in recs)
-            rows.append(f"| {arch} | {shape} | " + " | ".join(" / ".join(c) for c in cols)
-                        + f" | {coll} | {dom} |")
+            runs = " / ".join(str(r["run_s"]) for r in recs)
+            if before_dir is None:
+                cols = [[f"{r['memory']['peak_bytes'] / 2**30:.3f}" for r in recs],
+                        [f"{r['flops'] / 1e12:.2f}" for r in recs]]
+                coll = " ; ".join(" / ".join(
+                    f"{r['collective']['per_kind_bytes'].get(k, 0) / 1e9:.2f}" for k in kinds)
+                    for r in recs)
+                rows.append(f"| {arch} | {shape} | {runs} | {' / '.join(same)} | "
+                            + " | ".join(" / ".join(c) for c in cols) + f" | {coll} | {dom} |")
+                continue
+            olds = load(before_dir, arch, shape)
+            peak = " ; ".join(f"{o['memory']['peak_bytes'] / 2**30:.3f} → "
+                              f"{r['memory']['peak_bytes'] / 2**30:.3f}"
+                              for o, r in zip(olds, recs))
+            coll = " ; ".join(
+                f"{o['collective']['total_bytes'] / 1e9:.2f} → "
+                f"{r['collective']['total_bytes'] / 1e9:.2f} ("
+                + " / ".join(f"{r['collective']['per_kind_bytes'].get(k, 0) / 1e9:.2f}"
+                             for k in kinds[:3]) + ")" for o, r in zip(olds, recs))
+            rows.append(f"| {arch} | {shape} | {runs} | {' / '.join(same)} | {peak} | {coll} "
+                        f"| {dom} |")
     for why in dict.fromkeys(w for w, _ in skipped):
         rows.append(f"\nNot run, {why} (pod1 / pod2, the JAX package's reason): "
                     + ", ".join(a for w, a in skipped if w == why) + ".")
@@ -385,5 +408,5 @@ def cell_table(results_dir) -> str:
 
 
 if __name__ == "__main__":
-    # PYTHONPATH=src python tests/test_torch_dryrun_ssm.py build/dryrun_torch
-    print(cell_table(sys.argv[1]))
+    # PYTHONPATH=src python tests/test_torch_dryrun_ssm.py build/dryrun_torch [BEFORE_DIR]
+    print(cell_table(*sys.argv[1:3]))

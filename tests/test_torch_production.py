@@ -19,12 +19,17 @@ alongside:
 - the sharded train step at world 4 on a (2, 2) mesh, for the reduced
   qwen3-1b and the reduced DeepSeek with ``moe_impl="a2a"`` and no
   drops, at ZeRO 0 and 3 and ``attn_mode`` "cp" and "tp", and for the
-  grouped MoE, the Mamba-1 stack and the hybrid: loss, gnorm and every
-  new param leaf equal the JAX package's ``make_train_fn`` step.  Both packages cast to fp32 inside the model (norms, attention,
+  grouped MoE, the Mamba-1 stack, the hybrid, and two configs whose vocab
+  the model axis does not divide (the cross-entropy on the rows' shards):
+  loss, gnorm and every new param leaf equal the JAX package's
+  ``make_train_fn`` step, and every new param in its out-sharding.  Both
+  packages cast to fp32 inside the model (norms, attention,
   router, logits) whatever the params' dtype, so the comparison is in
   fp32 at the parity tolerances of ``tests/test_torch_train.py``;
-- prefill and three decode steps with ``cache_shardings`` against the
-  JAX package's ``prefill`` and ``decode_step``;
+- prefill (its cache built in ``cache_shardings``' placements) and decode
+  steps on the sequence-sharded cache, written in place, past a sequence
+  shard's boundary and, for the hybrid's window, past its ``wpos`` clamp,
+  against the JAX package's ``prefill`` and ``decode_step``;
 - ``CheckpointManager.restore(shardings=)``: every local shard
   bit-equal to the saved leaf's slice.
 """
@@ -55,17 +60,27 @@ PARAM_TOL = dict(atol=5e-6, rtol=1e-5)
 # the hybrid's: the port's SSD scan agrees with the JAX package's within
 # the scan tolerance (~3e-7, tests/test_torch_hybrid.py), and AdamW's
 # first step moves a parameter by lr * g / |g|, so a near-zero gradient's
-# error can move it by up to 2 * lr (6e-4); held at that file's atol
+# error can move it by up to 2 * lr (6e-4); held at that file's atol.  The
+# odd-vocab cases take it too: their chunked cross-entropy sums in another
+# order than the JAX package's, and the cut minicpm's wq holds a gradient
+# of 5.2e-9, under AdamW's eps
 HYBRID_PARAM_TOL = dict(atol=5e-5, rtol=1e-5)
 GRAD_TOL = dict(atol=5e-5, rtol=5e-4)
 EP_TOL = dict(atol=1e-4, rtol=1e-3)
+# configs cut to a vocab the model axis does not divide, the loss in two
+# chunks under remat "full": the chunked cross-entropy on the rows' own
+# shards (tied table, untied head), with every layer's gathers inside its
+# checkpoint
+ODD_VOCAB = {"minicpm-2b": dict(vocab=255, loss_chunk=8, remat="full"),
+             "qwen2.5-32b": dict(vocab=255, loss_chunk=8, remat="full")}
 # (arch, ZeRO stage, attn_mode, moe_impl): the dense and EP cases over
 # ZeRO 0/3 and cp/tp, then the grouped MoE, the Mamba-1 stack and the
-# hybrid on their shards
+# hybrid on their shards, then the odd vocabs
 TRAIN_CASES = ([(arch, zero, attn, "a2a") for arch in ("qwen3-1b", "deepseek-moe-16b")
                 for zero in (0, 3) for attn in ("cp", "tp")]
                + [("deepseek-moe-16b", 3, "cp", "grouped"), ("falcon-mamba-7b", 3, "cp", "a2a"),
-                  ("zamba2-2.7b", 0, "tp", "a2a")])
+                  ("zamba2-2.7b", 0, "tp", "a2a")]
+               + [(arch, 3, "cp", "a2a") for arch in ODD_VOCAB])
 EP = dict(E=8, K=2, D=16, DEX=32, B=4, S=16)
 PIPE = dict(R=4, M=8, MB=4, D=16)
 
@@ -74,7 +89,9 @@ WORKER = textwrap.dedent('''
     import torch, torch.distributed as dist, torch.multiprocessing as mp
 
     def full(t):
-        return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach()
+        # a copy: the sharded decode step consumes its cache argument, so
+        # a replicated leaf's local tensor (``len``) changes after the fact
+        return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach().clone()
 
     def leafs(tree, mesh):
         from torch.distributed.tensor import DTensor, Replicate
@@ -148,12 +165,21 @@ WORKER = textwrap.dedent('''
         logits, cache = fn(params, inp["prompt"])
         out = {"prefill": full(logits), "prefill_cache": tree_map(full, cache), "steps": []}
         b = inp["prompt"]["tokens"].shape[0]
+        dfn_avals = {"token": torch.empty((b, 1), dtype=torch.int32, device="meta")}
         dfn, _ = sharded_decode_step(cfg, mesh, strat, cache_avals=meta(cache),
-                                     batch_avals={"token": torch.empty((b, 1), dtype=torch.int32,
-                                                                       device="meta")})
+                                     batch_avals=dfn_avals)
+        buffers = {k: t.to_local().data_ptr() for k, t in cache.items()}
+        # a step that does not donate its cache, on a copy, fed alike
+        cfn, _ = sharded_decode_step(cfg, mesh, strat, cache_avals=meta(cache),
+                                     batch_avals=dfn_avals, donate=False)
+        spare, out["copying_same"] = tree_map(lambda t: t.clone(), cache), []
         for tok in inp["tokens"]:
             logits, cache = dfn(params, cache, {"token": tok})
             out["steps"].append(full(logits))
+            clogits, spare = cfn(params, spare, {"token": tok})
+            out["copying_same"].append(torch.equal(full(clogits), out["steps"][-1]))
+        # the decode step consumed its cache: each leaf still in its buffer
+        out["in_place"] = {k: cache[k].to_local().data_ptr() == ptr for k, ptr in buffers.items()}
         out["cache"] = tree_map(full, cache)
         out["cache_placed"] = all(t.placements == s.placements for (_, t), (_, s) in zip(
             sorted(_flat(cache)), sorted(_flat(dfn.out_shardings[1]))))
@@ -319,6 +345,9 @@ def _cfgs(arch):
     drops nothing, so the EP step and the single-device step agree."""
     from repro_torch.configs import get_config
     jcfg, tcfg = jconfigs.get_config(arch).reduced(), get_config(arch).reduced()
+    if arch in ODD_VOCAB:
+        jcfg = dataclasses.replace(jcfg, **ODD_VOCAB[arch])
+        tcfg = dataclasses.replace(tcfg, **ODD_VOCAB[arch])
     if jcfg.moe:
         jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe, capacity_factor=8.0))
         tcfg = dataclasses.replace(tcfg, moe=dataclasses.replace(tcfg.moe, capacity_factor=8.0))
@@ -364,20 +393,31 @@ def test_sharded_train_step_world_4(tmp_path):
                 jax.tree_util.tree_flatten_with_path(new["params"])[0]}
         mine = {p: t.numpy() for p, t in tree_flatten_with_path(res["params"])}
         assert mine.keys() == want.keys()
-        tol = HYBRID_PARAM_TOL if arch == "zamba2-2.7b" else PARAM_TOL
+        tol = HYBRID_PARAM_TOL if arch == "zamba2-2.7b" or arch in ODD_VOCAB else PARAM_TOL
         for p in want:
             np.testing.assert_allclose(mine[p], want[p], err_msg=f"{key} {p}", **tol)
 
 
+def _in_place(got):
+    """Every cache leaf the decode steps wrote stayed in its buffer, and a
+    decode step that copies its cache gave the same bits."""
+    assert got["in_place"] and all(got["in_place"].values()), got["in_place"]
+    assert got["copying_same"] and all(got["copying_same"]), got["copying_same"]
+
+
 def test_sharded_prefill_decode_and_restore_world_4(tmp_path):
+    """qwen3-1b served on a (2, 2) world: the prefill's cache built in its
+    shards, then four decode steps on the cache sharded over its sequence
+    (two shards of 16 slots) and written in place: a 14-token prompt puts
+    ``len`` at 14 and 15 in the first shard and 16 and 17 in the second."""
     from repro_torch.configs import get_config
     jcfg = jconfigs.get_config("qwen3-1b").reduced()
     tcfg = get_config("qwen3-1b").reduced()
     jp = jmodels.init(jcfg, jax.random.PRNGKey(0))
     rng = np.random.default_rng(3)
-    b, s, max_seq = 4, 16, 32
+    b, s, max_seq = 4, 14, 32
     prompt = rng.integers(0, jcfg.vocab, (b, s)).astype(np.int32)
-    tokens = [rng.integers(0, jcfg.vocab, (b, 1)).astype(np.int32) for _ in range(3)]
+    tokens = [rng.integers(0, jcfg.vocab, (b, 1)).astype(np.int32) for _ in range(4)]
     tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
     got = run_world(tmp_path, "serve", {
         "cfg": tcfg, "params": tparams, "prompt": {"tokens": torch.from_numpy(prompt)},
@@ -394,6 +434,7 @@ def test_sharded_prefill_decode_and_restore_world_4(tmp_path):
         np.testing.assert_allclose(got["cache"][key].numpy(), np.asarray(cache[key]),
                                    atol=2e-5, rtol=2e-5, err_msg=key)
     assert got["cache_placed"]
+    _in_place(got)
     assert got["restored_ok"] and all(got["restored_ok"])
     assert got["restored_all"] == [True] * 4
 
@@ -429,6 +470,41 @@ def test_sharded_encdec_prefill_and_decode_world_4(tmp_path):
         np.testing.assert_allclose(got["cache"][key].numpy(), np.asarray(cache[key]),
                                    atol=2e-5, rtol=2e-5, err_msg=key)
     assert got["cache_placed"]
+    _in_place(got)
+
+
+def test_sharded_hybrid_prefill_and_decode_world_4(tmp_path):
+    """The hybrid served on a (2, 2) world with a window of 16 slots (two
+    sequence shards of 8): a 6-token prompt, then twelve decode steps
+    writing at ``wpos`` 6 and 7 in the first shard, 8-15 in the second,
+    then at 15 again past the full window (the ``wpos`` clamp), against
+    the JAX package's ``prefill`` and ``decode_step``s: logits, the window
+    cache and the conv and SSM states, each written in place."""
+    from repro_torch.configs import get_config
+    jcfg = dataclasses.replace(jconfigs.get_config("zamba2-2.7b").reduced(), sliding_window=16)
+    tcfg = dataclasses.replace(get_config("zamba2-2.7b").reduced(), sliding_window=16)
+    jp = jmodels.init(jcfg, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(6)
+    b, s, max_seq = 4, 6, 32
+    prompt = rng.integers(0, jcfg.vocab, (b, s)).astype(np.int32)
+    tokens = [rng.integers(0, jcfg.vocab, (b, 1)).astype(np.int32) for _ in range(12)]
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    got = run_world(tmp_path, "serve", {
+        "cfg": tcfg, "params": tparams, "prompt": {"tokens": torch.from_numpy(prompt)},
+        "tokens": [torch.from_numpy(t) for t in tokens], "max_seq": max_seq,
+        "ckpt": str(tmp_path / "ckpt")}, (2, 2), ("data", "model"))
+    logits, cache = jmodels.prefill(jcfg, jp, {"tokens": jnp.asarray(prompt)}, max_seq)
+    np.testing.assert_allclose(got["prefill"].numpy(), np.asarray(logits), atol=2e-5, rtol=2e-5)
+    assert cache["k"].shape[3] == 16
+    for tok, mine in zip(tokens, got["steps"]):
+        logits, cache = jmodels.decode_step(jcfg, jp, jnp.asarray(tok), cache)
+        np.testing.assert_allclose(mine.numpy(), np.asarray(logits), atol=2e-5, rtol=2e-5)
+    assert int(cache["len"]) == s + len(tokens)
+    for key in cache:
+        np.testing.assert_allclose(got["cache"][key].numpy(), np.asarray(cache[key]),
+                                   atol=2e-5, rtol=2e-5, err_msg=key)
+    assert got["cache_placed"]
+    _in_place(got)
 
 
 def test_moe_block_ep_world_8(inputs, jax_multi_device, tmp_path):
