@@ -42,8 +42,9 @@ their plain versions.  Only Qwen1.5's run ends with a checkpoint save
     and K2 at head_dim 80 with the config's sliding window of 4096); its
     SSD scan runs as plain PyTorch, as the JAX package runs it in jnp, and
     is profiled alone.  The fp32 comparison runs one group (6 layers),
-    and the plain profile is skipped (the plain run differs only in K1
-    and K2, which phase 2 times);
+    and no step is profiled: the plain run differs only in K1 and K2,
+    which phase 2 times, and the SSD scan's own profile says where the
+    kernel step goes;
   - Whisper-large-v3 whole (phase 3k): 32 encoder layers over 1500
     frames (non-causal self-attention) and 32 decoder layers over 448
     tokens, each with a cross-attention to the encoder output (K1, and K2
@@ -164,7 +165,10 @@ K3), launches exact, the first step bit-equal to ``build_step`` on local
 tensors under the same axis map, loss and gradients with the kernels
 against their plain versions routed alike, the median step beside the
 local steps' (DTensor's dispatch), busy share and peak beside phase
-3c's; (b) Qwen3-1.7B whole through
+3c's; then the same with ``moe_impl="grouped"`` (the grouped block,
+each rank of the model axis computing its share of the experts on K3),
+launches exact, bit-equal to ``build_step``, its median step beside the
+all-to-all block's; (b) Qwen3-1.7B whole through
 ``sharded_prefill_step`` and 8 ``sharded_decode_step``s, launches exact,
 logits and every cache leaf bit-equal to phase 3m's functions fed the
 same tokens, the cache written in place in the caller's buffers (same
@@ -2899,27 +2903,25 @@ def device_kernels(torch, prof, n_steps: int) -> list:
             if e.device_type() == torch.autograd.DeviceType.CUDA]
 
 
-def phase_profile(torch, train: dict, plain_steps: int = PROFILED_STEPS,
-                  kernel_steps: int = PROFILED_STEPS, warm_up: bool = True) -> None:
+def phase_profile(torch, train: dict, plain_steps: int = PROFILED_STEPS) -> None:
     """Where a full-width step's device time goes, continuing a training
     phase's state: with the kernels, then with their plain versions, one
-    warm-up step (unless ``warm_up`` is false) and then steps under
-    ``torch.profiler`` (device activity only): ``kernel_steps`` with the
-    kernels, ``plain_steps`` plain (none: the plain profile is skipped, as
+    warm-up step and then steps under ``torch.profiler`` (device activity
+    only): PROFILED_STEPS with the kernels, ``plain_steps`` plain (none:
+    the plain profile is skipped, as
     for the Mamba paths, whose plain scans launch ~445k kernels a Falcon
     step)."""
     from repro_torch.kernels import ops
     state, step_fn, loader = train["state"], train["step_fn"], train["loader"]
     act = [torch.profiler.ProfilerActivity.CUDA]
-    for mode, n_steps in (("kernels", kernel_steps), ("plain", plain_steps)):
+    for mode, n_steps in (("kernels", PROFILED_STEPS), ("plain", plain_steps)):
         if not n_steps:
             continue
         if mode == "kernels":
             ops.register_kernels()
         else:
             ops.unregister_kernels()
-        if warm_up:
-            state, _ = step_fn(state, loader.next_batch())
+        state, _ = step_fn(state, loader.next_batch())
         batches = [loader.next_batch() for _ in range(n_steps)]
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
@@ -3356,7 +3358,7 @@ def sharded_loss_grads(torch, cfg, fn, params, batch, replay=None) -> tuple:
 def phase_sharded_train(torch, cfg, none: dict, step_3c: float, peak_3c: int,
                         per_step: dict | None = None, ref_phase: str = "3c",
                         strategy_kw: dict | None = None, tag: str = "(a)",
-                        path: str = "3n") -> tuple:
+                        path: str = "3n", checked: bool = True) -> tuple:
     """(a) ``cfg`` (DeepSeek-MoE-16B at DEEPSEEK_LAYERS layers, bf16,
     remat "full") through ``sharded_train_step`` on the one-rank mesh:
     ZeRO-3 rules with ``moe_impl="a2a"`` from ``strategy_for``, so
@@ -3371,7 +3373,10 @@ def phase_sharded_train(torch, cfg, none: dict, step_3c: float, peak_3c: int,
     busy share, and the peak beside phase 3c's.  Phase 3o(a) runs
     Falcon-Mamba-7B so (``per_step`` its launches a step, ``ref_phase``
     the phase whose step and peak it prints beside its own, ``strategy_kw``
-    the rules' options).  Returns (launches, summary)."""
+    the rules' options).  Without ``checked`` the profiled step and the
+    comparison with the plain versions are left out (the grouped MoE's run,
+    whose kernels the all-to-all run holds to their plain versions).
+    Returns (launches, summary)."""
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import axis_map, local_bytes, sharded_train_step, strategy_for
@@ -3431,7 +3436,8 @@ def phase_sharded_train(torch, cfg, none: dict, step_3c: float, peak_3c: int,
           flush=True)
     if launched != want:
         fail(f"{tag} kernel launches {launched} != {want}")
-    prof = step_profile(torch, f"sharded step {tag}", lambda: fn(state, batch))
+    prof = step_profile(torch, f"sharded step {tag}", lambda: fn(state, batch)) if checked \
+        else {"busy_share": None, "ms": None, "launches": None}
     del state, met
     gc.collect()
     torch.cuda.empty_cache()
@@ -3456,14 +3462,44 @@ def phase_sharded_train(torch, cfg, none: dict, step_3c: float, peak_3c: int,
     print(f"  {tag} the first sharded step: loss {out['loss'].item():.6f} and every new leaf "
           f"(params, m, v) bit-equal to build_step on local tensors under the same axis map",
           flush=True)
-    # kernels against plain versions, routed as the kernel run
+    loss_err = worst_err = None
+    if checked:
+        loss_err, worst_err = sharded_against_plain(torch, cfg, fn, snapshot, batch, tag)
+    step_s = statistics.median(times[1:])
+    local_s = statistics.median(local_times[1:])
+    summary = {"step_ms": step_s * 1e3, "steps_ms": [t * 1e3 for t in times],
+               "local_step_ms": local_s * 1e3, "local_steps_ms": [t * 1e3 for t in local_times],
+               "dispatch_ms": (step_s - local_s) * 1e3,
+               "ref": ref_phase, "step_3c_ms": step_3c * 1e3, "busy_share": prof["busy_share"],
+               "profiled_ms": prof["ms"], "profiled_launches": prof["launches"],
+               "peak_gib": peak / 2**30, "peak_3c_gib": peak_3c / 2**30,
+               "arg_bytes": arg_bytes, "loss_rel_err_plain": loss_err,
+               "worst_leaf_rel_l2_plain": worst_err}
+    print(f"  {tag} sharded step median {step_s * 1e3:.1f} ms over steps 2-{SHARDED_STEPS}, "
+          f"the same step functions on local tensors {local_s * 1e3:.1f} ms (steps "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in local_times)}): DTensor's "
+          f"dispatch costs {(step_s - local_s) * 1e3:.1f} ms of host; "
+          f"{BATCH * SEQ / step_s:.0f} tokens/s, "
+          + (f"busy {prof['busy_share']:.1%} of a profiled step, " if checked else "")
+          + f"peak {peak / 2**30:.2f} GiB (phase {ref_phase} on local tensors: step "
+          f"{step_3c * 1e3:.1f} ms, peak {peak_3c / 2**30:.2f} GiB)", flush=True)
+    ops.unregister_kernels()
+    return {f"{path} {cfg.name} sharded train, {SHARDED_STEPS} steps": launched}, summary
+
+
+def sharded_against_plain(torch, cfg, fn, snapshot, batch, tag: str) -> tuple:
+    """The loss and every gradient leaf on the sharded path with the
+    kernels against their plain versions, routed as the kernel run: each
+    within PLAIN_RTOL.  Returns (the loss's relative error, the worst
+    leaf's relative L2 error)."""
+    from repro_torch.kernels import ops
+    from repro_torch.tree import tree_flatten_with_path, tree_map
     params = tree_map(lambda t: t.cuda(), snapshot)
     loss_k, grads_k, route = sharded_loss_grads(torch, cfg, fn, params, batch)
     ops.unregister_kernels()
     loss_p, grads_p, _ = sharded_loss_grads(torch, cfg, fn, params, batch, replay=route)
     del params
     loss_rtol, grad_rtol = PLAIN_RTOL[cfg.dtype]
-    from repro_torch.tree import tree_flatten_with_path
     gp = dict(tree_flatten_with_path(grads_p))
     errs = {"/".join(path): rel_l2(g, gp[path]) for path, g in tree_flatten_with_path(grads_k)}
     worst = max(errs, key=errs.get)
@@ -3475,25 +3511,7 @@ def phase_sharded_train(torch, cfg, none: dict, step_3c: float, peak_3c: int,
             or errs[worst] > grad_rtol:
         fail(f"{tag} kernels and plain versions disagree: loss {loss_err:.3e}, "
              f"{worst} {errs[worst]:.3e}")
-    step_s = statistics.median(times[1:])
-    local_s = statistics.median(local_times[1:])
-    summary = {"step_ms": step_s * 1e3, "steps_ms": [t * 1e3 for t in times],
-               "local_step_ms": local_s * 1e3, "local_steps_ms": [t * 1e3 for t in local_times],
-               "dispatch_ms": (step_s - local_s) * 1e3,
-               "ref": ref_phase, "step_3c_ms": step_3c * 1e3, "busy_share": prof["busy_share"],
-               "profiled_ms": prof["ms"], "profiled_launches": prof["launches"],
-               "peak_gib": peak / 2**30, "peak_3c_gib": peak_3c / 2**30,
-               "arg_bytes": arg_bytes, "loss_rel_err_plain": loss_err,
-               "worst_leaf_rel_l2_plain": errs[worst]}
-    print(f"  {tag} sharded step median {step_s * 1e3:.1f} ms over steps 2-{SHARDED_STEPS}, "
-          f"the same step functions on local tensors {local_s * 1e3:.1f} ms (steps "
-          f"{', '.join(f'{t * 1e3:.1f}' for t in local_times)}): DTensor's "
-          f"dispatch costs {(step_s - local_s) * 1e3:.1f} ms of host; "
-          f"{BATCH * SEQ / step_s:.0f} tokens/s, busy {prof['busy_share']:.1%} of a profiled "
-          f"step, peak {peak / 2**30:.2f} GiB (phase {ref_phase} on local tensors: step "
-          f"{step_3c * 1e3:.1f} ms, peak {peak_3c / 2**30:.2f} GiB)", flush=True)
-    ops.unregister_kernels()
-    return {f"{path} {cfg.name} sharded train, {SHARDED_STEPS} steps": launched}, summary
+    return loss_err, errs[worst]
 
 
 def phase_sharded_serve(torch, cfg, none: dict) -> tuple:
@@ -3729,11 +3747,24 @@ def phase_production(torch, deepseek, qwen3, none: dict, step_3c: float, peak_3c
         counts, summary = phase_sharded_train(torch, deepseek, none, step_3c, peak_3c)
         gc.collect()
         torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        grouped, summary_g = phase_sharded_train(
+            torch, deepseek, none, step_3c, peak_3c, strategy_kw={"moe_impl": "grouped"},
+            tag="(a) grouped", path="3n grouped", checked=False)
+        counts.update(grouped)
+        summary_g["seconds"] = time.perf_counter() - t1
+        print(f"  (a) grouped sharded step median {summary_g['step_ms']:.1f} ms beside the "
+              f"all-to-all block's {summary['step_ms']:.1f} ms (local tensors "
+              f"{summary_g['local_step_ms']:.1f} and {summary['local_step_ms']:.1f} ms); peak "
+              f"{summary_g['peak_gib']:.2f} and {summary['peak_gib']:.2f} GiB; the grouped run "
+              f"took {summary_g['seconds']:.1f} s", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
         served, summary_b = phase_sharded_serve(torch, qwen3, none)
         counts.update(served)
         gc.collect()
         torch.cuda.empty_cache()
-    summary = {"a": summary, "b": summary_b,
+    summary = {"a": summary, "a_grouped": summary_g, "b": summary_b,
                "c": phase_dryrun(torch, deepseek, summary)}
     summary["seconds"] = time.perf_counter() - t0
     print(f"  phase 3n took {summary['seconds']:.1f} s", flush=True)
@@ -3978,7 +4009,10 @@ def main() -> int:
             print(f"  plain profile skipped: the plain run differs from the kernel run only "
                   f"in {kernels}, whose plain versions phase 2 times", flush=True)
         if cfg.hybrid_every:
-            phase_profile(torch, train, plain_steps=0, kernel_steps=1, warm_up=False)
+            # its profiled step (19.4 s) makes room for 3n(a)'s grouped run:
+            # the plain SSD scan's own profile below says where the step goes
+            print("  kernel profile skipped: the plain SSD scan's, profiled alone, is "
+                  "the step's device time and launches", flush=True)
             ssd_scan_profile(torch, cfg)
         else:
             phase_profile(torch, train, plain_steps=0 if cfg.ssm else PROFILED_STEPS)

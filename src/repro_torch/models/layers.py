@@ -81,10 +81,9 @@ def gathered(tree):
     weights are used, inside its checkpoint, so the backward's recompute
     gathers them again.  Plain tensors, and every leaf when no ZeRO-3
     axis is mapped, pass through, and so do the expert stacks: the MoE
-    blocks redistribute them from their own placements under
-    ``local_map``, whose backward reduce-scatters their gradients already
-    (gathered first over the ZeRO axis alone, the grouped block's
-    gradient would come back all-reduced whole over it)."""
+    blocks take their shards over tp from the stacks' own placements
+    where they compute them, under ``local_map``, whose backward
+    reduce-scatters their gradients already."""
     from ..parallel.shards import is_dtensor
     fsdp = _AXIS_MAP.get("fsdp")
     if tree is None or not fsdp:
@@ -509,8 +508,9 @@ def _route(eid: torch.Tensor, n_experts: int, cap: int):
     """Per-group slot assignment, all groups at once.  eid: (G, Tg, K)
     expert ids.  Each group stably sorts its Tg*K choices by expert and
     gives the first ``cap`` of each expert a slot ``e*cap + pos``; the
-    rest go to the drop slot ``E*cap``.  Returns (tok_of_slot, filled),
-    each (G, E*cap), and slot_of_choice (G, Tg*K)."""
+    rest go to the drop slot ``E*cap``.  Returns (choice_of_slot, filled),
+    each (G, E*cap) (an empty slot names choice 0), and slot_of_choice
+    (G, Tg*K)."""
     g, tg, k = eid.shape
     tk, n_slots = tg * k, n_experts * cap
     flat = eid.reshape(g, tk)
@@ -524,9 +524,8 @@ def _route(eid: torch.Tensor, n_experts: int, cap: int):
     inv = torch.full((g, n_slots + 1), tk, dtype=order.dtype, device=eid.device)
     inv = inv.scatter_(1, slot, order)[:, :n_slots]
     filled = inv < tk
-    tok_of_slot = torch.where(filled, inv // k, 0)
     slot_of_choice = torch.empty_like(slot).scatter_(1, order, slot)
-    return tok_of_slot, filled, slot_of_choice
+    return torch.where(filled, inv, 0), filled, slot_of_choice
 
 
 def moe_block(p, x, *, n_experts: int, top_k: int, act: str = "swiglu",
@@ -540,84 +539,140 @@ def moe_block(p, x, *, n_experts: int, top_k: int, act: str = "swiglu",
     the experts run as one grouped matmul through ``moe_expert_mm``.
     Each token sums its kept choices' rows weighted by their gates.
     x: (B, S, D) -> (y (B, S, D), load-balancing aux loss).  A DTensor x
-    runs on its batch shards (``_moe_block_on_shards``)."""
+    runs on its shards, each rank of the tensor-parallel axis computing
+    its share of the experts (``_moe_block_on_shards``)."""
     from ..parallel.shards import is_dtensor
     kw = dict(n_experts=n_experts, top_k=top_k, act=act, capacity_factor=capacity_factor)
     if is_dtensor(x):
         return _moe_block_on_shards(p, x, **kw)
-    y, probs, gate_idx = _moe_grouped(p, x, n_sc=_dispatch_groups(*x.shape[:2]), **kw)
-    return y, moe_aux_loss(probs, gate_idx, n_experts)
-
-
-def _moe_grouped(p, x, *, n_experts: int, top_k: int, act: str, capacity_factor: float,
-                 n_sc: int):
-    """``moe_block``'s dispatch over groups of ``S // n_sc`` tokens:
-    (y, router probs, expert ids)."""
-    b, s, d = x.shape
-    K, E = top_k, n_experts
-    G, Tg = b * n_sc, s // n_sc
-    # one layout throughout the block: groups over dp, experts over tp
-    xt = constrain(x.reshape(G, Tg, d), "dp", None, None).reshape(G * Tg, d)
-    probs, gate_vals, gate_idx = _router(p, xt, K)
-    cap = max(1, int(capacity_factor * Tg * K / E))
-    tok, filled, slot_of_choice = _route(gate_idx.reshape(G, Tg, K), E, cap)
-
-    group = torch.arange(G, device=x.device)[:, None]
-    src = (group * Tg + tok).reshape(G, E, cap).transpose(0, 1).reshape(-1)
-    fill = filled.reshape(G, E, cap).transpose(0, 1).reshape(-1, 1).to(x.dtype)
-    x_e = constrain((xt[src] * fill).reshape(E, G * cap, d), "tp", "dp", None)
-    y_e = constrain(moe_expert_mm(x_e, p, act), "tp", "dp", None).reshape(E * G * cap, d)
-
-    kept = slot_of_choice < E * cap                                   # (G, Tg*K)
-    row = (slot_of_choice // cap) * (G * cap) + group * cap + slot_of_choice % cap
-    row = torch.where(kept, row, 0)                   # a dropped choice weighs 0
-    gate = (gate_vals.reshape(G, Tg * K) * kept).to(x.dtype)
-    y = (y_e[row.reshape(-1)] * gate.reshape(-1, 1)).reshape(G * Tg, K, d).sum(1)
-    y = constrain(y.reshape(G, Tg, d), "dp", None, None).reshape(G * Tg, d)
+    gate_vals, gate_idx, aux = _moe_route(p["router"], x, n_experts=n_experts, top_k=top_k)
+    y = _moe_experts(p, x, gate_vals, gate_idx, n_experts=n_experts, act=act,
+                     capacity_factor=capacity_factor, n_sc=_dispatch_groups(*x.shape[:2]))
     if "shared" in p:
-        y = y + mlp_block(p["shared"], xt, act)
-    return y.reshape(b, s, d), probs, gate_idx
+        y = y + mlp_block(p["shared"], x, act)
+    return y, aux
+
+
+def _moe_route(router, x, *, n_experts: int, top_k: int, total=None):
+    """``moe_block``'s router on x (B, S, D): (gates (B*S, K), expert ids
+    (B*S, K), aux loss), the aux loss's sums taken by ``total``."""
+    probs, gate_vals, gate_idx = _router({"router": router}, x.reshape(-1, x.shape[-1]), top_k)
+    return gate_vals, gate_idx, moe_aux_loss(probs, gate_idx, n_experts, total)
+
+
+def _moe_experts(p, x, gate_vals, gate_idx, *, n_experts: int, act: str,
+                 capacity_factor: float, n_sc: int, first: int = 0, count: int | None = None):
+    """The routed experts ``[first, first + count)`` (all by default) of
+    ``moe_block`` on x (B, S, D), its gates and ids (B*S, K): every group
+    of ``S // n_sc`` tokens routes all its choices (the capacities and
+    drops are the whole block's), fills those experts' slots of the
+    (count, G*cap, D) buffer (``p``'s stacks hold those experts), runs
+    them through ``moe_expert_mm``, scales each slot by its choice's gate,
+    and sums each token's choices they took, in choice order: (B, S, D),
+    those experts' share of the output."""
+    b, s, d = x.shape
+    K, E = gate_idx.shape[-1], n_experts
+    count = E if count is None else count
+    G, Tg = b * n_sc, s // n_sc
+    cap = max(1, int(capacity_factor * Tg * K / E))
+    choice, filled, slot_of_choice = _route(gate_idx.reshape(G, Tg, K), E, cap)
+
+    def own(t):
+        """(G, E*cap) slots -> those of experts [first, first + count),
+        expert-major: the buffer's row order."""
+        return t.reshape(G, E, cap)[:, first:first + count].transpose(0, 1).reshape(-1)
+    group = torch.arange(G, device=x.device)[:, None]
+    src = own(group * Tg + choice // K)
+    fill = own(filled).reshape(-1, 1).to(x.dtype)
+    x_e = (x.reshape(G * Tg, d)[src] * fill).reshape(count, G * cap, d)
+    gate = own(torch.gather(gate_vals.reshape(G, Tg * K), 1, choice) * filled).to(x.dtype)
+    y_e = moe_expert_mm(x_e, p, act).reshape(-1, d) * gate.reshape(-1, 1)
+
+    # each choice reads its slot's row; one these experts did not take (another
+    # rank's expert, or dropped) reads the zero row past the buffer
+    e = slot_of_choice // cap
+    row = (e - first) * (G * cap) + group * cap + slot_of_choice % cap
+    row = torch.where((e >= first) & (e < first + count), row, count * G * cap)
+    y_e = torch.cat([y_e, y_e.new_zeros((1, d))])
+    return y_e[row.reshape(-1)].reshape(G * Tg, K, d).sum(1).reshape(b, s, d)
 
 
 def _moe_block_on_shards(p, x, *, n_experts: int, top_k: int, act: str,
                          capacity_factor: float):
-    """``moe_block`` on a DTensor x: each rank dispatches the groups of
-    its batch shard (the groups are the whole run's, so routing and
-    drops are unchanged) with the experts gathered, under ``local_map``
-    (DTensor has no rule for the routing's sorts and searches); the aux
-    loss takes its means from sums over the batch shards.  The ranks of
-    a mesh dim that does not shard the batch compute alike."""
+    """``moe_block`` on a DTensor x, on x's batch shards with the
+    sequence whole, in two ``local_map``s (DTensor has no rule for the
+    routing's sorts and searches):
+
+    - the router and the aux loss, alike on every rank of a mesh dim that
+      does not shard the batch (the JAX package's routing is replicated
+      over tp too); the aux loss takes its means from sums over the batch
+      shards;
+    - the routed experts over the axis map's ``"tp"``, as the JAX
+      package's ("dp", "tp") layout: rank r of its n ranks owns experts
+      [r*E/n, (r+1)*E/n), whose stacks it takes as its shards (gathered
+      over the other mesh dims only), routes every choice of its groups
+      (the capacities and drops are the whole run's), computes its own
+      experts' slots and combines the choices they took.  Its output is a
+      partial sum over tp (``partial_over``), which the caller's layout
+      reduces (``model._block_out``: a reduce-scatter onto the sequence
+      shards); x's and the gates' gradients are partial there too, and
+      the stacks' come back sharded over tp.  Where tp does not divide E
+      every rank keeps all the experts (``parallel.sharding._spec`` drops
+      such an axis).
+
+    The shared expert runs as the lane's tensor-parallel ``mlp_block``."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
-    from ..parallel.shards import as_dtensor, psum
-    from ..tree import tree_flatten_with_path, tree_unflatten
+    from ..parallel.shards import as_dtensor, grad_placed, partial_over, psum
     mesh = x.device_mesh
     n_sc = _dispatch_groups(*x.shape[:2])
     xp = tuple(Shard(0) if pl == Shard(0) else Replicate() for pl in x.placements)
-    rep = (Replicate(),) * mesh.ndim
-    wg = tuple(Partial() if pl == Shard(0) else Replicate() for pl in xp)
-    groups = [mesh.get_group(i) for i, pl in enumerate(xp) if pl == Shard(0)]
-    leaves = [leaf for _, leaf in tree_flatten_with_path(p)]
+    batch_dims = [i for i, pl in enumerate(xp) if pl == Shard(0)]
+    tp = _AXIS_MAP.get("tp")
+    ep = mesh.mesh_dim_names.index(tp) if tp in mesh.mesh_dim_names else None
+    if ep is not None and (ep in batch_dims or n_experts % mesh.size(ep)):
+        ep = None
+    count = n_experts // mesh.size(ep) if ep is not None else n_experts
+    first = mesh.get_coordinate()[ep] * count if ep is not None else 0
 
-    def psum_rows(t):
-        for g in groups:
-            t = psum(t, g)
+    def per_dim(on_batch, on_ep, other):
+        return tuple(on_ep if i == ep else on_batch if i in batch_dims else other
+                     for i in range(mesh.ndim))
+    rep = (Replicate(),) * mesh.ndim
+    partial = per_dim(Shard(0), Partial(), Replicate())     # x's and the gates' gradients
+    wp, wg = per_dim(Replicate(), Shard(0), Replicate()), per_dim(Partial(), Shard(0), Replicate())
+    names = [n for n in _EXPERT_STACKS if n in p]
+
+    def total(t):
+        for i in batch_dims:
+            t = psum(t, mesh.get_group(i))
         return t
 
-    def body(xl, *ws):
-        y, probs, gate_idx = _moe_grouped(tree_unflatten(p, list(ws)), xl, n_experts=n_experts,
-                                          top_k=top_k, act=act,
-                                          capacity_factor=capacity_factor, n_sc=n_sc)
-        n = psum_rows(torch.full((), float(probs.shape[0]), device=xl.device))
-        me = psum_rows(probs.sum(0)) / n
-        top1 = psum_rows(F.one_hot(gate_idx[:, 0], n_experts).float().sum(0)) / n
-        return y, n_experts * torch.sum(me * top1)
-
-    f = local_map(body, out_placements=(xp, rep), in_placements=(xp,) + (rep,) * len(leaves),
-                  in_grad_placements=(xp,) + (wg,) * len(leaves), device_mesh=mesh)
-    return f(x.redistribute(mesh, xp),
-             *(as_dtensor(w, mesh).redistribute(mesh, rep) for w in leaves))
+    route = local_map(
+        lambda xl, router: _moe_route(router, xl, n_experts=n_experts, top_k=top_k, total=total),
+        out_placements=(xp, xp, rep), in_placements=(xp, rep),
+        in_grad_placements=(xp, per_dim(Partial(), Replicate(), Replicate())), device_mesh=mesh)
+    experts = local_map(
+        lambda xl, gv, gi, *ws: _moe_experts(dict(zip(names, ws)), xl, gv, gi,
+                                             n_experts=n_experts, act=act,
+                                             capacity_factor=capacity_factor, n_sc=n_sc,
+                                             first=first, count=count),
+        out_placements=list(xp), in_placements=(xp, xp, xp) + (wp,) * len(names),
+        in_grad_placements=(partial, partial, xp) + (wg,) * len(names), device_mesh=mesh)
+    # one gather of x's sequence; the router's gradient and the experts'
+    # (with the shared expert's) each come back in x's own layout
+    xg = x.redistribute(mesh, xp)
+    xm = grad_placed(xg, x.placements)
+    gate_vals, gate_idx, aux = route(grad_placed(xg, x.placements),
+                                     as_dtensor(p["router"], mesh).redistribute(mesh, rep))
+    y = experts(xm, gate_vals, gate_idx,
+                *(as_dtensor(p[n], mesh).redistribute(mesh, wp) for n in names))
+    if ep is not None:
+        y = partial_over(y, ep)
+    if "shared" in p:
+        y = y + mlp_block(p["shared"], xm, act)
+    return y, aux
 
 
 def moe_block_ep(p, x, *, n_experts: int, top_k: int, act: str = "swiglu",
@@ -721,11 +776,7 @@ def moe_block_ep(p, x, *, n_experts: int, top_k: int, act: str = "swiglu",
         y_tok = (rows * gate[:, None]).reshape(tl, K, d).sum(1)
 
         # load-balance aux: global means via sums over every mesh axis
-        n_tok_g = psum_all(torch.full((), float(tl), dtype=torch.float32, device=dev))
-        sum_probs = psum_all(probs.sum(0))                             # (E,)
-        sum_top1 = psum_all(F.one_hot(gate_idx[:, 0], E).float().sum(0))
-        aux = E * torch.sum((sum_probs / n_tok_g) * (sum_top1 / n_tok_g))
-        return y_tok.reshape(bl, sl, d), aux
+        return y_tok.reshape(bl, sl, d), moe_aux_loss(probs, gate_idx, E, psum_all)
 
     names = ("we_gate", "we_up", "we_down") if act == "swiglu" else ("we_up", "we_down")
     ws = tuple(p[n] for n in names)
@@ -776,10 +827,15 @@ def moe_block_dense(p, x, *, n_experts: int, top_k: int, act: str = "swiglu",
     return y.reshape(b, s, d), moe_aux_loss(probs, gate_idx, n_experts)
 
 
-def moe_aux_loss(probs, gate_idx, n_experts: int) -> torch.Tensor:
-    """Switch-style load-balancing loss."""
-    me = probs.mean(dim=0)
-    top1 = F.one_hot(gate_idx[:, 0], n_experts).float().mean(dim=0)
+def moe_aux_loss(probs, gate_idx, n_experts: int, total=None) -> torch.Tensor:
+    """Switch-style load-balancing loss: E times the dot product of each
+    expert's mean router probability and its share of the top-1 choices.
+    ``total`` sums a rank's counts over the ranks that split the tokens
+    (none: this rank holds them all)."""
+    total = total or (lambda t: t)
+    n = total(torch.full((), float(probs.shape[0]), dtype=torch.float32, device=probs.device))
+    me = total(probs.sum(0)) / n
+    top1 = total(F.one_hot(gate_idx[:, 0], n_experts).float().sum(0)) / n
     return n_experts * torch.sum(me * top1)
 
 

@@ -110,20 +110,43 @@ class _ReduceFwd(torch.autograd.Function):
 
 class _GradPlaced(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
-        ctx.mesh, ctx.placements = x.device_mesh, tuple(x.placements)
+    def forward(ctx, x, placements):
+        ctx.mesh, ctx.placements = x.device_mesh, placements
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return g.redistribute(ctx.mesh, ctx.placements)
+        return g.redistribute(ctx.mesh, ctx.placements), None
 
 
-def grad_placed(x: DTensor) -> DTensor:
-    """``x`` itself, whose gradient comes back in ``x``'s own placements
-    (a partial sum reduced or scattered there) before it is added to any
-    other gradient of ``x``."""
-    return _GradPlaced.apply(x)
+def grad_placed(x: DTensor, placements=None) -> DTensor:
+    """``x`` itself, whose gradient comes back in ``placements`` (by
+    default ``x``'s own: a partial sum reduced or scattered there) before
+    it is added to any other gradient of ``x``."""
+    return _GradPlaced.apply(x, tuple(x.placements if placements is None else placements))
+
+
+class _PartialOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.placements = tuple(x.placements)
+        pl = list(x.placements)
+        pl[dim] = Partial()
+        return DTensor.from_local(x.to_local(), x.device_mesh, tuple(pl), run_check=False,
+                                  shape=x.shape, stride=x.stride())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.placements), None
+
+
+def partial_over(x: DTensor, dim: int) -> DTensor:
+    """``x``, replicated over mesh dim ``dim``, read as each rank's share
+    of a sum over it (no communication); its gradient comes back
+    replicated there, each share taking the whole cotangent (``psum``'s
+    backward).  The explicit form of ``Partial()`` out of ``local_map``,
+    whose gradient placement torch has changed between versions."""
+    return _PartialOver.apply(x, dim)
 
 
 def psum(x: torch.Tensor, group) -> torch.Tensor:

@@ -19,8 +19,10 @@ alongside:
 - the sharded train step at world 4 on a (2, 2) mesh, for the reduced
   qwen3-1b and the reduced DeepSeek with ``moe_impl="a2a"`` and no
   drops, at ZeRO 0 and 3 and ``attn_mode`` "cp" and "tp", and for the
-  grouped MoE, the Mamba-1 stack, the hybrid, and two configs whose vocab
-  the model axis does not divide (the cross-entropy on the rows' shards):
+  grouped MoE (each rank of the model axis computing its half of the
+  experts) at ZeRO 0 and 3, the Mamba-1 stack, the hybrid, and two configs
+  whose vocab the model axis does not divide (the cross-entropy on the
+  rows' shards):
   loss, gnorm and every new param leaf equal the JAX package's
   ``make_train_fn`` step, and every new param in its out-sharding.  Both
   packages cast to fp32 inside the model (norms, attention,
@@ -29,6 +31,7 @@ alongside:
 - prefill (its cache built in ``cache_shardings``' placements) and decode
   steps on the sequence-sharded cache, written in place, past a sequence
   shard's boundary and, for the hybrid's window, past its ``wpos`` clamp,
+  and for the reduced DeepSeek through the grouped MoE on its shards,
   against the JAX package's ``prefill`` and ``decode_step``;
 - ``CheckpointManager.restore(shardings=)``: every local shard
   bit-equal to the saved leaf's slice.
@@ -74,11 +77,13 @@ EP_TOL = dict(atol=1e-4, rtol=1e-3)
 ODD_VOCAB = {"minicpm-2b": dict(vocab=255, loss_chunk=8, remat="full"),
              "qwen2.5-32b": dict(vocab=255, loss_chunk=8, remat="full")}
 # (arch, ZeRO stage, attn_mode, moe_impl): the dense and EP cases over
-# ZeRO 0/3 and cp/tp, then the grouped MoE, the Mamba-1 stack and the
-# hybrid on their shards, then the odd vocabs
+# ZeRO 0/3 and cp/tp, then the grouped MoE (its experts over the model
+# axis) at ZeRO 0/3, the Mamba-1 stack and the hybrid on their shards,
+# then the odd vocabs
 TRAIN_CASES = ([(arch, zero, attn, "a2a") for arch in ("qwen3-1b", "deepseek-moe-16b")
                 for zero in (0, 3) for attn in ("cp", "tp")]
-               + [("deepseek-moe-16b", 3, "cp", "grouped"), ("falcon-mamba-7b", 3, "cp", "a2a"),
+               + [("deepseek-moe-16b", zero, "cp", "grouped") for zero in (0, 3)]
+               + [("falcon-mamba-7b", 3, "cp", "a2a"),
                   ("zamba2-2.7b", 0, "tp", "a2a")]
                + [(arch, 3, "cp", "a2a") for arch in ODD_VOCAB])
 EP = dict(E=8, K=2, D=16, DEX=32, B=4, S=16)
@@ -500,6 +505,38 @@ def test_sharded_hybrid_prefill_and_decode_world_4(tmp_path):
         logits, cache = jmodels.decode_step(jcfg, jp, jnp.asarray(tok), cache)
         np.testing.assert_allclose(mine.numpy(), np.asarray(logits), atol=2e-5, rtol=2e-5)
     assert int(cache["len"]) == s + len(tokens)
+    for key in cache:
+        np.testing.assert_allclose(got["cache"][key].numpy(), np.asarray(cache[key]),
+                                   atol=2e-5, rtol=2e-5, err_msg=key)
+    assert got["cache_placed"]
+    _in_place(got)
+
+
+def test_sharded_moe_prefill_and_decode_world_4(tmp_path):
+    """The reduced DeepSeek (4 routed experts and a shared one) served on
+    a (2, 2) world through the grouped MoE, each rank of the model axis
+    computing two experts: a 14-token prompt at the config's capacity
+    (each group of 14 tokens has 8 slots an expert), then four decode
+    steps on the sequence-sharded cache, against the JAX package's
+    ``prefill`` and ``decode_step``."""
+    from repro_torch.configs import get_config
+    jcfg = jconfigs.get_config("deepseek-moe-16b").reduced()
+    tcfg = get_config("deepseek-moe-16b").reduced()
+    jp = jmodels.init(jcfg, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(7)
+    b, s, max_seq = 4, 14, 32
+    prompt = rng.integers(0, jcfg.vocab, (b, s)).astype(np.int32)
+    tokens = [rng.integers(0, jcfg.vocab, (b, 1)).astype(np.int32) for _ in range(4)]
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    got = run_world(tmp_path, "serve", {
+        "cfg": tcfg, "params": tparams, "prompt": {"tokens": torch.from_numpy(prompt)},
+        "tokens": [torch.from_numpy(t) for t in tokens], "max_seq": max_seq,
+        "ckpt": str(tmp_path / "ckpt")}, (2, 2), ("data", "model"))
+    logits, cache = jmodels.prefill(jcfg, jp, {"tokens": jnp.asarray(prompt)}, max_seq)
+    np.testing.assert_allclose(got["prefill"].numpy(), np.asarray(logits), atol=2e-5, rtol=2e-5)
+    for tok, mine in zip(tokens, got["steps"]):
+        logits, cache = jmodels.decode_step(jcfg, jp, jnp.asarray(tok), cache)
+        np.testing.assert_allclose(mine.numpy(), np.asarray(logits), atol=2e-5, rtol=2e-5)
     for key in cache:
         np.testing.assert_allclose(got["cache"][key].numpy(), np.asarray(cache[key]),
                                    atol=2e-5, rtol=2e-5, err_msg=key)

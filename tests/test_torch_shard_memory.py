@@ -15,19 +15,28 @@ the comments:
   before: whole fp32 gradients in the optimizer);
 - minicpm-2b ``train_4k``, 2 layers: the cross-entropy chunk kept on the
   rows' shards for a vocab the model axis does not divide (61.302 GiB
-  before: four fp32 (16, 2048, 122753) tensors).
+  before: four fp32 (16, 2048, 122753) tensors);
+- dbrx-132b ``train_4k`` and ``decode_32k``, 2 layers, through the
+  grouped MoE: each rank of the model axis computes its share of the
+  experts (train 53.179 GiB and 1.078e15 FLOPs a device before, every
+  rank computing all 16 experts; decode 10.149 GiB before, 9.97 GiB of it
+  the gathered expert stacks), the train cell held to the expert-parallel
+  all-to-all block's run of the same cut (6.899 GiB, 1.039e14 FLOPs).
 
 And the mechanisms, which outlast the bounds, in a fake world of 4 or 8
 ranks on reduced configs (FakeTensorMode: placements and local shapes,
 no data): every zero cache leaf ``prefill`` returns under an axis map
 already has its shard's local shape; every gradient reaching
 ``adamw_update`` has its parameter's placements, and inside it the
-lane's ``CollectiveCounter`` sees only all-reduces of scalars.  On plain
+lane's ``CollectiveCounter`` sees only all-reduces of scalars; the
+grouped MoE's expert matmuls take the E/tp experts of their rank, and no
+expert stack is all-gathered over the model axis.  On plain
 tensors ``decode_step(donate=True)`` gives ``decode_step``'s bits in the
 argument's own buffers, and ``decode_step`` leaves its argument as it
 was.  In a one-rank gloo world on a (1, 1) mesh the sharded train,
 prefill and decode steps give the bits of the same functions on local
-tensors (the card's phases 3n(a), 3n(b) and 3o(a) on the CPU).
+tensors (the card's phases 3n(a), with the grouped MoE, 3n(b) and 3o(a)
+on the CPU).
 """
 import dataclasses
 import json
@@ -56,6 +65,12 @@ CELLS = {
     "train_zero3": (["--arch", "falcon-mamba-7b", "--shape", "train_4k", "--layers", "2",
                      "--seq", "256", "--ssm-chunk", "16"], 1.0),
     "train_ce": (["--arch", "minicpm-2b", "--shape", "train_4k", "--layers", "2"], 8.0),
+    "moe_train": (["--arch", "dbrx-132b", "--shape", "train_4k", "--layers", "2",
+                   "--moe", "grouped"], 14.0),
+    "moe_train_a2a": (["--arch", "dbrx-132b", "--shape", "train_4k", "--layers", "2",
+                       "--moe", "a2a"], 8.0),
+    "moe_decode": (["--arch", "dbrx-132b", "--shape", "decode_32k", "--layers", "2",
+                    "--moe", "grouped"], 2.0),
 }
 
 
@@ -118,6 +133,16 @@ def test_cut_cell_peak_is_bounded(runs, name):
     assert res["memory"]["argument_size_in_bytes"] > 0
 
 
+def test_grouped_moe_is_held_to_the_all_to_all_blocks_counts(runs):
+    """The grouped block computes E/tp experts a rank, as the all-to-all
+    block does: FLOPs a device within 1.25x of its, counted peak within
+    2x (10.4x and 7.7x before)."""
+    grouped, a2a = runs("moe_train"), runs("moe_train_a2a")
+    assert grouped["flops"] <= 1.25 * a2a["flops"], (grouped["flops"], a2a["flops"])
+    peaks = [r["memory"]["peak_bytes"] for r in (grouped, a2a)]
+    assert peaks[0] <= 2 * peaks[1], peaks
+
+
 def test_peak_sites_name_the_ports_code(runs):
     """``--peak-sites``: the call sites holding the most bytes at the
     counted peak, the placed inputs among them, at most the peak in all."""
@@ -139,6 +164,7 @@ MECHANISMS = textwrap.dedent('''
     from repro_torch.launch.hlo_stats import CollectiveCounter
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.specs import batch_specs
+    from repro_torch.models import layers as L
     from repro_torch.tree import tree_flatten_with_path
 
     shape = tuple(int(s) for s in sys.argv[1].split(","))
@@ -146,7 +172,29 @@ MECHANISMS = textwrap.dedent('''
     init_fake_world(math.prod(shape))
     mesh = make_mesh(shape, names, device_type="cpu")
     strat = steps.strategy_for(mesh, zero_stage=3)
-    out = {"train": {}, "prefill": {}}
+    out = {"train": {}, "prefill": {},
+           "moe": {"experts": [], "gathers": [], "x_numel": [],
+                   "model_group": mesh.get_group("model").group_name}}
+
+    # the grouped MoE block (the default impl): the experts each expert
+    # matmul takes, and the inputs of the all-gathers its forward issues
+    def gmm(x, w):
+        out["moe"]["experts"].append([x.shape[0], w.shape[0]])
+        return L.moe_gmm_ref(x, w)
+    L.register_impl("moe_gmm", gmm)
+
+    class Gathers(CollectiveCounter):
+        def seen(self, func, args, kwargs, res):
+            super().seen(func, args, kwargs, res)
+            if func._overloadpacket.__name__ == "all_gather_into_tensor":
+                out["moe"]["gathers"].append([args[2], args[0].numel()])
+    block = L._moe_block_on_shards
+
+    def on_shards(p, x, **kw):
+        out["moe"]["x_numel"].append(x.to_local().numel())
+        with Gathers():
+            return block(p, x, **kw)
+    L._moe_block_on_shards = on_shards
 
     def cfg_of(arch):
         cfg = dataclasses.replace(get_config(arch).reduced(), remat="full")
@@ -229,6 +277,18 @@ def test_the_optimizer_all_reduces_scalars_only(runs, mesh):
         assert kinds <= {"all-reduce"}, (arch, rec["collectives"])
         assert all(n <= 4 * rec["leaves"] for _, n in rec["collectives"]), (arch, rec)
         assert len(rec["collectives"]) <= 2 * len(MESHES[mesh][1].split(",")), (arch, rec)
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_grouped_moe_computes_its_share_of_the_experts(runs, mesh):
+    """The reduced DeepSeek (4 experts) on a model axis of 2: every
+    expert matmul's x and w hold 2 experts, and the block's forward
+    all-gathers nothing over the model axis but its input's sequence
+    (an expert stack was gathered there before)."""
+    moe = runs(mesh)["moe"]
+    assert moe["experts"] and all(e == [2, 2] for e in moe["experts"]), moe["experts"]
+    over_model = [n for group, n in moe["gathers"] if group == moe["model_group"]]
+    assert over_model and set(over_model) <= set(moe["x_numel"]), (over_model, moe["x_numel"])
 
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))
@@ -317,7 +377,7 @@ ONE_RANK = textwrap.dedent('''
         return sorted("/".join(k) for k in fa if not torch.equal(bits(local(fa[k])),
                                                                 bits(local(fb[k]))))
 
-    for arch in ("qwen3-1b", "falcon-mamba-7b"):
+    for arch in ("qwen3-1b", "falcon-mamba-7b", "deepseek-moe-16b"):
         cfg = dataclasses.replace(get_config(arch).reduced(), remat="full")
         strat = strategy_for(mesh, zero_stage=3)
         params = init(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -332,7 +392,7 @@ ONE_RANK = textwrap.dedent('''
         new, met = fn(state, batch)
         with axis_map(mesh, strat):
             ref, rmet = build_step(cfg, lambda step: 3e-4, "cpu")(fresh(), batch)
-        out["train " + arch] = same({"loss": met["loss"], "p": new["params"], "o": new["opt"]},
+        out["train " + arch + (" grouped" if cfg.moe else "")] = same({"loss": met["loss"], "p": new["params"], "o": new["opt"]},
                                     {"loss": rmet["loss"], "p": ref["params"], "o": ref["opt"]})
 
     cfg = get_config("qwen3-1b").reduced()
@@ -362,6 +422,7 @@ ONE_RANK = textwrap.dedent('''
 
 def test_one_rank_sharded_steps_give_local_bits(runs):
     res = runs("one rank")
-    assert set(res) == {"train qwen3-1b", "train falcon-mamba-7b", "serve qwen3-1b"}
+    assert set(res) == {"train qwen3-1b", "train falcon-mamba-7b",
+                        "train deepseek-moe-16b grouped", "serve qwen3-1b"}
     for what, differ in res.items():
         assert differ == [], (what, differ)
