@@ -39,12 +39,11 @@ their plain versions.  Only Qwen1.5's run ends with a checkpoint save
   - Zamba2-2.7B, 12 of its 54 layers (phase 3j): two groups of six
     Mamba-2 layers, each followed by the one weight-tied shared
     attention+MLP block, whose gradients sum over both applications (K1,
-    and K2 at head_dim 80 with the config's sliding window of 4096); its
-    SSD scan runs as plain PyTorch, as the JAX package runs it in jnp, and
-    is profiled alone.  The fp32 comparison runs one group (6 layers),
-    and no step is profiled: the plain run differs only in K1 and K2,
-    which phase 2 times, and the SSD scan's own profile says where the
-    kernel step goes;
+    and K2 at head_dim 80 with the config's sliding window of 4096, and
+    K4 and K4-bwd at N = 64 with fp32 dt: its Mamba-2 SSD scan runs
+    through them, where the JAX package runs it in jnp).  The fp32
+    comparison runs one group (6 layers); a kernel step is profiled, and
+    one layer's SSD scan is profiled alone, plain and through K4;
   - Whisper-large-v3 whole (phase 3k): 32 encoder layers over 1500
     frames (non-causal self-attention) and 32 decoder layers over 448
     tokens, each with a cross-attention to the encoder output (K1, and K2
@@ -58,8 +57,8 @@ their plain versions.  Only Qwen1.5's run ends with a checkpoint save
     positions in Qwen2-VL's own layout: a text prefix, one image of a 16
     x 24 patch grid, then text (``image_positions``).
 
-Falcon-Mamba's plain profile is skipped too (the plain run differs only
-in K1, K4 and K4-bwd, whose plain versions phase 2 times).
+Falcon-Mamba's and Zamba2's plain profiles are skipped (the plain runs
+differ only in kernels whose plain versions phase 2 times).
 
 The serving phase (3m) drives ``init_cache``, ``prefill`` and
 ``decode_step`` under inference mode: (a) qwen3-1b, all 28 layers in
@@ -76,14 +75,19 @@ branches at published widths and their training phases' depths, 8 steps
 each, kernels against plain versions with exact launches: DeepSeek-MoE
 (2 layers: K3 at 4 rows a decode step, the plain run routed as the
 kernel run), Falcon-Mamba (8 layers: K4 at S = 1 from the cached state),
-Zamba2 (one group of 6: the window cache and the SSD scan from a state),
+Zamba2 (one group of 6: the window cache and the SSD scan from a state
+on K4 at N = 64),
 Whisper (2 + 2 layers over 1500 frames: the cross cache) and Qwen2-VL (4
 layers, prefilled over image-layout positions), with (b) for all but the
 MoE (its capacity drops differ by group size) and Whisper (its cross cache
 stays empty); (d) ``examples/serve_torch.py`` at its defaults.  Phase 2
 holds the decode shapes too: K1 at (4, 2048), K3 at 4 rows (64 experts of
 DeepSeek's widths, both matmuls, fp32 and bf16) and K4 at S = 1 with h0
-and no saved states, each timed beside its bound and library call.
+and no saved states (Falcon-Mamba's width, and Zamba2's at N = 64 with
+fp32 dt), each timed beside its bound and library call.  Phase 2 holds
+K4 and K4-bwd at Zamba2's SSD shape (4, 1024, 5120, 64) with bf16 x and
+fp32 dt too, at N = 32, 40, 64 and 5 at edge shapes, and K4-bwd twice
+there for the same bits.
 
 The kernel phase runs K2 at every head dim the paths and configs give
 it — 64, 128, qwen3-1b's GQA, granite-20b's MQA, and 32 and 80, which
@@ -213,10 +217,8 @@ BATCH, SEQ = 4, 1024
 FALCON_LAYERS = 8          # one stage of an 8-stage split of the 64 layers
 DEEPSEEK_LAYERS = 2        # one stage of a 14-stage split of the 28 layers
 # Zamba2-2.7B: 12 of its 54 layers, two groups of 6, so the shared block
-# is applied twice and its tied gradients sum on the card; its plain SSD
-# scan is launch-bound (~14 s a step), so it trains ZAMBA2_STEPS steps
+# is applied twice and its tied gradients sum on the card
 ZAMBA2_LAYERS = 12
-ZAMBA2_STEPS = 3
 # Whisper-large-v3 whole (32 encoder and 32 decoder layers) over its
 # published decoder context (max_target_positions) and its 1500 encoder
 # frames; Qwen2-VL-7B at 4 of its 28 layers (the whole model and its fp32
@@ -635,8 +637,9 @@ def phase_kernels(torch, F, fa, rn) -> dict:
 # layouts)
 TC_KERNELS = {"flash_fwd_wgmma_kernel": 8, "moe_gmm_wgmma_kernel": 3}
 # the scan kernels, which must keep their state in registers and shared
-# memory, and their instantiations (fp32 and bf16, N = 4, 8, 16)
-SCAN_KERNELS = {"mamba_scan_fwd_kernel": 6, "mamba_scan_bwd_kernel": 6}
+# memory, and their instantiations (x fp32 or bf16, dt fp32 or bf16, the
+# built state sizes 16, 32 and 64)
+SCAN_KERNELS = {"mamba_scan_fwd_kernel": 12, "mamba_scan_bwd_kernel": 12}
 
 
 def cuobjdump() -> str:
@@ -806,15 +809,16 @@ def phase_gmm_kernels(torch, mg, cfg) -> dict:
     return results
 
 
-def scan_inputs(torch, g, b, s, c, n, dtype, with_h0=False):
+def scan_inputs(torch, g, b, s, c, n, dtype, with_h0=False, dt_dtype=None, bc_dtype=None):
     """The JAX scan test's distributions: x, dt = softplus(.), A < 0, B, C
-    and, if asked, h0."""
+    and, if asked, h0; dt in ``dt_dtype`` and B, C in ``bc_dtype`` (x's
+    dtype by default)."""
     def randn(shape, scale=1.0):
         return torch.randn(shape, generator=g, device="cuda") * scale
     x = randn((b, s, c), 0.5).to(dtype)
-    dt = torch.nn.functional.softplus(randn((b, s, c))).to(dtype)
+    dt = torch.nn.functional.softplus(randn((b, s, c))).to(dt_dtype or dtype)
     A = -torch.exp(randn((c, n), 0.2))
-    B, C = randn((b, s, n), 0.5).to(dtype), randn((b, s, n), 0.5).to(dtype)
+    B, C = (randn((b, s, n), 0.5).to(bc_dtype or dtype) for _ in range(2))
     return x, dt, A, B, C, (randn((b, c, n), 0.5) if with_h0 else None)
 
 
@@ -823,28 +827,137 @@ def _scan_tol(t) -> tuple:
     return TOL["bfloat16"] if str(t.dtype) == "torch.bfloat16" else SCAN_TOL
 
 
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+# exps per (b, t, c, n) of each scan kernel's design (the note atop
+# mamba_scan.cuh)
+SCAN_EXPS = {"mamba_scan": 1.0, "mamba_scan_bwd": 2.5}
+
+
+def scan_timing(torch, ms, x, dt, A, B, C, hs, dy, reps_plain: int = 3) -> dict:
+    """K4 (saving its chunk states, as a training step does) and K4-bwd
+    timed at one shape beside their plain versions and their bounds:
+    each input read once and each output written once, and per (b, t, c,
+    n) 7 fp32 operations forward (dt*A, the exp, h*a, u*B plus that, h*C,
+    the sum over n) and 20 backward (the state's recompute, 5, and its
+    adjoint: g, dC, dB, the two sums over n, dA and the carry, 15).  The
+    exps' floor at the SFU rate and the byte time without the chunk states
+    (whose interval is the design's choice: bytes here against exps in
+    the backward) are worked out from the design's constants and printed
+    beside them, not kept: they were not measured."""
+    b, s, c, n = *x.shape, A.shape[1]
+    elems = b * s * c * n
+    # forward: reads x, dt, B, C, A; writes y, hT and the chunk states
+    fwd_bytes = _nbytes(x, dt, B, C, A, x) + (b * c * n + hs.numel()) * 4
+    # backward (timed without dhT): reads x, dt, dy, B, C, A, the chunk
+    # states; writes dx, ddt, dB, dC, dA, dh0
+    bwd_bytes = 2 * _nbytes(x, dt, B, C, A) + _nbytes(dy, hs) + b * c * n * 4
+    out = {"mamba_scan": dict(
+               ms=cuda_ms(torch, lambda: ms.mamba_scan_fwd(x, dt, A, B, C, save_states=True)),
+               plain_ms=cuda_ms(torch, lambda: ms.mamba_scan_plain(x, dt, A, B, C,
+                                                                   save_states=True),
+                                reps=reps_plain),
+               library_ms=None,     # no single PyTorch call computes a selective scan
+               **bound(fwd_bytes, 7 * elems / FP32_FLOPS)),
+           "mamba_scan_bwd": dict(
+               ms=cuda_ms(torch, lambda: ms.mamba_scan_bwd(x, dt, A, B, C, hs, dy)),
+               plain_ms=cuda_ms(torch, lambda: ms.mamba_scan_bwd_plain(x, dt, A, B, C, hs, dy),
+                                reps=reps_plain),
+               library_ms=None,
+               **bound(bwd_bytes, 20 * elems / FP32_FLOPS))}
+    no_states = {"mamba_scan": fwd_bytes - hs.numel() * 4,
+                 "mamba_scan_bwd": bwd_bytes - hs.numel() * 4}
+    for name, r in out.items():
+        exp_floor_ms = SCAN_EXPS[name] * elems / SFU_EXP_PER_S * 1e3
+        print(f"  {name} {(b, s, c, n)} x {str(x.dtype)[6:]}, dt {str(dt.dtype)[6:]}: kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}); {SCAN_EXPS[name]} exps per element, at the SFU rate "
+              f"{exp_floor_ms:.4f} ms; bytes without the chunk states "
+              f"{no_states[name] / HBM_BYTES_PER_S * 1e3:.4f} ms", flush=True)
+    return out
+
+
+def same_bits_twice(torch, ms, x, dt, A, B, C, hs, dy, tag: str) -> None:
+    """K4-bwd twice on the same inputs: the same bits (fixed-order sums)."""
+    b, s, c, n = *x.shape, A.shape[1]
+    dhT = torch.randn((b, c, n), device="cuda")
+    first = ms.mamba_scan_bwd(x, dt, A, B, C, hs, dy, dhT)
+    second = ms.mamba_scan_bwd(x, dt, A, B, C, hs, dy, dhT)
+    torch.cuda.synchronize()
+    if not all(torch.equal(u, v) for u, v in zip(first, second)):
+        fail(f"mamba_scan_bwd {tag}: two runs on the same inputs differ")
+    print(f"  mamba_scan_bwd {(b, s, c, n)} {tag}: two runs give the same bits", flush=True)
+
+
+def scan_decode(torch, ms, g, c: int, n: int, dt_dtype) -> dict:
+    """The serving path's call at a path's width: one step (S = 1) from a
+    cached fp32 state, no chunk states saved, against the plain version
+    and timed beside it and its bound."""
+    x, dt, A, B, C, h0 = scan_inputs(torch, g, BATCH, 1, c, n, torch.bfloat16, with_h0=True,
+                                     dt_dtype=dt_dtype)
+    y, hT, hs = ms.mamba_scan_fwd(x, dt, A, B, C, h0)
+    torch.cuda.synchronize()
+    want = ms.mamba_scan_plain(x, dt, A, B, C, h0)
+    tag = (f"mamba_scan bfloat16 {(BATCH, 1, c, n)} dt {str(dt.dtype)[6:]} h0, the decode "
+           "step")
+    if hs is not None:
+        fail(f"{tag}: chunk states saved without save_states")
+    err = max(check_close(torch, f"{tag} {k}", got, w, "", _scan_tol(got))
+              for k, got, w in zip(("y", "hT"), (y, hT), want))
+    decode = dict(
+        max_abs_err=err, ms=cuda_ms(torch, lambda: ms.mamba_scan_fwd(x, dt, A, B, C, h0)),
+        plain_ms=cuda_ms(torch, lambda: ms.mamba_scan_plain(x, dt, A, B, C, h0)),
+        library_ms=None,
+        # reads x, dt, B, C, A, h0; writes y, hT
+        **bound(_nbytes(x, x, dt, B, C, A, h0, h0), 7 * x.numel() * n / FP32_FLOPS))
+    print(f"  {tag}: max_abs_err={err:.3e}; kernel {decode['ms']:.4f} ms, plain "
+          f"{decode['plain_ms']:.4f} ms, bound {decode['bound_ms']:.4f} ms "
+          f"({decode['bound_by']})", flush=True)
+    return decode
+
+
 def phase_scan_kernels(torch, ms) -> dict:
     """K4 and K4-bwd against their plain versions at the Falcon path's
-    shape, the JAX test grid, a ragged S with h0 and a continuation from
-    it, each with a non-zero dhT; the backward also against autograd
-    through ``ssm_scan_ref``.  Times at the Falcon path's shape."""
+    shape, Zamba2's SSD scan's (its 80 heads of 64 channels over one group
+    of 64 states, bf16 x, B and C with fp32 dt), the JAX test grid, state
+    sizes split over lanes (32, 64) and between the built sizes (40, 5),
+    ragged S with h0 and a continuation from it, fp32 B and C beside bf16
+    x at 16 states, each with a non-zero
+    dhT; the backward also against autograd through ``ssm_scan_ref``.
+    Times at the Falcon and Zamba2 shapes and at both decode steps."""
     from repro_torch.kernels import ops
     from repro_torch.models.layers import ssm_scan_ref
     g = torch.Generator(device="cuda").manual_seed(4321)
-    main = (BATCH, SEQ, 8192, 16, torch.bfloat16)     # Falcon-Mamba-7B's d_inner, state
-    cases = [(*main, False), (1, 16, 8, 4, torch.float32, False),
-             (2, 24, 16, 8, torch.float32, False), (1, 8, 6, 4, torch.float32, False),
-             (2, 1000, 256, 16, torch.float32, True), (2, 1000, 256, 16, torch.bfloat16, True),
+    f32, bf16 = torch.float32, torch.bfloat16
+    main = (BATCH, SEQ, 8192, 16, bf16, bf16)         # Falcon-Mamba-7B's d_inner, state
+    zamba2 = (BATCH, SEQ, 5120, 64, bf16, f32)        # Zamba2-2.7B's H*P, state; fp32 dt
+    cases = [(*main, False), (*zamba2, False), (1, 16, 8, 4, f32, f32, False),
+             (2, 24, 16, 8, f32, f32, False), (1, 8, 6, 4, f32, f32, False),
+             (2, 1000, 256, 16, f32, f32, True), (2, 1000, 256, 16, bf16, bf16, True),
              # the kernels' tiling edges: C ragged past a 128-channel block
              # and below a warp, S = 1 and S off the 16- and 8-step tiles
-             (2, 1, 200, 16, torch.float32, True), (2, 77, 200, 16, torch.bfloat16, True),
-             (2, 37, 20, 4, torch.float32, True), (1, 45, 136, 8, torch.bfloat16, True)]
-    results = {}
-    for b, s, c, n, dtype, with_h0 in cases:
-        x, dt, A, B, C, h0 = scan_inputs(torch, g, b, s, c, n, dtype, with_h0)
+             (2, 1, 200, 16, f32, f32, True), (2, 77, 200, 16, bf16, bf16, True),
+             (2, 37, 20, 4, f32, f32, True), (1, 45, 136, 8, bf16, bf16, True),
+             # states over 2 and 4 lanes a channel and between the built
+             # sizes, past the 64- and 32-channel blocks, with h0
+             (2, 77, 200, 32, bf16, f32, True), (2, 45, 70, 40, bf16, f32, True),
+             (1, 300, 136, 64, f32, f32, True), (2, 37, 20, 5, bf16, bf16, True),
+             # fp32 B and C beside bf16 x at 16 states: the 32-state
+             # kernel, padded (the 16-state forward reads B, C in x's type)
+             (2, 45, 136, 16, bf16, f32, True, f32)]
+    results, timed = {}, {}
+    for b, s, c, n, dtype, dt_dtype, with_h0, *bc in cases:
+        bc_dtype = bc[0] if bc else dtype
+        x, dt, A, B, C, h0 = scan_inputs(torch, g, b, s, c, n, dtype, with_h0, dt_dtype,
+                                         bc_dtype)
         dy = torch.randn((b, s, c), generator=g, device="cuda").to(dtype)
         dhT = torch.randn((b, c, n), generator=g, device="cuda")
-        tag = f"mamba_scan {str(dtype)[6:]} {(b, s, c, n)}{' h0' if with_h0 else ''}"
+        tag = (f"mamba_scan {str(dtype)[6:]} {(b, s, c, n)}"
+               f"{'' if dt_dtype == dtype else ' dt ' + str(dt_dtype)[6:]}"
+               f"{'' if bc_dtype == dtype else ' B, C ' + str(bc_dtype)[6:]}"
+               f"{' h0' if with_h0 else ''}")
         y, hT, hs = ms.mamba_scan_fwd(x, dt, A, B, C, h0, save_states=True)
         grads = ms.mamba_scan_bwd(x, dt, A, B, C, hs, dy, dhT)
         torch.cuda.synchronize()
@@ -853,10 +966,14 @@ def phase_scan_kernels(torch, ms) -> dict:
                       for k, got, w in zip(("y", "hT", "hs"), (y, hT, hs), want))
         want_g = ms.mamba_scan_bwd_plain(x, dt, A, B, C, want[2], dy, dhT)
         names = ("dx", "ddt", "dA", "dB", "dC", "dh0")
-        bwd_err = max(check_close(torch, f"{tag} {k}", got, w, "", _scan_tol(got))
-                      for k, got, w in zip(names, grads, want_g))
+        bwd_err = 0.0
+        for k, got, w in zip(names, grads, want_g):
+            if got.dtype != w.dtype:
+                fail(f"{tag} {k}: {got.dtype}, its input's is {w.dtype}")
+            bwd_err = max(bwd_err, check_close(torch, f"{tag} {k}", got, w, "", _scan_tol(got)))
         print(f"  {tag} fwd max_abs_err={fwd_err:.3e} bwd max_abs_err={bwd_err:.3e}",
               flush=True)
+        del want_g, grads
         if with_h0 and s > 1:        # continue from the first half's state
             y1, h1, _ = ms.mamba_scan_fwd(x[:, :s // 2], dt[:, :s // 2], A, B[:, :s // 2],
                                           C[:, :s // 2], h0)
@@ -875,6 +992,7 @@ def phase_scan_kernels(torch, ms) -> dict:
             yy, hh = fn(*leaves, h0=h)
             torch.autograd.backward([yy, hh], [dy, dhT])
             ref_grads.append([t.grad for t in leaves + ([h] if h is not None else [])])
+            del yy, hh, leaves, h
         worst = 0.0
         for k, got, w in zip(("x", "dt", "A", "B", "C", "D", "h0"), *ref_grads):
             if dtype == torch.float32:
@@ -886,85 +1004,35 @@ def phase_scan_kernels(torch, ms) -> dict:
                     fail(f"{tag} d{k} vs ssm_scan_ref: relative L2 error {rl2:.3e} > "
                          f"{SCAN_REF_RL2}")
                 worst = max(worst, rl2)
+        del ref_grads
         kind = "max_abs_err" if dtype == torch.float32 else "worst relative L2 error"
         print(f"  {tag} grads vs autograd through ssm_scan_ref: {kind} {worst:.3e}",
               flush=True)
-        if (b, s, c, n, dtype) == main:
-            results["mamba_scan"] = {"max_abs_err": fwd_err}
-            results["mamba_scan_bwd"] = {"max_abs_err": bwd_err}
-            timed = (x, dt, A, B, C, hs, dy)
+        if (b, s, c, n, dtype, dt_dtype) in (main, zamba2):
+            key = "main" if (b, s, c, n, dtype, dt_dtype) == main else "zamba2"
+            timed[key] = ({"mamba_scan": fwd_err, "mamba_scan_bwd": bwd_err},
+                          (x, dt, A, B, C, hs, dy))
+        del x, dt, A, B, C, h0, y, hT, hs, want, dy, dhT
 
-    # the serving path's call: one step (S = 1) from a cached fp32 state,
-    # no chunk states saved, at Falcon-Mamba-7B's d_inner and state
-    x, dt, A, B, C, h0 = scan_inputs(torch, g, BATCH, 1, 8192, 16, torch.bfloat16, with_h0=True)
-    y, hT, hs = ms.mamba_scan_fwd(x, dt, A, B, C, h0)
-    torch.cuda.synchronize()
-    want = ms.mamba_scan_plain(x, dt, A, B, C, h0)
-    tag = f"mamba_scan bfloat16 {(BATCH, 1, 8192, 16)} h0, the decode step"
-    if hs is not None:
-        fail(f"{tag}: chunk states saved without save_states")
-    err = max(check_close(torch, f"{tag} {k}", got, w, "", _scan_tol(got))
-              for k, got, w in zip(("y", "hT"), (y, hT), want))
-    elems = x.numel() * A.shape[1]
-    decode = dict(
-        max_abs_err=err, ms=cuda_ms(torch, lambda: ms.mamba_scan_fwd(x, dt, A, B, C, h0)),
-        plain_ms=cuda_ms(torch, lambda: ms.mamba_scan_plain(x, dt, A, B, C, h0)),
-        library_ms=None,
-        # reads x, dt, B, C, A, h0; writes y, hT
-        **bound((3 * x.numel() + 2 * B.numel()) * 2 + (A.numel() + 2 * h0.numel()) * 4,
-                7 * elems / FP32_FLOPS))
-    print(f"  {tag}: max_abs_err={err:.3e}; kernel {decode['ms']:.4f} ms, plain "
-          f"{decode['plain_ms']:.4f} ms, bound {decode['bound_ms']:.4f} ms "
-          f"({decode['bound_by']})", flush=True)
-
-    x, dt, A, B, C, hs, dy = timed
-    b, s, c, n = *x.shape, A.shape[1]
-    # K4-bwd twice on the same inputs: the same bits (fixed-order sums)
-    dhT = torch.randn((b, c, n), generator=g, device="cuda")
-    first = ms.mamba_scan_bwd(x, dt, A, B, C, hs, dy, dhT)
-    second = ms.mamba_scan_bwd(x, dt, A, B, C, hs, dy, dhT)
-    torch.cuda.synchronize()
-    if not all(torch.equal(u, v) for u, v in zip(first, second)):
-        fail("mamba_scan_bwd: two runs on the same inputs differ")
-    print(f"  mamba_scan_bwd {(b, s, c, n)} bf16: two runs give the same bits", flush=True)
-    del first, second
-    elems, io = b * s * c * n, x.element_size()
-    # exps per (b, t, c, n) of each kernel's design at this shape (the note
-    # atop mamba_scan.cu)
-    exps = {"mamba_scan": 1.0, "mamba_scan_bwd": 2.5}
-    # forward: reads x, dt, B, C, A; writes y, hT and the chunk states
-    fwd_bytes = (3 * b * s * c + 2 * b * s * n) * io + (c * n + b * c * n + hs.numel()) * 4
-    # backward: reads x, dt, dy, B, C, A, the chunk states; writes dx, ddt,
-    # dB, dC, dA, dh0
-    bwd_bytes = ((5 * b * s * c + 4 * b * s * n) * io
-                 + (2 * c * n + b * c * n + hs.numel()) * 4)
-    # the chunk states' interval is the design's choice (bytes here against
-    # exps in the backward): the byte time without them is printed too
-    scan_bytes = {"mamba_scan": fwd_bytes - hs.numel() * 4,
-                  "mamba_scan_bwd": bwd_bytes - hs.numel() * 4}
-    results["mamba_scan"].update(
-        ms=cuda_ms(torch, lambda: ms.mamba_scan_fwd(x, dt, A, B, C, save_states=True)),
-        plain_ms=cuda_ms(torch, lambda: ms.mamba_scan_plain(x, dt, A, B, C, save_states=True),
-                         reps=3),
-        library_ms=None,     # no single PyTorch call computes a selective scan
-        # per (b, t, c, n): dt*A, exp, h*a, u*B + that, h*C, the sum over n
-        **bound(fwd_bytes, 7 * elems / FP32_FLOPS))
+    # the serving path's calls: Falcon-Mamba's, and Zamba2's (fp32 dt)
+    decode = scan_decode(torch, ms, g, 8192, 16, bf16)
+    decode_zamba2 = scan_decode(torch, ms, g, 5120, 64, f32)
+    for key, label in (("main", "bf16"), ("zamba2", "bf16 x, fp32 dt")):
+        errs, inputs = timed[key]
+        same_bits_twice(torch, ms, *inputs, label)
+        times = scan_timing(torch, ms, *inputs)
+        for name in ("mamba_scan", "mamba_scan_bwd"):
+            row = {"max_abs_err": errs[name], **times[name]}
+            if key == "main":
+                results[name] = row
+            else:
+                x = inputs[0]
+                results[name]["at_zamba2_" + "_".join(map(str, (*x.shape, inputs[2].shape[1])))] \
+                    = row
+        del inputs
+        timed[key] = None
     results["mamba_scan"][f"at_decode_{BATCH}_1_8192_16"] = decode
-    results["mamba_scan_bwd"].update(
-        ms=cuda_ms(torch, lambda: ms.mamba_scan_bwd(x, dt, A, B, C, hs, dy)),
-        plain_ms=cuda_ms(torch, lambda: ms.mamba_scan_bwd_plain(x, dt, A, B, C, hs, dy),
-                         reps=3),
-        library_ms=None,
-        # per (b, t, c, n): the state's recompute (5) and its adjoint: g,
-        # dC, dB, the two sums over n, dA and the carry (15)
-        **bound(bwd_bytes, 20 * elems / FP32_FLOPS))
-    for name in ("mamba_scan", "mamba_scan_bwd"):
-        r = results[name]
-        print(f"  {name} {(b, s, c, n)} bf16: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
-              f"{exps[name]} exps per element, at the SFU rate "
-              f"{exps[name] * elems / SFU_EXP_PER_S * 1e3:.4f} ms; bytes without the chunk "
-              f"states {scan_bytes[name] / HBM_BYTES_PER_S * 1e3:.4f} ms", flush=True)
+    results["mamba_scan"][f"at_decode_zamba2_{BATCH}_1_5120_64"] = decode_zamba2
     return results
 
 
@@ -2953,16 +3021,24 @@ def phase_profile(torch, train: dict, plain_steps: int = PROFILED_STEPS) -> None
     ops.unregister_kernels()
 
 
+ROUTE_REPS = 10
+
+
 def ssd_scan_profile(torch, cfg) -> None:
-    """The plain SSD scan of one Mamba-2 layer alone, at the path's shape
-    (BATCH x SEQ tokens, the config's heads, head dim and state) and
-    dtypes: a forward without autograd, and a forward with its backward
-    (which recomputes each checkpointed chunk), each timed once by the
-    host clock after a warm-up and once more under ``torch.profiler`` for
-    its launches and device time.  A step with remat "full" runs the first
+    """One Mamba-2 layer's SSD scan alone at the path's shape (BATCH x SEQ
+    tokens, the config's heads, head dim and state) and dtypes, plain
+    (``_ssd_scan``) and through K4 and K4-bwd (``ops.ssd_scan``): a
+    forward without autograd, and a forward with its backward (the plain
+    scan recomputes each checkpointed chunk there; the route runs K4
+    saving its chunk states, then K4-bwd), each timed by the host clock
+    after a warm-up and again under ``torch.profiler`` for its launches
+    and device time, once plain and as the mean of ``ROUTE_REPS`` calls
+    through K4 (a few-millisecond window under the profiler lost its
+    device events).  A step with remat "full" runs the first
     once and the second once per layer (the group's first forward, then
     its recompute and the backward), so the scan's share of a step is
     their sum times the layers."""
+    from repro_torch.kernels import ops
     from repro_torch.models.layers import _ssd_scan
     g = torch.Generator(device="cuda").manual_seed(99)
     h, p_ = cfg.ssm.expand * cfg.d_model // cfg.ssm.headdim, cfg.ssm.headdim
@@ -2977,34 +3053,39 @@ def ssd_scan_profile(torch, cfg) -> None:
     D = torch.ones((h,), device="cuda", requires_grad=True)
     dy = torch.randn(x.shape, generator=g, device="cuda").to(cfg.tdtype)
 
-    def forward():
-        with torch.no_grad():
-            _ssd_scan(x, dt, A, B, C, D, chunk=cfg.ssm_chunk)
+    for label, scan, reps in (("plain SSD scan", _ssd_scan, 1),
+                              ("SSD scan through K4", ops.ssd_scan, ROUTE_REPS)):
+        def forward(scan=scan):
+            with torch.no_grad():
+                scan(x, dt, A, B, C, D, chunk=cfg.ssm_chunk)
 
-    def forward_backward():
-        y, _ = _ssd_scan(x, dt, A, B, C, D, chunk=cfg.ssm_chunk)
-        torch.autograd.grad(y, [x, dt, A, B, C, D], dy)
+        def forward_backward(scan=scan):
+            y, _ = scan(x, dt, A, B, C, D, chunk=cfg.ssm_chunk)
+            torch.autograd.grad(y, [x, dt, A, B, C, D], dy)
 
-    per_layer = {}
-    for name, fn in (("forward", forward), ("forward+backward", forward_backward)):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        per_layer = {}
+        for name, fn in (("forward", forward), ("forward+backward", forward_backward)):
             fn()
             torch.cuda.synchronize()
-        kernels = device_kernels(torch, prof, 1)
-        busy = sum(ms for _, ms in kernels)
-        per_layer[name] = (len(kernels), busy, wall)
-        print(f"  plain SSD scan {name}, one layer {(BATCH, SEQ, h, p_, cfg.ssm.state)}: "
-              f"{len(kernels)} launches, device {busy:.2f} ms (profiled), wall "
-              f"{wall * 1e3:.1f} ms (unprofiled)", flush=True)
-    n, busy, wall = (sum(v[i] for v in per_layer.values()) * cfg.n_layers for i in range(3))
-    print(f"  plain SSD scan's share of a step at {cfg.n_layers} layers: {int(n)} launches, "
-          f"device {busy:.1f} ms, wall {wall:.1f} s", flush=True)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / reps
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            kernels = device_kernels(torch, prof, reps)
+            busy = sum(ms for _, ms in kernels)
+            per_layer[name] = (len(kernels) / reps, busy, wall)
+            print(f"  {label} {name}, one layer {(BATCH, SEQ, h, p_, cfg.ssm.state)}: "
+                  f"{len(kernels) / reps:g} launches, device {busy:.2f} ms (profiled), wall "
+                  f"{wall * 1e3:.1f} ms (unprofiled)", flush=True)
+        n, busy, wall = (sum(v[i] for v in per_layer.values()) * cfg.n_layers for i in range(3))
+        print(f"  {label}'s share of a step at {cfg.n_layers} layers: {int(n)} launches, "
+              f"device {busy:.1f} ms, wall {wall:.1f} s", flush=True)
 
 
 # bf16 K2 shapes timed against another checkout (``--k2-against``)
@@ -3037,13 +3118,15 @@ def serve_launches(cfg) -> tuple:
     layer runs two norms and one attention in prefill, two norms and no
     K2 in decode (its attention is ``decode_attention``); a Whisper
     decoder layer three norms and two attentions (one in decode: none);
-    a Mamba layer one norm and one scan (K4 for Mamba-1); Zamba2's shared
-    block two norms and one attention per group; an MoE layer three (or,
-    without SwiGLU, two) grouped matmuls; one final norm."""
+    a Mamba layer one norm and one scan (K4, Mamba-1's or Mamba-2's SSD
+    scan); Zamba2's shared block two norms and one attention per group;
+    an MoE layer three (or, without SwiGLU, two) grouped matmuls; one
+    final norm."""
     if cfg.hybrid_every:
         groups = cfg.n_layers // cfg.hybrid_every
         k1 = cfg.n_layers + 2 * groups + 1
-        return {"rmsnorm": k1, "flash_attention": groups}, {"rmsnorm": k1}
+        return ({"rmsnorm": k1, "flash_attention": groups, "mamba_scan": cfg.n_layers},
+                {"rmsnorm": k1, "mamba_scan": cfg.n_layers})
     if cfg.ssm:
         per = {"rmsnorm": cfg.n_layers + 1, "mamba_scan": cfg.n_layers}
         return per, dict(per)
@@ -3965,10 +4048,11 @@ def main() -> int:
     # and again in its recompute; the final norm runs once.  An MoE layer
     # runs three grouped matmuls (gate, up, down), and each one's backward
     # launches K3 twice (dx and dw).  Zamba2's checkpointed groups run one
-    # norm per Mamba layer and two norms and one attention per application
-    # of the shared block; its SSD scan has no kernel.  Whisper runs two
-    # norms and one attention per encoder layer, three norms (self, cross,
-    # MLP) and two attentions (self, cross) per decoder layer
+    # norm and one SSD scan (K4, and K4-bwd in the backward) per Mamba
+    # layer and two norms and one attention per application of the shared
+    # block.  Whisper runs two norms and one attention per encoder layer,
+    # three norms (self, cross, MLP) and two attentions (self, cross) per
+    # decoder layer
     none = dict.fromkeys(("rmsnorm", "flash_attention", "mamba_scan", "mamba_scan_bwd",
                           "moe_gmm", "moe_gmm_bwd"), 0)
     paths = [(qwen, {**none, "rmsnorm": (4 * qwen.n_layers + 1) * STEPS,
@@ -3982,8 +4066,10 @@ def main() -> int:
                          "moe_gmm_bwd": 6 * deepseek.n_layers * STEPS}),
              (qwen3, {**none, "rmsnorm": (4 * qwen3.n_layers + 1) * STEPS,
                       "flash_attention": 2 * qwen3.n_layers * STEPS}),
-             (zamba2, {**none, "rmsnorm": (2 * (zamba2.n_layers + 2 * groups) + 1) * ZAMBA2_STEPS,
-                       "flash_attention": 2 * groups * ZAMBA2_STEPS}),
+             (zamba2, {**none, "rmsnorm": (2 * (zamba2.n_layers + 2 * groups) + 1) * STEPS,
+                       "flash_attention": 2 * groups * STEPS,
+                       "mamba_scan": 2 * zamba2.n_layers * STEPS,
+                       "mamba_scan_bwd": zamba2.n_layers * STEPS}),
              (whisper, {**none, "rmsnorm": (4 * whisper.n_enc_layers + 6 * whisper.n_layers + 1)
                         * STEPS,
                         "flash_attention": (2 * whisper.n_enc_layers + 4 * whisper.n_layers)
@@ -3995,8 +4081,8 @@ def main() -> int:
         phase(f"{tag}/5 full-width training: {cfg.name}, {enc}{cfg.n_layers} layers")
         if cfg.hybrid_every:
             # the fp32 check at one group: FP32_LAYERS is no multiple of it
-            counts[cfg.name], train = phase_train(torch, cfg, want, steps=ZAMBA2_STEPS,
-                                                  save=False, fp32_layers=cfg.hybrid_every)
+            counts[cfg.name], train = phase_train(torch, cfg, want, save=False,
+                                                  fp32_layers=cfg.hybrid_every)
         else:
             counts[cfg.name], train = phase_train(torch, cfg, want, save=tag == "3")
         if tag == "3c":
@@ -4005,17 +4091,12 @@ def main() -> int:
             step_3b, peak_3b = train["step_s"], train["peak"]
         phase(f"5/5 where a full-width {cfg.name} step's device time goes")
         if cfg.ssm:
-            kernels = "K1 and K2" if cfg.hybrid_every else "K1, K4 and K4-bwd"
+            kernels = "K1, K2, K4 and K4-bwd" if cfg.hybrid_every else "K1, K4 and K4-bwd"
             print(f"  plain profile skipped: the plain run differs from the kernel run only "
                   f"in {kernels}, whose plain versions phase 2 times", flush=True)
+        phase_profile(torch, train, plain_steps=0 if cfg.ssm else PROFILED_STEPS)
         if cfg.hybrid_every:
-            # its profiled step (19.4 s) makes room for 3n(a)'s grouped run:
-            # the plain SSD scan's own profile below says where the step goes
-            print("  kernel profile skipped: the plain SSD scan's, profiled alone, is "
-                  "the step's device time and launches", flush=True)
             ssd_scan_profile(torch, cfg)
-        else:
-            phase_profile(torch, train, plain_steps=0 if cfg.ssm else PROFILED_STEPS)
         del train                      # free this path's state before the next one
         gc.collect()
         torch.cuda.empty_cache()
@@ -4129,8 +4210,8 @@ def main() -> int:
 
     meta = {"rmsnorm": ("rmsnorm.cu", "src/repro/kernels/rmsnorm.py:19"),
             "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:27"),
-            "mamba_scan": ("mamba_scan.cu", "src/repro/kernels/mamba_scan.py:43"),
-            "mamba_scan_bwd": ("mamba_scan.cu", "src/repro/kernels/mamba_scan.py:43"),
+            "mamba_scan": ("mamba_scan.cuh", "src/repro/kernels/mamba_scan.py:43"),
+            "mamba_scan_bwd": ("mamba_scan.cuh", "src/repro/kernels/mamba_scan.py:43"),
             "moe_gmm": ("moe_gmm.cu", "src/repro/kernels/moe_gmm.py:19"),
             "moe_gmm_bwd": ("moe_gmm.cu", "src/repro/kernels/moe_gmm.py:19")}
     kernels = []

@@ -1,0 +1,4 @@
+// K4 and K4-bwd's instantiations for fp32 x and bf16 dt (mamba_scan.cuh).
+#include "mamba_scan.cuh"
+
+template int k4::run<float, __nv_bfloat16>(bool, const k4::Args&);

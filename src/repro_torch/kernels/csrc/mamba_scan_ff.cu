@@ -1,0 +1,4 @@
+// K4 and K4-bwd's instantiations for fp32 x and fp32 dt (mamba_scan.cuh).
+#include "mamba_scan.cuh"
+
+template int k4::run<float, float>(bool, const k4::Args&);

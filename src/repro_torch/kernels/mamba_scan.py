@@ -2,31 +2,43 @@
 hand-written CUDA for Hopper.
 
 Replaces the Pallas TPU kernel ``repro/kernels/mamba_scan.py``
-(``mamba_scan_pallas`` and its inner ``kernel``).  Source:
-``csrc/mamba_scan.cu``.  The JAX package has no backward kernel (its
-trainer differentiates the plain scan); the port's K4-bwd is its own.
+(``mamba_scan_pallas`` and its inner ``kernel``).  Sources:
+``csrc/mamba_scan.cuh`` (the kernels), ``mamba_scan.cu`` (the C
+interface) and ``mamba_scan_*.cu`` (the instantiations).  The JAX
+package has no backward kernel (its trainer differentiates the plain
+scan); the port's K4-bwd is its own.
 
 Both return the scan without the skip term ``x*D``, which the caller
-adds in x's dtype (``ops.mamba_scan``), as the JAX wrapper does.  N, the
-state size, must be 4, 8 or 16 on the card; ragged C and any S are
-handled by bounds checks.
+adds in x's dtype (``ops.mamba_scan``), as the JAX wrapper does.  They
+take any state size N from 1 to ``MAX_STATE`` (64) on the card: the
+kernels are built for the ``BUILT`` sizes (16, 32, 64), and an N in
+between runs on the next one up, A, B, C and h0 padded here with zeros
+(those states stay 0 and add nothing) and the outputs cut back to N.
+They take each input in its own dtype, as the TPU kernel does: x, dt, B
+and C each fp32 or bf16 (y, dx in x's dtype, ddt in dt's), so Mamba-2's
+fp32 dt beside bf16 x is read as it is; B and C, (B, S, N), are read
+in x's type by the 16-state forward and otherwise widened to fp32 here
+(exactly).  Ragged C and any S are handled
+by bounds checks.
 
-On the H100 the forward at the training shape (4, 1024, 8192, 16) bf16
-moves ~0.34 GB with its saved states (~100 us at 3.35 TB/s; ~61 us
+On the H100 the forward at the Falcon-Mamba shape (4, 1024, 8192, 16)
+bf16 moves ~0.34 GB with its saved states (~100 us at 3.35 TB/s; ~61 us
 without them) and takes 537M exps, one per (b, t, c, n): its floor is
 the special-function units' exp rate (~128 us at 16 a clock per SM),
-since each exp comes with only ~4 fp32 operations.  One thread per channel keeps all N states in registers and
-takes each exp as one ``ex2.approx`` on A pre-scaled by log2(e); x and
-dt are read a tile ahead into registers, B and C through double-buffered
-shared memory.  The backward recomputes the states from the ones the
-forward saves every ``CHUNK`` steps, 8-step segments at a time in
-shared memory, and walks them in reverse: 2.5 exps per element (the
-reverse walk's, the segment recompute's, and half a chunk more for the
-segment starts), register sums over n, a warp transpose-reduce for the
-sums over channels, and one partial row of dB and dC per 128-channel
-block, added here with ``torch.sum`` (no atomics: the same bits every
-run).  Measured, neither kernel reaches its exp floor: with one thread
-per channel each warp is latency-bound (PERF.md has the times).
+since each exp comes with only ~4 fp32 operations.  A channel's states
+are kept in registers, by one thread up to 16 states and split over
+``LANES`` lanes of a warp above (16 each), and each exp is one
+``ex2.approx`` on A pre-scaled by log2(e); x and dt are read a tile
+ahead into registers, B and C through double-buffered shared memory.
+The backward recomputes the states from the ones the forward saves
+every ``CHUNK`` steps, 8-step segments at a time in shared memory, and
+walks them in reverse: 2.5 exps per element (the reverse walk's, the
+segment recompute's, and half a chunk more for the segment starts),
+register sums over n (a butterfly across a channel's lanes), a warp
+transpose-reduce for the sums over channels, and one partial row of dB
+and dC per 128-thread block, added here with ``torch.sum`` (no atomics:
+the same bits every run).  Measured, neither kernel reaches its exp
+floor: each warp's step is latency-bound (PERF.md has the times).
 
 ``mamba_scan_fwd`` and ``mamba_scan_bwd`` launch the kernels on CUDA
 tensors and use the plain PyTorch versions ``mamba_scan_plain`` and
@@ -43,8 +55,9 @@ from .. import shapeonly
 from . import _build
 
 CHUNK = 16              # steps between saved states (the kernel's kChunk)
-THREADS = 128           # channels per block, one thread each (kThreads)
-STATES = (4, 8, 16)     # the state sizes N the kernels are built for
+THREADS = 128           # threads per block (kThreads)
+BUILT = (16, 32, 64)    # the state sizes the kernels are built for
+MAX_STATE = BUILT[-1]
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -68,18 +81,42 @@ def _check(x, dt, A, B, C, h0):
         raise TypeError(f"mamba scan: A must be float32, got {A.dtype}")
 
 
+def built(n: int) -> int:
+    """The built state size that state size n runs on: the next one up."""
+    return next(k for k in BUILT if k >= n)
+
+
+def lanes(n: int) -> int:
+    """Lanes of a warp that share one channel's states at state size n
+    (the kernel's kLanes of the built size): 16 states a lane above 16."""
+    return max(1, built(n) // 16)
+
+
+def _pad(t, n: int):
+    """``t`` with its last dim padded by zeros to n (None stays None)."""
+    if t is None or t.shape[-1] == n:
+        return t
+    return torch.nn.functional.pad(t, (0, n - t.shape[-1]))
+
+
 def _check_kernel(x, dt, A, B, C, *others):
     tensors = (x, dt, A, B, C, *[t for t in others if t is not None])
     if any(t.device != x.device for t in tensors) or x.device.type != "cuda":
         raise ValueError("mamba scan kernel: every tensor must be on one CUDA device, "
                          f"got {sorted({str(t.device) for t in tensors})}")
-    if not (x.dtype == dt.dtype == B.dtype == C.dtype) or x.dtype not in DTYPES:
+    if any(t.dtype not in DTYPES for t in (x, dt, B, C)):
         raise TypeError(f"mamba scan kernel: x {x.dtype}, dt {dt.dtype}, B {B.dtype}, "
-                        f"C {C.dtype} must share one dtype of float32 / bfloat16")
-    if A.shape[1] not in STATES:
-        raise ValueError(f"mamba scan kernel: state size {A.shape[1]} not in {STATES}")
+                        f"C {C.dtype} must each be float32 or bfloat16")
+    if A.shape[1] > MAX_STATE:
+        raise ValueError(f"mamba scan kernel: state size {A.shape[1]} above {MAX_STATE}, "
+                         "the largest the kernels take")
     if x.shape[0] > 65535:
         raise ValueError(f"mamba scan kernel: batch {x.shape[0]} exceeds the grid")
+
+
+def _types(x, dt) -> tuple:
+    """The kernels' type codes of x and dt."""
+    return DTYPES[x.dtype], DTYPES[dt.dtype]
 
 
 def _n_chunks(s: int) -> int:
@@ -168,7 +205,7 @@ def mamba_scan_bwd_plain(x, dt, A, B, C, hs, dy, dhT=None):
 def _fwd_fn():
     fn = _build.library().mamba_scan_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -176,13 +213,68 @@ def _fwd_fn():
 def _bwd_fn():
     fn = _build.library().mamba_scan_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def _ptr(t):
     return 0 if t is None else t.data_ptr()
+
+
+def fwd_call(fn, stream, x, dt, A, B, C, h0=None, save_states: bool = False):
+    """The forward kernel's C call ``fn`` on ``stream`` (a pointer) and the
+    work around it: the inputs made contiguous; a state size N between the
+    built ones padded with zeros to the next (A, B, C and h0; the padded
+    states stay 0 and add nothing), and the outputs cut back to N; B and
+    C in the kernel's type, x's at 16 states and fp32 above (widened
+    exactly; fp32 B or C beside bf16 x run on the 32-state kernel).
+    Returns what ``mamba_scan_fwd`` returns."""
+    b, s, c = x.shape
+    n, nb = A.shape[1], built(A.shape[1])
+    if nb == 16 and x.dtype != torch.float32 and not B.dtype == C.dtype == x.dtype:
+        nb = 32
+    x, dt = x.contiguous(), dt.contiguous()
+    bc_dtype = x.dtype if nb == 16 else torch.float32
+    B, C = (_build.aligned(_pad(t.to(bc_dtype), nb)) for t in (B, C))
+    A = _build.aligned(_pad(A, nb))     # read as float4s, as are h0 and the states
+    h0 = None if h0 is None else _build.aligned(_pad(h0.float(), nb))
+    y = torch.empty_like(x)
+    hT = torch.empty((b, c, nb), dtype=torch.float32, device=x.device)
+    hs = (torch.empty((b, _n_chunks(s), c, nb), dtype=torch.float32, device=x.device)
+          if save_states else None)
+    rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), _ptr(h0),
+            y.data_ptr(), hT.data_ptr(), _ptr(hs), b, s, c, nb, CHUNK, *_types(x, dt),
+            stream)
+    if rc:
+        raise RuntimeError(f"mamba scan kernel launch failed: CUDA error {rc}")
+    return y, hT[..., :n], None if hs is None else hs[..., :n]
+
+
+def bwd_call(fn, stream, x, dt, A, B, C, hs, dy, dhT=None):
+    """The backward kernel's C call ``fn`` on ``stream`` and the work
+    around it, as ``fwd_call``'s; the partial sums of dA, dB and dC are
+    added here.  Returns what ``mamba_scan_bwd`` returns."""
+    b, s, c = x.shape
+    n, nb = A.shape[1], built(A.shape[1])
+    dtypes = B.dtype, C.dtype
+    x, dt, dy = x.contiguous(), dt.contiguous(), dy.contiguous()
+    B, C = (_build.aligned(_pad(t.float(), nb)) for t in (B, C))
+    A, hs = _build.aligned(_pad(A, nb)), _build.aligned(_pad(hs, nb))
+    dhT = None if dhT is None else _build.aligned(_pad(dhT.float(), nb))
+    nblk = -(-c // (THREADS // lanes(n)))     # channel blocks: partial rows of dB, dC
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    dA_part, dh0 = torch.empty((b, c, nb), **f32), torch.empty((b, c, nb), **f32)
+    dB_part, dC_part = (torch.empty((b, nblk, s, nb), **f32) for _ in range(2))
+    rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+            hs.data_ptr(), dy.data_ptr(), _ptr(dhT), dx.data_ptr(), ddt.data_ptr(),
+            dA_part.data_ptr(), dB_part.data_ptr(), dC_part.data_ptr(), dh0.data_ptr(), b, s, c,
+            nb, CHUNK, nblk, *_types(x, dt), stream)
+    if rc:
+        raise RuntimeError(f"mamba scan backward kernel launch failed: CUDA error {rc}")
+    return (dx, ddt, dA_part.sum(0)[:, :n], dB_part.sum(1)[..., :n].to(dtypes[0]),
+            dC_part.sum(1)[..., :n].to(dtypes[1]), dh0[..., :n])
 
 
 def mamba_scan_fwd(x, dt, A, B, C, h0=None, save_states: bool = False):
@@ -193,22 +285,10 @@ def mamba_scan_fwd(x, dt, A, B, C, h0=None, save_states: bool = False):
         return mamba_scan_plain(x, dt, A, B, C, h0, save_states)
     _check(x, dt, A, B, C, h0)
     _check_kernel(x, dt, A, B, C, h0)
-    b, s, c = x.shape
-    n = A.shape[1]
-    x, dt, B, C = (t.contiguous() for t in (x, dt, B, C))
-    A = _build.aligned(A)             # read as float4s, as are h0 and the states
-    h0 = None if h0 is None else _build.aligned(h0.float())
-    y = torch.empty_like(x)
-    hT = torch.empty((b, c, n), dtype=torch.float32, device=x.device)
-    hs = (torch.empty((b, _n_chunks(s), c, n), dtype=torch.float32, device=x.device)
-          if save_states else None)
-    rc = _fwd_fn()(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-                   _ptr(h0), y.data_ptr(), hT.data_ptr(), _ptr(hs), b, s, c, n, CHUNK,
-                   DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
-    if rc:
-        raise RuntimeError(f"mamba scan kernel launch failed: CUDA error {rc}")
+    out = fwd_call(_fwd_fn(), torch.cuda.current_stream(x.device).cuda_stream, x, dt, A, B, C,
+                   h0, save_states)
     _build.count_launch(globals(), "launches")
-    return y, hT, hs
+    return out
 
 
 def mamba_scan_bwd(x, dt, A, B, C, hs, dy, dhT=None):
@@ -227,21 +307,7 @@ def mamba_scan_bwd(x, dt, A, B, C, hs, dy, dhT=None):
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"mamba scan kernel: dy {tuple(dy.shape)} {dy.dtype} must match "
                          f"x {tuple(x.shape)} {x.dtype}")
-    x, dt, B, C, dy = (t.contiguous() for t in (x, dt, B, C, dy))
-    A, hs = _build.aligned(A), _build.aligned(hs)
-    dhT = None if dhT is None else _build.aligned(dhT.float())
-    nblk = -(-c // THREADS)             # channel blocks: partial rows of dB, dC
-    f32 = dict(dtype=torch.float32, device=x.device)
-    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
-    dA_part, dh0 = torch.empty((b, c, n), **f32), torch.empty((b, c, n), **f32)
-    dB_part, dC_part = torch.empty((b, nblk, s, n), **f32), torch.empty((b, nblk, s, n), **f32)
-    rc = _bwd_fn()(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-                   hs.data_ptr(), dy.data_ptr(), _ptr(dhT), dx.data_ptr(), ddt.data_ptr(),
-                   dA_part.data_ptr(), dB_part.data_ptr(), dC_part.data_ptr(),
-                   dh0.data_ptr(), b, s, c, n, CHUNK, nblk, DTYPES[x.dtype],
-                   torch.cuda.current_stream(x.device).cuda_stream)
-    if rc:
-        raise RuntimeError(f"mamba scan backward kernel launch failed: CUDA error {rc}")
+    out = bwd_call(_bwd_fn(), torch.cuda.current_stream(x.device).cuda_stream, x, dt, A, B, C,
+                   hs, dy, dhT)
     _build.count_launch(globals(), "bwd_launches")
-    return (dx, ddt, dA_part.sum(0), dB_part.sum(1).to(B.dtype),
-            dC_part.sum(1).to(C.dtype), dh0)
+    return out

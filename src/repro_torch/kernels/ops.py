@@ -4,7 +4,8 @@
 of the flash backward (``models.attention._flash_bwd``) from the saved
 (q, k, v, out, lse).  ``rmsnorm``: forward is kernel K1, backward is the
 analytic VJP of ``rmsnorm_ref`` in PyTorch.  ``mamba_scan``: forward
-is kernel K4, backward is kernel K4-bwd from the chunk states K4 saves.
+is kernel K4, backward is kernel K4-bwd from the chunk states K4 saves;
+``ssd_scan`` runs the Mamba-2 SSD scan through the same two kernels.
 ``moe_gmm``: forward and backward are kernel K3 (its backward in two
 transposed-operand layouts).  On CPU tensors every kernel uses its
 plain version, and on meta tensors (the IR's tracing) its plain version's
@@ -17,7 +18,8 @@ On DTensors (the production SPMD lane) each Function runs under
 ``local_map`` on the local shards, in a layout its kernel computes
 locally (``parallel.shards``): K1 with the normalised dim whole, K2
 with batch and heads sharded or q's sequence sharded (the shard's first
-row as ``q_offset``), K3 over the experts, K4 over the channels.  The local shards of a
+row as ``q_offset``), K3 over the experts, K4 over the channels (the
+SSD scan's over its heads).  The local shards of a
 DTensor on the card are CUDA tensors, so the kernels launch there.
 """
 from __future__ import annotations
@@ -132,6 +134,29 @@ def mamba_scan(xz, dt, A, B, C, D, h0=None, chunk=None):
     return y + xz * D.to(xz.dtype), hT
 
 
+def ssd_scan(x_h, dt, A, B, C, D, h0=None, chunk=None):
+    """``models.layers._ssd_scan``'s contract through K4 and K4-bwd:
+    x_h (B, S, H, P), dt (B, S, H), A (H,), B and C (B, S, N), D (H,),
+    h0 (B, H, P, N); returns (y + x*D in x's dtype, hT (B, H, P, N)
+    fp32).  The SSD scan is the Mamba-1 recurrence over H*P channels with
+    dt, A and D shared by each head's P channels and B and C by all of
+    them, so x is viewed as (B, S, H*P), dt repeated over each head's
+    channels in its own dtype, A broadcast to (H*P, N); the gradients of
+    dt, A and D sum back over the repeats through autograd.  ``chunk`` is
+    ignored: the kernels save their own chunk states."""
+    if is_dtensor(x_h):
+        return scan_on_shards(ssd_scan, x_h, dt, A, B, C, D, h0=h0, chunk=chunk)
+    b, s, h, p = x_h.shape
+    n = B.shape[-1]
+    x = x_h.reshape(b, s, h * p)
+    dtc = dt[..., None].expand(b, s, h, p).reshape(b, s, h * p)
+    Ac = A.float()[:, None, None].expand(h, p, n).reshape(h * p, n)
+    h0c = None if h0 is None else h0.reshape(b, h * p, n)
+    y, hT = _MambaScan.apply(x, dtc, Ac, B, C, h0c)
+    return (y.reshape(b, s, h, p) + x_h * D[None, None, :, None].to(x_h.dtype),
+            hT.reshape(b, h, p, n))
+
+
 # ---- grouped expert matmul: K3 forward + K3 backward
 
 
@@ -163,11 +188,12 @@ def register_kernels() -> None:
     L.register_impl("attention", flash_attention)
     L.register_impl("rmsnorm", rmsnorm)
     L.register_impl("mamba_scan", mamba_scan)
+    L.register_impl("ssd_scan", ssd_scan)
     L.register_impl("moe_gmm", moe_gmm)
 
 
 def unregister_kernels() -> None:
-    for k in ("attention", "rmsnorm", "mamba_scan", "moe_gmm"):
+    for k in ("attention", "rmsnorm", "mamba_scan", "ssd_scan", "moe_gmm"):
         L._IMPLS.pop(k, None)
 
 

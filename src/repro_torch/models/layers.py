@@ -993,8 +993,11 @@ def _ssd_scan(x_h, dt, A, B, C, D, h0=None, chunk: int = SSM_CHUNK):
     A and D shared by each head's P channels; written per head, nothing of
     size (B, S, H*P, N) or a repeated dt exists.  Each chunk runs under
     ``torch.utils.checkpoint``, so autograd keeps only the chunk-boundary
-    states.  No kernel: the JAX package runs it in jnp too.  On DTensors
-    it runs on the local shards, heads as x_h holds them."""
+    states.  This is the plain version (the JAX package runs its
+    counterpart in jnp): with the kernels registered, ``mamba_block``
+    runs ``kernels.ops.ssd_scan``, the same function through K4 and
+    K4-bwd.  On DTensors it runs on the local shards, heads as x_h holds
+    them."""
     from ..parallel.shards import is_dtensor, scan_on_shards
     if is_dtensor(x_h):
         return scan_on_shards(_ssd_scan, x_h, dt, A, B, C, D, h0=h0, chunk=chunk)
@@ -1030,7 +1033,8 @@ def mamba_block(p, x, *, state: int, version: int, conv_state=None, ssm_state=No
     Version 2: bc_proj gives B and C, a per-head dt = softplus(xh @
     dt_proj2 + dt_bias) (fp32 in a bf16 block, as the fp32 bias promotes
     it), A = -exp(A_log) per head, and the SSD scan over heads of
-    ``headdim`` channels (state (B, H, P, N))."""
+    ``headdim`` channels (the ``"ssd_scan"`` impl, with ``h0=ssm_state``;
+    state (B, H, P, N))."""
     b, s, _ = x.shape
     xz = rows(x) @ p["in_proj"]
     xh, z = torch.chunk(xz, 2, dim=-1)                    # (B, S, Ci)
@@ -1057,7 +1061,7 @@ def mamba_block(p, x, *, state: int, version: int, conv_state=None, ssm_state=No
         dt = F.softplus(constrain(xh @ p["dt_proj2"], "dp", None, "tp")
                         + p["dt_bias"])                           # (B, S, H)
         A = -torch.exp(p["A_log"])                                # (H,)
-        y, hT = _ssd_scan(xh.reshape(b, s, ci // headdim, headdim), dt, A, Bm, Cm, p["D"],
-                          ssm_state, chunk=chunk)
+        y, hT = get_impl("ssd_scan", _ssd_scan)(xh.reshape(b, s, ci // headdim, headdim), dt,
+                                                A, Bm, Cm, p["D"], ssm_state, chunk=chunk)
         y = y.reshape(b, s, ci)
     return rows(y * F.silu(z)) @ p["out_proj"], new_conv, hT

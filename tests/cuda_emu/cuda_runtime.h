@@ -1,5 +1,5 @@
 // The subset of the CUDA runtime and device API that the scan kernels
-// (src/repro_torch/kernels/csrc/mamba_scan.cu) use, for running them on
+// (src/repro_torch/kernels/csrc/mamba_scan.cuh) use, for running them on
 // the CPU in tests: every thread of a block is a std::thread, blocks run
 // one after another, a barrier stands in for __syncthreads and one per
 // warp for the shuffles.  tests/test_torch_scan_emulated.py builds the
@@ -41,18 +41,21 @@ using std::min;
 
 inline std::barrier<>* emu_block_barrier;
 inline std::vector<std::unique_ptr<std::barrier<>>> emu_warp_barriers;
-inline float emu_lanes[32][32];                    // [warp][lane]: one shuffle's values
+// [buffer][warp][lane]: a shuffle's values, in two buffers taken in turn
+// (a thread's shuffle count picks one), so one barrier a shuffle does: a
+// lane can write a buffer again only after every lane of its warp has
+// passed the barrier of the shuffle in between, so after their reads
+inline float emu_lanes[2][32][32];
+inline thread_local unsigned emu_shuffles;
 alignas(16) inline unsigned char emu_dyn_smem[232448];
 
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
 
 inline float __shfl_xor_sync(unsigned, float v, int mask) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  emu_lanes[warp][lane] = v;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, buf = emu_shuffles++ & 1;
+  emu_lanes[buf][warp][lane] = v;
   emu_warp_barriers[warp]->arrive_and_wait();
-  const float r = emu_lanes[warp][lane ^ mask];
-  emu_warp_barriers[warp]->arrive_and_wait();
-  return r;
+  return emu_lanes[buf][warp][lane ^ mask];
 }
 
 inline float emu_ex2(float x) { return std::exp2(x); }
@@ -74,6 +77,7 @@ void emu_launch(dim3 grid, int threads, int, cudaStream_t, K kernel, A... args) 
       for (int t = 0; t < threads; ++t)
         team.emplace_back([=] {
           threadIdx = {unsigned(t), 0, 0};
+          emu_shuffles = 0;
           blockIdx = {bx, by, 0};
           kernel(args...);
         });

@@ -232,10 +232,90 @@ def test_mamba_scan_grads_match_reference(dev):
 
 
 def test_mamba_scan_refuses_other_state_sizes(dev):
+    """Every state size up to ``MAX_STATE`` (64) launches; above it the
+    wrappers raise, naming the limit."""
     from repro_torch.kernels import mamba_scan as ms
-    x, dt, A, B, C, _ = _scan_inputs(1, 8, 6, 32, torch.float32, dev)
-    with pytest.raises(ValueError, match="state size"):
-        ms.mamba_scan_fwd(x, dt, A, B, C)
+    for n in (ms.MAX_STATE + 1, 128):
+        x, dt, A, B, C, _ = _scan_inputs(1, 8, 6, n, torch.float32, dev)
+        with pytest.raises(ValueError, match="state size .* above 64"):
+            ms.mamba_scan_fwd(x, dt, A, B, C)
+    x, dt, A, B, C, _ = _scan_inputs(1, 8, 6, 3, torch.float32, dev)
+    before = ms.launches
+    ms.mamba_scan_fwd(x, dt, A, B, C)
+    torch.cuda.synchronize()
+    assert ms.launches == before + 1
+
+
+# state sizes split over 2 and 4 lanes a channel (32, 64) and between the
+# built sizes (40 runs on 64): Mamba-2's fp32 dt beside bf16 x, B and C,
+# ragged C past the 32- and 64-channel blocks, S off the tiles, with h0;
+# then Zamba2's width at S = 1 (the decode step); last, fp32 B and C
+# beside bf16 x at 16 states, which run on the 32-state kernel, padded
+WIDE_SCAN_CASES = [(2, 77, 200, 32, True, torch.bfloat16), (2, 37, 70, 40, True, torch.bfloat16),
+                   (2, 300, 136, 64, True, torch.bfloat16), (4, 1, 5120, 64, True, torch.bfloat16),
+                   (2, 45, 136, 16, True, torch.float32)]
+
+
+@pytest.mark.parametrize("b,s,c,n,with_h0,bc_dtype", WIDE_SCAN_CASES)
+@pytest.mark.parametrize("dt_dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_wide_states_mixed_dtypes(dev, b, s, c, n, with_h0, bc_dtype, dt_dtype):
+    """K4 and K4-bwd at N = 32, 40 and 64 with bf16 x, B and C, and at
+    N = 16 with fp32 B and C, dt in ``dt_dtype`` (ddt, dB and dC come back
+    in their inputs' dtypes) against their plain versions, and K4-bwd
+    twice for the same bits."""
+    from repro_torch.kernels import mamba_scan as ms
+    x, dt, A, B, C, h0 = _scan_inputs(b, s, c, n, torch.bfloat16, dev, with_h0)
+    dt = torch.nn.functional.softplus(_randn((b, s, c), torch.float32, dev, seed=1)).to(dt_dtype)
+    B, C = B.to(bc_dtype), C.to(bc_dtype)
+    before = (ms.launches, ms.bwd_launches)
+    y, hT, hs = ms.mamba_scan_fwd(x, dt, A, B, C, h0, save_states=True)
+    dy = _randn((b, s, c), torch.bfloat16, dev, seed=6)
+    dhT = _randn((b, c, n), torch.float32, dev, seed=7)
+    grads = ms.mamba_scan_bwd(x, dt, A, B, C, hs, dy, dhT)
+    again = ms.mamba_scan_bwd(x, dt, A, B, C, hs, dy, dhT)
+    torch.cuda.synchronize()
+    assert (ms.launches, ms.bwd_launches) == (before[0] + 1, before[1] + 2)
+    assert all(torch.equal(u, v) for u, v in zip(grads, again))
+    want = ms.mamba_scan_plain(x, dt, A, B, C, h0, save_states=True)
+    torch.testing.assert_close(y.float(), want[0].float(), **TOL[torch.bfloat16])
+    for got, w in ((hT, want[1]), (hs, want[2])):
+        torch.testing.assert_close(got, w, atol=1e-5, rtol=1e-4)
+    for got, w in zip(grads, ms.mamba_scan_bwd_plain(x, dt, A, B, C, want[2], dy, dhT)):
+        assert got.dtype == w.dtype
+        tol = TOL[torch.bfloat16] if got.dtype == torch.bfloat16 else dict(atol=1e-5, rtol=1e-4)
+        torch.testing.assert_close(got.float(), w.float(), **tol)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_scan_route_matches_plain(dev, with_h0):
+    """Autograd through ``ops.ssd_scan`` (K4 and K4-bwd at N = 64) against
+    autograd through the plain ``_ssd_scan``, in fp32: one launch of each
+    kernel, every output and gradient at the scan's tolerance."""
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import _ssd_scan
+    b, s, h, p, n = 2, 200, 6, 64, 64
+    ins = [_randn((b, s, h, p), torch.float32, dev, seed=0, scale=0.5),
+           torch.nn.functional.softplus(_randn((b, s, h), torch.float32, dev, seed=1)),
+           -torch.exp(_randn((h,), torch.float32, dev, seed=2, scale=0.2)),
+           _randn((b, s, n), torch.float32, dev, seed=3, scale=0.5),
+           _randn((b, s, n), torch.float32, dev, seed=4, scale=0.5),
+           _randn((h,), torch.float32, dev, seed=5, shift=1.0),
+           _randn((b, h, p, n), torch.float32, dev, seed=6, scale=0.5) if with_h0 else None]
+    dy = _randn((b, s, h, p), torch.float32, dev, seed=7)
+    dhT = _randn((b, h, p, n), torch.float32, dev, seed=8)
+    results = []
+    for fn in (ops.ssd_scan, _ssd_scan):
+        leaves = [None if t is None else t.clone().requires_grad_(True) for t in ins]
+        before = (ms.launches, ms.bwd_launches)
+        y, hT = fn(*leaves[:6], h0=leaves[6])
+        torch.autograd.backward([y, hT], [dy, dhT])
+        torch.cuda.synchronize()
+        launched = (ms.launches - before[0], ms.bwd_launches - before[1])
+        assert launched == ((1, 1) if fn is ops.ssd_scan else (0, 0))
+        results.append([y, hT] + [t.grad for t in leaves if t is not None])
+    for got, want in zip(*results):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
 
 
 # K3 shapes (E, M, K, N): the DeepSeek-MoE-16B path's gate/up and down

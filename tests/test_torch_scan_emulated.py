@@ -1,13 +1,17 @@
 """The scan kernels' CUDA source (K4 and K4-bwd) run on the CPU.
 
-g++ builds ``src/repro_torch/kernels/csrc/mamba_scan.cu`` against
+g++ builds ``src/repro_torch/kernels/csrc/mamba_scan*`` (the kernels'
+header, the C interface and the four files of instantiations) against
 ``tests/cuda_emu/``, which runs every thread of a block as a
 ``std::thread``, after rewriting what a host compiler cannot take: the
 launch syntax, the inline PTX (``ex2.approx`` becomes ``exp2``, the
-predicated store an ``if``) and the dynamic shared memory declaration.
-The library is called through the C interface the wrappers use on the
-card and held to the plain versions, so the tiling, the ragged edges,
-the saved states and the fixed-order sums are checked without a GPU.
+predicated store an ``if``, ``cp.async`` a copy done at once) and the
+dynamic shared memory declaration.
+The library is called through the wrappers' own C calls (``fwd_call``,
+``bwd_call``: the padding of a state size between the built ones, the
+partial sums) and held to the plain versions, so the tiling, the ragged
+edges, the lanes a channel's states are split over, the saved states
+and the fixed-order sums are checked without a GPU.
 Timing, register allocation and ``ex2.approx``'s rounding are not.
 """
 import ctypes
@@ -22,10 +26,13 @@ import torch
 from repro_torch.kernels import mamba_scan as ms
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-SOURCE = ROOT / "src/repro_torch/kernels/csrc/mamba_scan.cu"
+SOURCES = sorted((ROOT / "src/repro_torch/kernels/csrc").glob("mamba_scan*.cu*"))
 REWRITES = [
     (r'asm volatile\("\{ \.reg \.pred q;[^;]*;[^;]*;[^}]*\}"\s*::[^;]*;', "if (pred) *p = v;"),
     (r'asm\("ex2[^;]*;[^;]*;', "y = emu_ex2(x);"),
+    (r'asm volatile\("cp\.async\.cg[^;]*;[^;]*;',
+     "if (full) std::memcpy(dst, src, 16); else std::memset(dst, 0, 16);"),
+    (r'asm volatile\("cp\.async\.wait_all;" ::: "memory"\);', ""),
     (r"(\w+<[^<>]*>)<<<([^>]*)>>>\(", r"emu_launch(\2, \1, "),
     (r"extern __shared__ __align__\(16\) unsigned char smem_raw\[\];",
      "unsigned char* smem_raw = emu_dyn_smem;"),
@@ -41,62 +48,53 @@ TOL = {torch.float32: dict(atol=1e-5, rtol=1e-4), torch.bfloat16: dict(atol=3e-2
 def lib(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ (C++20) to build the emulated kernels")
-    src = SOURCE.read_text()
+    texts = {p.name: p.read_text() for p in SOURCES}
     for pattern, repl in REWRITES:
-        src, n = re.subn(pattern, repl, src)
-        assert n, f"the kernel source no longer has {pattern!r}: update the rewrites"
+        found = 0
+        for name, text in texts.items():
+            texts[name], n = re.subn(pattern, repl, text)
+            found += n
+        assert found, f"the kernel sources no longer have {pattern!r}: update the rewrites"
     out = tmp_path_factory.mktemp("scan_emu")
-    (out / "mamba_scan.cpp").write_text(src)
-    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-Wno-unknown-pragmas",
-                    "-I", str(ROOT / "tests/cuda_emu"), "-o", str(out / "libscan.so"),
-                    str(out / "mamba_scan.cpp"), "-lpthread"], check=True, timeout=300)
+    units = []
+    for name, text in texts.items():
+        path = out / (name[:-3] + ".cpp" if name.endswith(".cu") else name)
+        path.write_text(text)
+        units += [str(path)] if path.suffix == ".cpp" else []
+    flags = ["-std=c++20", "-O1", "-fPIC", "-Wno-unknown-pragmas", "-I",
+             str(ROOT / "tests/cuda_emu"), "-I", str(out)]
+    jobs = [subprocess.Popen(["g++", *flags, "-c", "-o", unit[:-4] + ".o", unit])
+            for unit in units]                      # one g++ a unit, all at once
+    assert all(job.wait(timeout=300) == 0 for job in jobs)
+    subprocess.run(["g++", "-shared", "-o", str(out / "libscan.so"),
+                    *(unit[:-4] + ".o" for unit in units), "-lpthread"], check=True, timeout=300)
     lib = ctypes.CDLL(str(out / "libscan.so"))
-    lib.mamba_scan_fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    lib.mamba_scan_bwd.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.mamba_scan_fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.mamba_scan_bwd.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.mamba_scan_fwd.restype = lib.mamba_scan_bwd.restype = ctypes.c_int
     return lib
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
 def _fwd(lib, x, dt, A, B, C, h0, save_states=True):
-    b, s, c = x.shape
-    n = A.shape[1]
-    y, hT = torch.empty_like(x), torch.empty((b, c, n))
-    hs = torch.empty((b, -(-s // ms.CHUNK), c, n)) if save_states else None
-    rc = lib.mamba_scan_fwd(*map(_ptr, (x, dt, A, B, C, h0, y, hT, hs)), b, s, c, n, ms.CHUNK,
-                            ms.DTYPES[x.dtype], None)
-    assert rc == 0
-    return y, hT, hs
+    return ms.fwd_call(lib.mamba_scan_fwd, None, x, dt, A, B, C, h0, save_states)
 
 
 def _bwd(lib, x, dt, A, B, C, hs, dy, dhT):
-    b, s, c = x.shape
-    n, nblk = A.shape[1], -(-c // ms.THREADS)
-    dx, ddt = torch.empty_like(x), torch.empty_like(x)
-    dA_part, dh0 = torch.empty((b, c, n)), torch.empty((b, c, n))
-    dB_part, dC_part = torch.empty((b, nblk, s, n)), torch.empty((b, nblk, s, n))
-    rc = lib.mamba_scan_bwd(*map(_ptr, (x, dt, A, B, C, hs, dy, dhT, dx, ddt, dA_part, dB_part,
-                                        dC_part, dh0)),
-                            b, s, c, n, ms.CHUNK, nblk, ms.DTYPES[x.dtype], None)
-    assert rc == 0
-    return (dx, ddt, dA_part.sum(0), dB_part.sum(1).to(B.dtype), dC_part.sum(1).to(C.dtype), dh0)
+    return ms.bwd_call(lib.mamba_scan_bwd, None, x, dt, A, B, C, hs, dy, dhT)
 
 
-@pytest.mark.parametrize("b,s,c,n,with_h0", CASES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_emulated_kernels_match_plain(lib, b, s, c, n, with_h0, dtype):
+def _check_against_plain(lib, b, s, c, n, with_h0, dtype, dt_dtype=None, bc_dtype=None):
     """K4 and K4-bwd against ``mamba_scan_plain`` and ``mamba_scan_bwd_plain``
-    at the card test's tolerances, and K4-bwd twice for the same bits."""
+    at the card test's tolerances (each output at its own dtype's), and
+    K4-bwd twice for the same bits.  x in ``dtype``, dt in ``dt_dtype`` and
+    B, C in ``bc_dtype`` (each ``dtype`` by default)."""
     g = torch.Generator().manual_seed(b * 1000 + s * 10 + c + n)
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=g) * scale
     x, dt = randn(b, s, c, scale=0.5).to(dtype), torch.nn.functional.softplus(randn(b, s, c))
     A, B, C = -torch.exp(randn(c, n, scale=0.2)), randn(b, s, n, scale=0.5), randn(b, s, n, scale=0.5)
-    dt, B, C = dt.to(dtype), B.to(dtype), C.to(dtype)
+    dt, B, C = dt.to(dt_dtype or dtype), B.to(bc_dtype or dtype), C.to(bc_dtype or dtype)
     h0 = randn(b, c, n, scale=0.5) if with_h0 else None
     dy, dhT = randn(b, s, c).to(dtype), randn(b, c, n)
 
@@ -110,6 +108,36 @@ def test_emulated_kernels_match_plain(lib, b, s, c, n, with_h0, dtype):
     for a, w in zip(grads, ms.mamba_scan_bwd_plain(x, dt, A, B, C, want[2], dy, dhT)):
         assert a.dtype == w.dtype
         torch.testing.assert_close(a.float(), w.float(), **TOL[a.dtype])
+
+
+@pytest.mark.parametrize("b,s,c,n,with_h0", CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_emulated_kernels_match_plain(lib, b, s, c, n, with_h0, dtype):
+    """The built sizes up to 16, one thread a channel, all inputs in one
+    dtype."""
+    _check_against_plain(lib, b, s, c, n, with_h0, dtype)
+
+
+f32, bf16 = torch.float32, torch.bfloat16
+# state sizes split over 2 and 4 lanes (32, 64), sizes between the built
+# ones (40, 5, 1: the extra states read as 0), and mixed input dtypes
+# (Mamba-2's fp32 dt beside bf16 x, B and C; fp32 x with bf16 dt; B and C
+# apart from x, which at 16 states with bf16 x runs on the 32-state
+# kernel): C ragged past the 32- and 64-channel blocks, S off the tiles
+# and chunks, with h0, and S = 1
+WIDE_CASES = [(1, 37, 70, 64, True, bf16, f32, bf16), (1, 45, 40, 32, True, bf16, f32, bf16),
+              (2, 24, 20, 40, True, bf16, f32, bf16), (1, 19, 9, 64, False, f32, f32, f32),
+              (1, 33, 36, 5, True, f32, bf16, f32), (2, 1, 70, 64, True, bf16, f32, bf16),
+              (1, 20, 12, 1, True, f32, f32, bf16), (1, 17, 66, 33, True, bf16, bf16, f32),
+              (1, 19, 40, 16, True, bf16, f32, f32)]
+
+
+@pytest.mark.parametrize("b,s,c,n,with_h0,dtype,dt_dtype,bc_dtype", WIDE_CASES)
+def test_emulated_wide_states_and_mixed_dtypes(lib, b, s, c, n, with_h0, dtype, dt_dtype,
+                                               bc_dtype):
+    """N = 32 and 64 on several lanes a channel, odd N on the next built
+    size, and each input in its own dtype (ddt back in dt's)."""
+    _check_against_plain(lib, b, s, c, n, with_h0, dtype, dt_dtype, bc_dtype)
 
 
 # the serving path's call: one step (S = 1) from a cached state h0, no
