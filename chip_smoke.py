@@ -7,8 +7,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 nvcc, checks in the library's SASS (``cuobjdump -sass``) that every
 instantiation of the bf16 K2 and K3 kernels issues tensor-core ``wgmma``
-(HGMMA) and TMA loads (UTMALDG) and that no instantiation of the scan
-kernels K4 and K4-bwd touches local memory (LDL, STL), and holds each
+(HGMMA) and TMA loads (UTMALDG), that no instantiation of K4, K4-bwd
+and the fp32 K2 and K3 touches local memory (LDL, STL) and that the fp32
+K2 issues tensor-core ``mma.sync`` (HMMA: its split TF32), and holds each
 kernel against its plain PyTorch version at the main paths' shapes and
 at edge shapes (and K4-bwd against itself: two runs, the same bits).
 Then, for each of the port's training paths, it trains the model
@@ -82,8 +83,9 @@ layers, prefilled over image-layout positions), with (b) for all but the
 MoE (its capacity drops differ by group size) and Whisper (its cross cache
 stays empty); (d) ``examples/serve_torch.py`` at its defaults.  Phase 2
 holds the decode shapes too: K1 at (4, 2048), K3 at 4 rows (64 experts of
-DeepSeek's widths, both matmuls, fp32 and bf16) and K4 at S = 1 with h0
-and no saved states (Falcon-Mamba's width, and Zamba2's at N = 64 with
+DeepSeek's widths, both matmuls, fp32 and bf16; the fp32 K3's forward,
+dx and dw also at DeepSeek's training shape beside ``torch.bmm``) and K4
+at S = 1 with h0 and no saved states (Falcon-Mamba's width, and Zamba2's at N = 64 with
 fp32 dt), each timed beside its bound and library call.  Phase 2 holds
 K4 and K4-bwd at Zamba2's SSD shape (4, 1024, 5120, 64) with bf16 x and
 fp32 dt too, at N = 32, 40, 64 and 5 at edge shapes, and K4-bwd twice
@@ -92,11 +94,11 @@ there for the same bits.
 The kernel phase runs K2 at every head dim the paths and configs give
 it — 64, 128, qwen3-1b's GQA, granite-20b's MQA, and 32 and 80, which
 run on a padded instantiation — each against its plain version and
-timed beside SDPA, and the fp32 K2 at head_dim 128 beside fp32 SDPA; K2
-at the encoder-decoder's and the VLM's shapes (``FLASH_PATHS``: ragged
-query blocks, non-causal keys past 1,000, GQA 28/4) in fp32 and bf16
-against its plain version and timed beside SDPA; and
-K2 with a sliding window (``FLASH_WINDOWS``: Zamba2's own call, windows
+timed beside SDPA, and the fp32 K2 (split TF32 on the tensor cores) at
+head dims 64 and 128 beside fp32 SDPA; K2 at the encoder-decoder's and
+the VLM's shapes (``FLASH_PATHS``: ragged query blocks, non-causal keys
+past 1,000, GQA 28/4) in fp32 and bf16 against its plain version and
+timed beside SDPA; and K2 with a sliding window (``FLASH_WINDOWS``: Zamba2's own call, windows
 of 1, 100 and 1000, a band at 8,192 tokens, GQA, non-causal, a query
 offset) in fp32 and bf16 against its plain version with the window, timed
 beside SDPA given the band as a boolean mask, its bound counted over the
@@ -273,6 +275,7 @@ GMM_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 5e-2)}
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 # exp on the special-function units: 16 per clock per SM, 132 SMs, at
 # the H100 SXM's 1.98 GHz boost clock
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
@@ -588,32 +591,37 @@ def phase_kernels(torch, F, fa, rn) -> dict:
         errors the checks above found there.  The bound counts the (query,
         key) pairs the mask leaves, at the true d (a padded d's MMA work, 80
         run as 128, shows as distance from it), and the bytes of q, k, v,
-        out and lse; fp32 K2 runs on the CUDA cores, so its bound takes the
-        fp32 rate."""
+        out and lse; fp32 K2's bound counts the work it issues, three TF32
+        products a product at the TF32 rate (its split TF32), and the
+        time of the same FLOPs at the fp32 FFMA rate is printed beside it."""
         q = randn((b, hq, sq, d), dt)
         k, v = (randn((b, hkv, skv, d), dt) for _ in range(2))
         pairs = b * hq * (sq * (sq + 1) // 2 if causal else sq * skv)
         n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + b * hq * sq * 4
-        rate = BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS
+        op_s = 4 * d * pairs / BF16_FLOPS if dt == torch.bfloat16 else \
+            3 * 4 * d * pairs / TF32_FLOPS
         timed = dict(
             ms=cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal=causal)),
             plain_ms=cuda_ms(torch, lambda: fa.flash_attention_fwd_plain(q, k, v, causal=causal)),
             library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=hq != hkv)),
-            **bound(n_bytes, 4 * d * pairs / rate))
+            **bound(n_bytes, op_s))
         case = (b, hq, hkv, sq, skv, d, causal)
-        timed["tflops"] = 4 * d * pairs / timed["ms"] / 1e9
+        tflops = 4 * d * pairs / timed["ms"] / 1e9
         if dt == torch.bfloat16:
+            timed["tflops"] = tflops
             timed["max_abs_err"], timed["max_abs_err_fp32_p"] = errs[case, "bfloat16"]
             if case in FLASH_PATHS:
                 timed["max_abs_err_fp32"] = errs[case, "float32"][0]
-        else:
+        else:       # the kernels line's fp32 rows keep measured numbers and the bound only
             timed["max_abs_err"] = errs[case, "float32"][0]
+        floor = "" if dt == torch.bfloat16 else \
+            f", the same FLOPs at the fp32 FFMA rate {4 * d * pairs / FP32_FLOPS * 1e3:.4f} ms"
         print(f"  flash {(b, f'{hq}/{hkv}', sq, skv, d)} {'causal' if causal else 'non-causal'} "
-              f"{str(dt)[6:]}: kernel {timed['ms']:.4f} ms ({timed['tflops']:.1f} TFLOP/s), "
+              f"{str(dt)[6:]}: kernel {timed['ms']:.4f} ms ({tflops:.1f} TFLOP/s), "
               f"plain {timed['plain_ms']:.4f} ms, SDPA {timed['library_ms']:.4f} ms "
               f"(kernel/SDPA {timed['ms'] / timed['library_ms']:.2f}x), bound "
-              f"{timed['bound_ms']:.4f} ms ({timed['bound_by']})", flush=True)
+              f"{timed['bound_ms']:.4f} ms ({timed['bound_by']}){floor}", flush=True)
         return timed
 
     # Qwen1.5's head_dim 64 first (the row's main numbers), then the rest
@@ -621,9 +629,11 @@ def phase_kernels(torch, F, fa, rn) -> dict:
     for (b, hq, hkv, sq, d), key in FLASH_TIMED.items():
         if key:
             results["flash_attention"][key] = flash_times(b, hq, hkv, sq, sq, d, True)
-    # the fp32 instantiation phase 3f's fp32 check launches
-    results["flash_attention"]["at_fp32_head_dim_128"] = flash_times(
-        BATCH, 16, 16, SEQ, SEQ, 128, True, torch.float32)
+    # the fp32 kernel (split TF32), which the paths' fp32 checks launch, at
+    # head dims 128 (qwen3-1b, DeepSeek, Qwen2-VL) and 64 (Whisper)
+    for d in (64, 128):
+        results["flash_attention"][f"at_fp32_head_dim_{d}"] = flash_times(
+            BATCH, 16, 16, SEQ, SEQ, d, True, torch.float32)
     for case, key in FLASH_PATHS.items():
         results["flash_attention"][key] = flash_times(*case)
     for case, key in FLASH_WINDOWS.items():
@@ -636,10 +646,17 @@ def phase_kernels(torch, F, fa, rn) -> dict:
 # 128, each exact and padded, each with and without a sliding window;
 # layouts)
 TC_KERNELS = {"flash_fwd_wgmma_kernel": 8, "moe_gmm_wgmma_kernel": 3}
-# the scan kernels, which must keep their state in registers and shared
-# memory, and their instantiations (x fp32 or bf16, dt fp32 or bf16, the
-# built state sizes 16, 32 and 64)
+# the kernels that must keep their state in registers and shared memory,
+# and their instantiations: the scans (x fp32 or bf16, dt fp32 or bf16,
+# the built state sizes 16, 32 and 64), the fp32 K3 (few rows: row tiles
+# 8, 16, 24, 32 x 3 layouts; tiles of 64 and 128 rows x 3 layouts x 16- or
+# 4-byte copies) and the fp32 K2 (head dims 64 and 128 x blocks of 64 and
+# 128 rows)
 SCAN_KERNELS = {"mamba_scan_fwd_kernel": 12, "mamba_scan_bwd_kernel": 12}
+LOCAL_FREE_KERNELS = {**SCAN_KERNELS, "gmm_few_rows_kernel": 12, "gmm_tile_kernel": 12,
+                      "flash_fwd_fp32_kernel": 4}
+# the kernels whose fp32 products are split TF32 on the tensor cores
+SPLIT_TF32_KERNELS = ("flash_fwd_fp32_kernel",)
 
 
 def cuobjdump() -> str:
@@ -662,11 +679,13 @@ def sass_check(lib: pathlib.Path) -> dict:
     instantiation of the bf16 tensor-core kernels in the built library's
     SASS, and fail if one is missing or has none of either; count local
     memory loads and stores (LDL, STL: spills or arrays the compiler could
-    not keep in registers) in each instantiation of the scan kernels, and
-    fail if one is missing or has any."""
+    not keep in registers) in each instantiation of ``LOCAL_FREE_KERNELS``
+    (the scans and the fp32 K2 and K3), and fail if one is missing or has
+    any; and fail if an instantiation of the fp32 K2 has no HMMA
+    (``mma.sync``: its products are split TF32 on the tensor cores)."""
     out = subprocess.run([cuobjdump(), "-sass", str(lib)], capture_output=True, text=True,
                          check=True, timeout=300).stdout
-    ops = ("HGMMA", "UTMALDG", "LDL", "STL")
+    ops = ("HGMMA", "UTMALDG", "HMMA", "LDL", "STL")
     counts, name = {}, None
     for line in out.splitlines():
         if "Function :" in line:
@@ -685,14 +704,19 @@ def sass_check(lib: pathlib.Path) -> dict:
             fail(f"SASS check: {kernel} has {len(mine)} of {n_inst} instantiations, "
                  f"counts {list(mine.values())}: each needs HGMMA and UTMALDG")
         found.update(mine)
-    for kernel, n_inst in SCAN_KERNELS.items():
+    for kernel, n_inst in LOCAL_FREE_KERNELS.items():
         mine = {k: v for k, v in counts.items() if kernel in k}
         local = {k: v["LDL"] + v["STL"] for k, v in mine.items()}
         print(f"  SASS {kernel}: {len(mine)} instantiations, local-memory accesses "
               f"{sorted(local.values())}", flush=True)
         if len(mine) != n_inst or any(local.values()):
             fail(f"SASS check: {kernel} has {len(mine)} of {n_inst} instantiations, local "
-                 f"loads and stores {local}: the scan must not use local memory")
+                 f"loads and stores {local}: the kernel must not use local memory")
+        if kernel in SPLIT_TF32_KERNELS:
+            hmma = sorted(v["HMMA"] for v in mine.values())
+            print(f"  SASS {kernel}: HMMA {hmma}", flush=True)
+            if not all(hmma):
+                fail(f"SASS check: {kernel} has an instantiation without HMMA ({hmma})")
         found.update(mine)
     return found
 
@@ -753,6 +777,8 @@ def phase_gmm_kernels(torch, mg, cfg) -> dict:
                 results["moe_gmm"] = {"max_abs_err": errs[0]}
                 results["moe_gmm_bwd"] = {"max_abs_err": max(errs[1:])}
                 timed = (x, w, dy)
+            if dt == torch.float32 and (e, m, k, n) == path[0]:
+                timed32, errs32 = (x, w, dy), errs
             del x, w, dy, y, dx, dw, want_dx, want_dw
     x, w, dy = timed
     e, m, k = x.shape
@@ -783,6 +809,39 @@ def phase_gmm_kernels(torch, mg, cfg) -> dict:
               f"{r['plain_ms']:.4f} ms, {lib} {lib_ms:.4f} ms (kernel/library "
               f"{r['ms'] / lib_ms:.2f}x), bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
               flush=True)
+    # the fp32 kernel (CUDA cores: tiles of 64 rows here) at the training shape,
+    # the forward beside torch.bmm and dx, dw beside a torch.bmm each (TF32
+    # off); the bound is the FFMAs at the fp32 rate
+    x, w, dy = timed32
+    io = x.element_size()
+    fwd32 = dict(max_abs_err=errs32[0], ms=cuda_ms(torch, lambda: mg.moe_gmm_fwd(x, w), reps=5),
+                 plain_ms=cuda_ms(torch, lambda: mg.moe_gmm_plain(x, w), reps=5),
+                 library_ms=cuda_ms(torch, lambda: torch.bmm(x, w), reps=5),
+                 **bound((x.numel() + w.numel() + e * m * n) * io, flops / FP32_FLOPS))
+    bwd32 = dict(
+        max_abs_err=max(errs32[1:]), ms=cuda_ms(torch, lambda: mg.moe_gmm_bwd(x, w, dy), reps=5),
+        plain_ms=cuda_ms(torch, lambda: mg.moe_gmm_bwd_plain(x, w, dy), reps=5),
+        library_ms=None,     # no single PyTorch call computes both dx and dw
+        two_bmm_ms=cuda_ms(torch, lambda: (torch.bmm(dy, w.transpose(1, 2)),
+                                           torch.bmm(x.transpose(1, 2), dy)), reps=5),
+        dx_ms=cuda_ms(torch, lambda: mg.moe_gmm_bwd(x, w, dy, need_dw=False), reps=5),
+        dw_ms=cuda_ms(torch, lambda: mg.moe_gmm_bwd(x, w, dy, need_dx=False), reps=5),
+        bmm_dx_ms=cuda_ms(torch, lambda: torch.bmm(dy, w.transpose(1, 2)), reps=5),
+        bmm_dw_ms=cuda_ms(torch, lambda: torch.bmm(x.transpose(1, 2), dy), reps=5),
+        **bound(2 * (x.numel() + w.numel()) * io + dy.numel() * io, 2 * flops / FP32_FLOPS))
+    key = f"at_fp32_{e}_{m}_{k}_{n}"
+    results["moe_gmm"][key], results["moe_gmm_bwd"][key] = fwd32, bwd32
+    print(f"  moe_gmm {(e, m, k, n)} float32: kernel {fwd32['ms']:.4f} ms "
+          f"({flops / fwd32['ms'] / 1e9:.1f} TFLOP/s), plain {fwd32['plain_ms']:.4f} ms, "
+          f"torch.bmm {fwd32['library_ms']:.4f} ms (kernel/library "
+          f"{fwd32['ms'] / fwd32['library_ms']:.2f}x), bound {fwd32['bound_ms']:.4f} ms "
+          f"({fwd32['bound_by']})", flush=True)
+    print(f"  moe_gmm_bwd {(e, m, k, n)} float32: kernel {bwd32['ms']:.4f} ms (dx "
+          f"{bwd32['dx_ms']:.4f}, dw {bwd32['dw_ms']:.4f}), plain {bwd32['plain_ms']:.4f} ms, two "
+          f"torch.bmm calls {bwd32['two_bmm_ms']:.4f} ms (dx {bwd32['bmm_dx_ms']:.4f}, dw "
+          f"{bwd32['bmm_dw_ms']:.4f}; kernel/library {bwd32['ms'] / bwd32['two_bmm_ms']:.2f}x), "
+          f"bound {bwd32['bound_ms']:.4f} ms ({bwd32['bound_by']})", flush=True)
+    del x, w, dy, timed32
     # the decode step's shapes, forward only (serving takes no gradient),
     # each timed in both dtypes beside torch.bmm; the bound is w's bytes
     for e, m, k, n in decode_gmm_shapes(cfg):
@@ -1771,8 +1830,8 @@ def phase_runtime_model(torch, cfg, timed: bool = True) -> dict:
     ``init`` (seed 0) on the card.  Held against ``train_loss``'s autograd
     on the same batch and weights (``RUNTIME_RTOL``), with exact K1 and K2
     launch counts (``runtime_launches``) and the replayed dispatch order
-    equal to the run's.  With ``timed``, the interpreted step and the plain
-    step are timed warm (median of 3).  Returns the launch counts and the
+    equal to the run's.  With ``timed``, one warm interpreted step and the
+    plain step (median of 3) are timed.  Returns the launch counts and the
     ledger peaks (bytes per logical device), each by policy."""
     from repro_torch import core, runtime
     from repro_torch.data import SyntheticTokenSource, TokenLoader
@@ -1838,10 +1897,9 @@ def phase_runtime_model(torch, cfg, timed: bool = True) -> dict:
                 f"({len(res.exec_order)} tasks); ledger peaks (GiB) {ledger_line(res)}; "
                 f"max_memory_allocated {peak / 2**30:.2f} GiB (all 8 logical devices on one "
                 "card: not comparable to a ledger peak)")
-        if timed:
-            ms = [event_ms(torch, lambda: ex.run(batch))[1] for _ in range(3)]
-            line += (f"; interpreted step {statistics.median(ms):.1f} ms (median of "
-                     f"{[round(m, 1) for m in ms]}), plain step {plain_ms:.1f} ms")
+        if timed:       # one warm step: the checked run above warmed it
+            ms = event_ms(torch, lambda: ex.run(batch))[1]
+            line += f"; interpreted step {ms:.1f} ms (warm), plain step {plain_ms:.1f} ms"
         print(line, flush=True)
         for name, err in errs.items():
             print(f"    {name:24s} {err:.3e}", flush=True)
@@ -2410,11 +2468,11 @@ def phase_lanes_model(torch, cfg, lanes=("spmd", "mpmd"), remats=("full", "none"
     interpreter runs twice first (the same bits: trap 5); each lane must
     then return the interpreter's loss and every gradient leaf bit for
     bit, launch K1 and K2 exactly ``runtime_launches`` times and run the
-    interpreter's order.  For the policies in ``timed``: the warm step
-    (median of 3) beside the interpreter's and the device's busy share
-    (torch.profiler); for every policy ``max_memory_allocated`` and the
-    bytes moved.  ``zero`` is the Strategy's ZeRO stage.  Returns the
-    launches by lane and policy."""
+    interpreter's order.  For the policies in ``timed``: a warm step
+    beside the interpreter's (the median of its two runs) and the
+    device's busy share (torch.profiler); for every policy
+    ``max_memory_allocated`` and the bytes moved.  ``zero`` is the
+    Strategy's ZeRO stage.  Returns the launches by lane and policy."""
     from repro_torch import core, runtime
     from repro_torch.data import SyntheticTokenSource, TokenLoader
     from repro_torch.kernels import ops
@@ -2452,13 +2510,10 @@ def phase_lanes_model(torch, cfg, lanes=("spmd", "mpmd"), remats=("full", "none"
         del again
         if diff:
             fail(f"3h {tag} remat={remat}: the interpreter is not reproducible on the card: {diff}")
-        ref_times = [ref_ms, again_ms]
-        if remat in timed:
-            ref_times.append(event_ms(torch, lambda: interp.run(batch))[1])
         print(f"  {tag} {cfg.name} {cfg.n_layers} layers {cfg.dtype}, {strategy.label()}: the "
-              f"interpreter twice, the same bits; step {statistics.median(ref_times):.1f} ms "
-              f"(median of {[round(m, 1) for m in ref_times]}), max_memory_allocated "
-              f"{ref_peak / 2**30:.2f} GiB", flush=True)
+              f"interpreter twice, the same bits; step {again_ms:.1f} ms (the second, warm; "
+              f"the first {ref_ms:.1f}), max_memory_allocated {ref_peak / 2**30:.2f} GiB",
+              flush=True)
         for lane in lanes:
             backend, _, transport = lane.partition("/")
             lane_opts = dict(opts, transport=transport) if transport else dict(opts)
@@ -2483,15 +2538,12 @@ def phase_lanes_model(torch, cfg, lanes=("spmd", "mpmd"), remats=("full", "none"
                     f"{peak / 2**30:.2f} GiB (the interpreter's {ref_peak / 2**30:.2f})")
             print(line, flush=True)
             res.grads = None
-            if remat in timed:
-                times = []
-                for _ in range(3):
-                    gc.collect()
-                    torch.cuda.empty_cache()
-                    times.append(event_ms(torch, lambda: ex.run(batch).loss)[1])
-                print(f"  {tag} {lane} remat {remat}: step {statistics.median(times):.1f} ms "
-                      f"(median of {[round(m, 1) for m in times]}) against the interpreter's "
-                      f"{statistics.median(ref_times):.1f}", flush=True)
+            if remat in timed:      # one warm step, then a profiled one
+                gc.collect()
+                torch.cuda.empty_cache()
+                warm = event_ms(torch, lambda: ex.run(batch).loss)[1]
+                print(f"  {tag} {lane} remat {remat}: step {warm:.1f} ms (warm) against the "
+                      f"interpreter's {again_ms:.1f} (warm)", flush=True)
                 step_profile(torch, f"{lane} step, remat {remat}", lambda: ex.run(batch).loss)
             getattr(ex, "close", lambda: None)()
             counts[f"3h {lane}, remat {remat}"] = launched
@@ -2836,7 +2888,11 @@ def phase_elastic_model(torch, cfg) -> dict:
     real_reshard = elastic.reshard_tree
     with tempfile.TemporaryDirectory(prefix="chip_smoke_elastic_model_") as tmp:
         free = shutil.disk_usage(tmp).free
-        ckpt = CheckpointManager(tmp, keep=m["keep"], async_save=False)
+        # asynchronous saves: the supervisor waits for the write before a
+        # restore, so the run restores what it would have synchronously,
+        # and a save costs its host copy, not the copy, sha256 and write
+        # (7.7-8.6 s each at 12 layers, ROADMAP Queue 2)
+        ckpt = CheckpointManager(tmp, keep=m["keep"], async_save=True)
         ckpt.save, ckpt.restore = timing("save", ckpt.save), timing("restore", ckpt.restore)
         elastic.reshard_tree = timing("reshard", real_reshard)
         try:
@@ -2854,6 +2910,7 @@ def phase_elastic_model(torch, cfg) -> dict:
             wall = time.perf_counter() - t0
             launched = {k: v for k, v in ops.launch_counts().items() if v}
             peak = torch.cuda.max_memory_allocated()
+            ckpt.wait()
             on_disk = {s: sum(f.stat().st_size for f in ckpt.step_dir(s).iterdir())
                        for s in ckpt.steps()}
         finally:
@@ -2875,7 +2932,8 @@ def phase_elastic_model(torch, cfg) -> dict:
           f"recovery {r.recovery_seconds:.2f} s (recompile {r.compile_seconds:.2f} s); slot "
           f"{m['kill_rank']} back at step {g.step}, world {g.old_world}->{g.new_world} (grew "
           f"{g.grown_axis}, plan cache hit {g.cache_hit}, {g.recovery_seconds:.2f} s)", flush=True)
-    print(f"  (b) checkpoints: saves {[round(t, 2) for t in timed['save']]} s, restores "
+    print(f"  (b) checkpoints: saves {[round(t, 2) for t in timed['save']]} s (asynchronous: "
+          f"the host copy), restores "
           f"{[round(t, 2) for t in timed['restore']]} s, reshards "
           f"{[round(t, 2) for t in timed['reshard']]} s, {gb(max(on_disk.values()))} a "
           f"checkpoint on disk ({len(on_disk)} kept, {free / 1e9:.1f} GB free before); "
@@ -3813,19 +3871,39 @@ def check_one_rank_cell(one: dict, summary_a: dict, tag: str, peak_rtol=None) ->
              f"{summary_a['peak_gib']:.2f} GiB")
 
 
-def phase_dryrun(torch, deepseek, summary_a: dict) -> dict:
-    """(c) both dry-run cells in subprocesses at once (each its own fake
-    world of 1 or 256 ranks): the one-rank cell's
-    ``argument_size_in_bytes`` must equal (a)'s placed state and batch;
-    its peak prints beside (a)'s ``max_memory_allocated``."""
-    one, pod = run_dryruns(dryrun_cells(deepseek), "(c)")
+def phase_dryrun(torch, dry: list, summary_a: dict) -> dict:
+    """(c) both dry-run cells (``start_dryruns``' processes of
+    ``dryrun_cells``, each its own fake world of 1 or 256 ranks): the
+    one-rank cell's ``argument_size_in_bytes`` must equal (a)'s placed
+    state and batch; its peak prints beside (a)'s
+    ``max_memory_allocated``."""
+    one, pod = run_dryruns(dry, "(c)")
     check_one_rank_cell(one, summary_a, "(c)")
     return {"single": one, "pod1": pod}
 
 
 def phase_production(torch, deepseek, qwen3, none: dict, step_3c: float, peak_3c: int) -> tuple:
-    """Phase 3n: (a)-(c) in a one-rank NCCL world, destroyed at the end."""
+    """Phase 3n: (a)-(b) in a one-rank NCCL world, destroyed at the end;
+    (c)'s dry runs take the host's other cores meanwhile, as 3o's do."""
     t0 = time.perf_counter()
+    dry = start_dryruns(dryrun_cells(deepseek))
+    try:
+        summary, counts = phase_production_steps(torch, deepseek, qwen3, none, step_3c,
+                                                 peak_3c)
+        summary["c"] = phase_dryrun(torch, dry, summary["a"])
+    finally:
+        for _, _, proc in dry:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    summary["seconds"] = time.perf_counter() - t0
+    print(f"  phase 3n took {summary['seconds']:.1f} s", flush=True)
+    return {path: {**none, **launched} for path, launched in counts.items()}, summary
+
+
+def phase_production_steps(torch, deepseek, qwen3, none: dict, step_3c: float,
+                           peak_3c: int) -> tuple:
+    """3n (a) and (b): (summaries, launches by path)."""
     with one_rank_world(torch):
         counts, summary = phase_sharded_train(torch, deepseek, none, step_3c, peak_3c)
         gc.collect()
@@ -3847,11 +3925,7 @@ def phase_production(torch, deepseek, qwen3, none: dict, step_3c: float, peak_3c
         counts.update(served)
         gc.collect()
         torch.cuda.empty_cache()
-    summary = {"a": summary, "a_grouped": summary_g, "b": summary_b,
-               "c": phase_dryrun(torch, deepseek, summary)}
-    summary["seconds"] = time.perf_counter() - t0
-    print(f"  phase 3n took {summary['seconds']:.1f} s", flush=True)
-    return {path: {**none, **launched} for path, launched in counts.items()}, summary
+    return {"a": summary, "a_grouped": summary_g, "b": summary_b}, counts
 
 
 
@@ -4214,12 +4288,17 @@ def main() -> int:
             "mamba_scan_bwd": ("mamba_scan.cuh", "src/repro/kernels/mamba_scan.py:43"),
             "moe_gmm": ("moe_gmm.cu", "src/repro/kernels/moe_gmm.py:19"),
             "moe_gmm_bwd": ("moe_gmm.cu", "src/repro/kernels/moe_gmm.py:19")}
+    # the fp32 instantiations' own sources (their rows are the at_fp32_* keys)
+    fp32_sources = {"flash_attention": "flash_attention_fp32.cu", "moe_gmm": "moe_gmm_fp32.cu",
+                    "moe_gmm_bwd": "moe_gmm_fp32.cu"}
     kernels = []
     for name, (source, replaces) in meta.items():
         r = results[name]
         by_path = {arch: c[name] for arch, c in counts.items() if c[name]}
         kernels.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/kernels/csrc/{source}",
+                        **({"fp32_source": f"src/repro_torch/kernels/csrc/{fp32_sources[name]}"}
+                           if name in fp32_sources else {}),
                         "replaces": replaces, "launches": sum(by_path.values()),
                         "launches_by_path": by_path,
                         **({"cost_model_calls": chunk_calls[name]} if name in chunk_calls

@@ -1,0 +1,110 @@
+"""A set of kernels of two checkouts timed in turns on one card.
+
+Usage (on a machine with a CUDA card, from the root of a checkout):
+
+    python3 scripts/kernel_ab.py {k4,fp32} OTHER_CHECKOUT
+
+Times the set's kernels in OTHER_CHECKOUT and in this one, in turns:
+other, this, this, other.  Each turn is a subprocess that builds its
+checkout's kernels and times them with CUDA events, on the same inputs
+from the same seed.  Prints the card's name and power limit, then one
+line a turn, in microseconds.  The sets:
+
+- ``k4``: the scan kernels at Falcon-Mamba-7B's training shape (4, 1024,
+  8192, 16) in bf16 (the forward saving its chunk states, the backward)
+  and at its decode step (S = 1 from a cached state).
+- ``fp32``: the kernels that run fp32 inputs, beside the PyTorch call
+  computing the same function (fp32 SDPA, ``torch.bmm`` with TF32 off):
+  K2 at (4, 16, 1024, D) causal for D = 64 and 128, and K3 at
+  DeepSeek-MoE-16B's decode shapes (64 experts x 4 rows: (2048 -> 1408)
+  and (1408 -> 2048)) and its training shape (64 x 448 rows, 2048 ->
+  1408: the forward, dx and dw)."""
+import json
+import os
+import subprocess
+import sys
+
+PRELUDE = r'''
+import json, sys
+sys.path.insert(0, sys.argv[1] + "/src")
+import torch
+import torch.nn.functional as F
+from repro_torch.kernels import _build
+torch.backends.cuda.matmul.allow_tf32 = False
+_build.build()
+def us_of(fn, reps=20):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps * 1e3
+'''
+
+SETS = {"k4": r'''
+from repro_torch.kernels import mamba_scan as ms
+g = torch.Generator(device="cuda").manual_seed(7)
+b, s, c, n = 4, 1024, 8192, 16
+def randn(shape, scale=1.0):
+    return torch.randn(shape, generator=g, device="cuda") * scale
+x = randn((b, s, c), 0.5).bfloat16()
+dt = torch.nn.functional.softplus(randn((b, s, c))).bfloat16()
+A = -torch.exp(randn((c, n), 0.2))
+B, C = randn((b, s, n), 0.5).bfloat16(), randn((b, s, n), 0.5).bfloat16()
+h0 = randn((b, c, n), 0.5)
+_, _, hs = ms.mamba_scan_fwd(x, dt, A, B, C, save_states=True)
+dy = torch.randn(x.shape, device="cuda").bfloat16()
+x1, dt1, B1, C1 = (t[:, :1].contiguous() for t in (x, dt, B, C))
+out = {"fwd": us_of(lambda: ms.mamba_scan_fwd(x, dt, A, B, C, save_states=True)),
+       "bwd": us_of(lambda: ms.mamba_scan_bwd(x, dt, A, B, C, hs, dy)),
+       "decode": us_of(lambda: ms.mamba_scan_fwd(x1, dt1, A, B1, C1, h0))}
+''', "fp32": r'''
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import moe_gmm as mg
+g = torch.Generator(device="cuda").manual_seed(11)
+def randn(*shape, scale=1.0):
+    return torch.randn(shape, generator=g, device="cuda") * scale
+out = {}
+for d in (64, 128):
+    q, k, v = (randn(4, 16, 1024, d) for _ in range(3))
+    out[f"k2_d{d}"] = us_of(lambda: fa.flash_attention_fwd(q, k, v, causal=True))
+    out[f"sdpa_d{d}"] = us_of(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+for e, m, k_, n in ((64, 4, 2048, 1408), (64, 4, 1408, 2048)):
+    x, w = randn(e, m, k_), randn(e, k_, n, scale=k_ ** -0.5)
+    out[f"k3_decode_{k_}_{n}"] = us_of(lambda: mg.moe_gmm_fwd(x, w))
+    out[f"bmm_decode_{k_}_{n}"] = us_of(lambda: torch.bmm(x, w))
+x, w, dy = randn(64, 448, 2048), randn(64, 2048, 1408, scale=2048 ** -0.5), randn(64, 448, 1408)
+out["k3_train_fwd"] = us_of(lambda: mg.moe_gmm_fwd(x, w), reps=5)
+out["bmm_train_fwd"] = us_of(lambda: torch.bmm(x, w), reps=5)
+out["k3_train_dx"] = us_of(lambda: mg.moe_gmm_bwd(x, w, dy, need_dw=False), reps=5)
+out["bmm_train_dx"] = us_of(lambda: torch.bmm(dy, w.transpose(1, 2)), reps=5)
+out["k3_train_dw"] = us_of(lambda: mg.moe_gmm_bwd(x, w, dy, need_dx=False), reps=5)
+out["bmm_train_dw"] = us_of(lambda: torch.bmm(x.transpose(1, 2), dy), reps=5)
+'''}
+
+
+def main() -> int:
+    if len(sys.argv) != 3 or sys.argv[1] not in SETS:
+        print(__doc__, file=sys.stderr)
+        return 2
+    child = PRELUDE + SETS[sys.argv[1]] + "print(json.dumps(out))\n"
+    other = os.path.abspath(sys.argv[2])
+    this = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    for name, root in (("other", other), ("this", this), ("this", this), ("other", other)):
+        out = subprocess.run([sys.executable, "-c", child, root], capture_output=True,
+                             text=True, check=True).stdout.strip().splitlines()[-1]
+        times = json.loads(out)
+        print(name, {k: round(v, 2) for k, v in times.items()}, "us", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

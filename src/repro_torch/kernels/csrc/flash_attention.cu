@@ -25,13 +25,14 @@
 // Head dims: every D with D % 8 == 0 and 8 <= D <= 128.  Each kernel is
 // instantiated at DPAD = 64 and 128 and runs a D on the next of the two:
 // the columns D..DPAD-1 of q, k and v are zeros (the bf16 tensor maps have
-// D columns and zero-fill the rest of each 64-column box; the fp32 kernel
-// fills them itself), so they add nothing to q k^T and give zero output
-// columns, which are not stored.  A padded D pays DPAD's matmul work (80
-// runs as 128).  D % 8 == 0 keeps TMA's global row stride a multiple of
-// 16 bytes.  The bf16 kernel keeps D = 64 and 128 on instantiations of
-// their own (kPad false): sharing the padded one's runtime row stride and
-// column test made them a few per cent slower on the H100.
+// D columns and zero-fill the rest of each 64-column box; the fp32
+// kernel's copies zero-fill them), so they add nothing to q k^T and give
+// zero output columns, which are not stored.  A padded D pays DPAD's
+// matmul work (80 runs as 128).  D % 8 == 0 keeps TMA's global row stride
+// a multiple of 16 bytes.  The bf16 kernel keeps D = 64 and 128 on
+// instantiations of their own (kPad false): sharing the padded one's
+// runtime row stride and column test made them a few per cent slower on
+// the H100.
 //
 // Bound on the H100: at the training shapes (S = 1024, causal) the bytes
 // of q, k, v, out and lse bound the call (10.1 us at D = 64, 20.1 us at
@@ -62,147 +63,24 @@
 // the fp32 P, so lse keeps the fp32 tolerance.  The plain version
 // (flash_attention_fwd_plain) repeats both for bf16 inputs.
 //
-// fp32: the CUDA-core kernel (flash_fwd_kernel), kept because tensor
-// cores take fp32 only as TF32, which would break the fp32 tolerance.  q
-// is scaled after its fp32 cast, as the TPU kernel does.  A block holds
-// BQ = 64 query rows with 4 threads per row (each owns D/4 interleaved
-// dims of q and of the accumulator, in registers), stages BK = 32 keys and
-// values in shared memory, and reduces each score across its 4 threads
-// with two shuffles.  Rows of q, k, v and out are D long; the thread's
-// DPAD/4 dims past D are zeros in registers and in the shared tiles.
+// fp32 runs in flash_attention_fp32.cu (flash_attention_fwd_fp32), which
+// the entry point below calls for dtype 0: each fp32 product there is three
+// TF32 products on the tensor cores (split TF32), since TF32 alone would
+// break the fp32 tolerance.  q is scaled after its fp32 cast there, as the
+// TPU kernel does.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "hopper.cuh"
 
+extern "C" int flash_attention_fwd_fp32(const void* q, const void* k, const void* v, void* o,
+                                        void* lse, int b, int hq, int hkv, int sq, int skv,
+                                        int d, int causal, int q_offset, int window,
+                                        float scale, int rows, void* stream);
+
 namespace {
 
-constexpr int kBQ = 64;       // query rows per block
-constexpr int kBK = 32;       // keys per shared-memory tile
-constexpr int kTPR = 4;       // threads per query row
-constexpr int kThreads = kBQ * kTPR;
 constexpr float kNegInf = -1e30f;
-
-// The CUDA-core kernels are instantiated for fp32 only (bf16 takes the
-// tensor-core kernel below).
-__device__ __forceinline__ float to_f(float x) { return x; }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                 int hq, int hkv, int sq, int skv, int d, int causal, int q_offset,
-                 int window, float scale) {
-  // D is the padded head dim (shared tiles and registers), d <= D the true one
-  constexpr int DP = D / kTPR;  // dims owned by one thread
-  __shared__ T ks[kBK * D];
-  __shared__ T vs[kBK * D];
-
-  const int tid = threadIdx.x;
-  const int r = tid / kTPR, part = tid % kTPR;
-  const int bh = blockIdx.y;
-  const int b = bh / hq, h = bh % hq;
-  const int n_rep = hq / hkv;
-  const int q0 = blockIdx.x * kBQ;
-  const int qi = q0 + r;
-  const bool row_ok = qi < sq;
-  const int qpos = qi + q_offset;
-
-  const size_t qbase = (static_cast<size_t>(bh) * sq + (row_ok ? qi : 0)) * d;
-  const size_t kvbase = static_cast<size_t>(b * hkv + h / n_rep) * skv * d;
-
-  float qr[DP], acc[DP];
-#pragma unroll
-  for (int i = 0; i < DP; ++i) {
-    const int col = i * kTPR + part;
-    qr[i] = col < d ? to_f(q[qbase + col]) * scale : 0.f;
-    acc[i] = 0.f;
-  }
-  float m = kNegInf, l = 0.f;
-
-  // Causal: no row of this block sees a key past q0 + kBQ - 1 + q_offset.
-  int kv_end = skv;
-  if (causal) kv_end = min(skv, q0 + kBQ + q_offset);
-  // Window: no row of this block sees a key below q0 + q_offset - window + 1.
-  const int kv_begin = window > 0 ? max(0, q0 + q_offset - window + 1) / kBK * kBK : 0;
-
-  for (int k0 = kv_begin; k0 < kv_end; k0 += kBK) {
-    __syncthreads();  // previous tile fully consumed
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int kp = k0 + e / D, col = e % D;
-      const bool in = kp < skv && col < d;
-      const size_t src = kvbase + static_cast<size_t>(kp) * d + col;
-      ks[e] = in ? k[src] : from_f<T>(0.f);
-      vs[e] = in ? v[src] : from_f<T>(0.f);
-    }
-    __syncthreads();
-
-    float s[kBK];
-    float mt = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kBK; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int i = 0; i < DP; ++i) dot += qr[i] * to_f(ks[j * D + i * kTPR + part]);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      const int kp = k0 + j;
-      const bool ok =
-          kp < skv && (!causal || kp <= qpos) && (window <= 0 || kp > qpos - window);
-      s[j] = ok ? dot : kNegInf;
-      mt = fmaxf(mt, s[j]);
-    }
-    const float m_new = fmaxf(m, mt);
-    const float corr = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBK; ++j) {
-      s[j] = expf(s[j] - m_new);
-      psum += s[j];
-    }
-    l = l * corr + psum;
-#pragma unroll
-    for (int i = 0; i < DP; ++i) acc[i] *= corr;
-#pragma unroll
-    for (int j = 0; j < kBK; ++j) {
-#pragma unroll
-      for (int i = 0; i < DP; ++i) acc[i] += s[j] * to_f(vs[j * D + i * kTPR + part]);
-    }
-    m = m_new;
-  }
-
-  if (row_ok) {
-    const float denom = fmaxf(l, 1e-30f);
-#pragma unroll
-    for (int i = 0; i < DP; ++i) {
-      const int col = i * kTPR + part;
-      if (col < d) o[qbase + col] = from_f<T>(acc[i] / denom);
-    }
-    if (part == 0) lse[static_cast<size_t>(bh) * sq + qi] = m + logf(denom);
-  }
-}
-
-int launch_fp32(const void* q, const void* k, const void* v, void* o, void* lse, int b,
-                int hq, int hkv, int sq, int skv, int d, int causal, int q_offset, int window,
-                float scale, cudaStream_t s) {
-  const dim3 grid((sq + kBQ - 1) / kBQ, b * hq), block(kThreads);
-  const float* qp = static_cast<const float*>(q);
-  const float* kp = static_cast<const float*>(k);
-  const float* vp = static_cast<const float*>(v);
-  float* op = static_cast<float*>(o);
-  float* lp = static_cast<float*>(lse);
-  if (d <= 64) {
-    flash_fwd_kernel<float, 64><<<grid, block, 0, s>>>(qp, kp, vp, op, lp, hq, hkv, sq, skv,
-                                                       d, causal, q_offset, window, scale);
-  } else {
-    flash_fwd_kernel<float, 128><<<grid, block, 0, s>>>(qp, kp, vp, op, lp, hq, hkv, sq, skv,
-                                                        d, causal, q_offset, window, scale);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---- bf16 on the tensor cores
 
@@ -451,8 +329,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); d % 8 == 0
-// and 8 <= d <= 128.  window: the sliding window W (0 = none).  bf16 needs
+// dtype: 0 = float32 (split TF32), 1 = bfloat16 (wgmma); d % 8 == 0
+// and 8 <= d <= 128.  window: the sliding window W (0 = none).  Both need
 // 16-byte aligned q, k, v and out.  Returns cudaGetLastError() after the
 // launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
@@ -464,8 +342,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_fp32(q, k, v, o, lse, b, hq, hkv, sq, skv, d, causal, q_offset, window,
-                       scale, s);
+    return flash_attention_fwd_fp32(q, k, v, o, lse, b, hq, hkv, sq, skv, d, causal, q_offset,
+                                    window, scale, 0, stream);
   if (dtype == 1)
     return launch_bf16(q, k, v, o, lse, b, hq, hkv, sq, skv, d, causal, q_offset, window,
                        scale, s);

@@ -1,26 +1,29 @@
 """K2: FlashAttention-2 forward, hand-written CUDA for Hopper.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
-(``_flash_fwd_kernel`` / ``flash_attention_fwd_pallas``).  Source:
-``csrc/flash_attention.cu``.  Unlike the TPU kernel it also returns the
-row logsumexp, so the backward needs no second forward, and it takes
-the sliding window of the JAX package's ``_blk_mask`` (a key is visible
-when ``kpos > qpos - window``), which the JAX package computes in its
-jnp reference only.  Ragged Sq and Skv are taken, and every head dim D
-with D % 8 == 0 and 8 <= D <= 128: each kernel is built for D = 64 and
+(``_flash_fwd_kernel`` / ``flash_attention_fwd_pallas``).  Sources:
+``csrc/flash_attention.cu`` (bf16, and the C entry point) and
+``csrc/flash_attention_fp32.cu`` (fp32).  Unlike the TPU kernel it also
+returns the row logsumexp, so the backward needs no second forward, and
+it takes the sliding window of the JAX package's ``_blk_mask`` (a key is
+visible when ``kpos > qpos - window``), which the JAX package computes in
+its jnp reference only.  Ragged Sq and Skv are taken, and every head dim
+D with D % 8 == 0 and 8 <= D <= 128: each kernel is built for D = 64 and
 128 and runs a D on the next of the two, with the columns past D read as
 zeros (``head_dim_refusal``).
 
-Two hand-written kernels, chosen by dtype: bf16 runs on the tensor cores
-(``wgmma`` fed by TMA), fp32 on the CUDA cores (tensor cores would take
-fp32 only as TF32).  ``tc_refusal`` holds the rules under which the bf16
-kernel takes a call; one it does not take raises.  The bf16 kernel
-rounds P to bf16 before P.v and scales S after the product, and
-``flash_attention_fwd_plain`` repeats both for bf16 inputs.
+Two hand-written kernels, chosen by dtype, both on the tensor cores: bf16
+by ``wgmma`` fed by TMA, fp32 by ``mma.sync`` with each fp32 product split
+into three TF32 products (TF32 alone would break the fp32 tolerance), K
+and V through a ``cp.async`` ring.  ``tc_refusal`` holds the rules under
+which the bf16 kernel takes a call; one it does not take raises.  The
+bf16 kernel rounds P to bf16 before P.v and scales S after the product,
+and ``flash_attention_fwd_plain`` repeats both for bf16 inputs.
 
 ``flash_attention_fwd`` launches a kernel on CUDA tensors and uses the
 plain PyTorch version ``flash_attention_fwd_plain`` on CPU tensors and on
-meta tensors (shapes only, as the IR's tracing runs it).
+meta tensors (shapes only, as the IR's tracing runs it).  ``fwd_call``
+holds the work around the C call (the CPU emulation test calls it too).
 ``launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -35,6 +38,7 @@ from . import _build
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PADDED_HEAD_DIMS = (64, 128)   # the kernels' instantiations
 TC_ROWS = 128            # query rows per block of the bf16 kernel
+FP32_ROWS = 64           # the fewest query rows a block of the fp32 kernel takes
 GRID_Y = 65535           # CUDA's limit on gridDim.y
 
 launches = 0
@@ -66,8 +70,8 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = True, q_offset: int = 0
                               window: int | None = None):
     """The kernels' arithmetic in plain PyTorch: masked scores at -1e30
     (causal, and with a window every key at or below ``qpos - window``),
-    softmax in fp32.  fp32 (the CUDA-core kernel): q cast to fp32 and
-    scaled before the product.  bf16 (the tensor-core kernel): the scale
+    softmax in fp32.  fp32 (the split-TF32 kernel): q cast to fp32 and
+    scaled before the product.  bf16 (the wgmma kernel): the scale
     multiplies the fp32 product, and P is rounded to bf16 before P.v while
     l sums the fp32 P.  Returns (out, lse)."""
     _check(q, k, v, causal, q_offset, window)
@@ -107,12 +111,16 @@ def tc_refusal(q_shape) -> str | None:
     wrapper's checks of devices, dtypes and k's shape.  D follows
     ``head_dim_refusal``, and gridDim.y counts blocks of ``TC_ROWS`` query
     rows."""
+    return _grid_refusal(q_shape, TC_ROWS)
+
+
+def _grid_refusal(q_shape, rows: int) -> str | None:
     d, sq = q_shape[3], q_shape[2]
     why = head_dim_refusal(d)
     if why:
         return why
-    if -(-sq // TC_ROWS) > GRID_Y:
-        return f"Sq = {sq} needs more than {GRID_Y} blocks of {TC_ROWS} query rows"
+    if -(-sq // rows) > GRID_Y:
+        return f"Sq = {sq} needs more than {GRID_Y} blocks of {rows} query rows"
     return None
 
 
@@ -141,26 +149,28 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0,
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPES:
         raise TypeError(f"flash attention kernel: q {q.dtype}, k {k.dtype}, v {v.dtype} "
                         "must share one dtype of float32 / bfloat16")
+    why = tc_refusal(q.shape) if q.dtype == torch.bfloat16 else _grid_refusal(q.shape,
+                                                                               FP32_ROWS)
+    if why:
+        raise ValueError(f"flash attention kernel: {why}")
+    q, k, v = _build.aligned(q), _build.aligned(k), _build.aligned(v)
+    out, lse = fwd_call(_lib(), torch.cuda.current_stream(q.device).cuda_stream, q, k, v,
+                        causal=causal, q_offset=q_offset, window=window)
+    _build.count_launch(globals(), "launches")
+    return out, lse
+
+
+def fwd_call(fn, stream, q, k, v, *, causal: bool, q_offset: int, window: int | None):
+    """The forward by the C call ``fn`` (``flash_attention_fwd``'s
+    signature) on ``stream`` (a pointer), on contiguous, 16-byte aligned
+    q, k, v: (out in q's dtype, lse fp32 (B, Hq, Sq))."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    if q.dtype == torch.bfloat16:
-        why = tc_refusal(q.shape)
-        if why:
-            raise ValueError(f"flash attention kernel: {why}")
-        q, k, v = _build.aligned(q), _build.aligned(k), _build.aligned(v)
-    else:
-        why = head_dim_refusal(d)
-        if why:
-            raise ValueError(f"flash attention kernel: {why}")
-        if b * hq > 65535:
-            raise ValueError(f"flash attention kernel: B*Hq = {b * hq} exceeds the grid")
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                b, hq, hkv, sq, skv, d, int(causal), q_offset, window or 0, d ** -0.5,
-                DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            b, hq, hkv, sq, skv, d, int(causal), q_offset, window or 0, d ** -0.5,
+            DTYPES[q.dtype], stream)
     if rc:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {rc}")
-    _build.count_launch(globals(), "launches")
     return out, lse

@@ -2,24 +2,29 @@
 hand-written CUDA for Hopper.
 
 Replaces the Pallas TPU kernel ``repro/kernels/moe_gmm.py``
-(``_gmm_kernel`` / ``moe_gmm_pallas``).  Source: ``csrc/moe_gmm.cu``,
-one kernel for three operand layouts: the forward ``y[e] = x[e] @ w[e]``
+(``_gmm_kernel`` / ``moe_gmm_pallas``).  Sources: ``csrc/moe_gmm.cu``
+(bf16, and the C entry point) and ``csrc/moe_gmm_fp32.cu`` (fp32), one
+kernel for three operand layouts: the forward ``y[e] = x[e] @ w[e]``
 and the backward's ``dx[e] = dy[e] @ w[e].T`` and ``dw[e] = x[e].T @
 dy[e]``, which the TPU kernel does not have.  Accumulation is fp32 and
 every output takes the inputs' dtype.
 
 At the DeepSeek-MoE-16B training shape a call does 165 GFLOP over 567
-MB, at the ridge of the H100's roofline (~0.17 ms either way).  Two
-hand-written kernels, chosen by dtype: bf16 runs on the tensor cores
+MB, at the ridge of the H100's roofline in bf16 (~0.17 ms either way).
+Hand-written kernels chosen by dtype: bf16 runs on the tensor cores
 (``wgmma`` fed by TMA; the three layouts are descriptor bits), fp32 on
 the CUDA cores (tensor cores would take fp32 only as TF32) and takes any
-shape.  ``tc_refusal`` holds the rules under which the bf16 kernel takes
+shape: at M <= 32 rows (the decode step) a kernel that streams w once at
+the bytes' pace, above it tiles of 64 or 128 rows by 128 columns fed by a
+``cp.async`` ring.  ``tc_refusal`` holds the rules under which the bf16 kernel takes
 a call; one it does not take raises.
 
 ``moe_gmm_fwd`` and ``moe_gmm_bwd`` launch the kernel on CUDA tensors
 and use the plain PyTorch versions ``moe_gmm_plain`` and
-``moe_gmm_bwd_plain`` on CPU or meta tensors.  ``launches`` and
-``bwd_launches`` count kernel launches.
+``moe_gmm_bwd_plain`` on CPU or meta tensors.  ``fwd_call`` and
+``bwd_call`` hold the work around the C call (the CPU emulation test
+calls them too).  ``launches`` and ``bwd_launches`` count kernel
+launches.
 """
 from __future__ import annotations
 
@@ -100,13 +105,46 @@ def _fn():
     return fn
 
 
-def _launch(a, b, c, m, n, k, trans_a, trans_b):
-    """c (E, m, n) = op(a) @ op(b) per expert, on the card."""
-    rc = _fn()(a.data_ptr(), b.data_ptr(), c.data_ptr(), c.shape[0], m, n, k,
-               int(trans_a), int(trans_b), DTYPES[c.dtype],
-               torch.cuda.current_stream(c.device).cuda_stream)
+def _launch(fn, stream, a, b, c, m, n, k, trans_a, trans_b):
+    """c (E, m, n) = op(a) @ op(b) per expert by the C call ``fn``."""
+    rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), c.shape[0], m, n, k,
+            int(trans_a), int(trans_b), DTYPES[c.dtype], stream)
     if rc:
         raise RuntimeError(f"moe_gmm kernel launch failed: CUDA error {rc}")
+
+
+def fwd_call(fn, stream, x, w):
+    """The forward by the C call ``fn`` (``moe_gmm``'s signature) on
+    ``stream`` (a pointer): y (E, M, N) in x's dtype, launched only if it
+    has elements."""
+    e, m, k = x.shape
+    n = w.shape[2]
+    y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
+    if y.numel():
+        _launch(fn, stream, x, w, y, m, n, k, False, False)
+    return y
+
+
+def bwd_call(fn, stream, x, w, dy, need_dx: bool = True, need_dw: bool = True):
+    """The backward's two products by the C call ``fn``: dx = dy @ w^T (the
+    layout with B k-contiguous) and dw = x^T @ dy (A m-contiguous), each
+    None where not asked for and launched only if it has elements."""
+    e, m, k = x.shape
+    n = w.shape[2]
+    dx = dw = None
+    if need_dx:
+        dx = torch.empty_like(x)
+        if dx.numel():
+            _launch(fn, stream, dy, w, dx, m, k, n, False, True)
+    if need_dw:
+        dw = torch.empty_like(w)
+        if dw.numel():
+            _launch(fn, stream, x, dy, dw, k, n, m, True, False)
+    return dx, dw
+
+
+def _stream(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def moe_gmm_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -114,11 +152,8 @@ def moe_gmm_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if _build.takes_plain(x, w):
         return moe_gmm_plain(x, w)
     x, w = _admit(x, w)
-    e, m, k = x.shape
-    n = w.shape[2]
-    y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
+    y = fwd_call(_fn(), _stream(x), x, w)
     if y.numel():
-        _launch(x, w, y, m, n, k, False, False)
         _build.count_launch(globals(), "launches")
     return y
 
@@ -133,15 +168,8 @@ def moe_gmm_bwd(x, w, dy, need_dx: bool = True, need_dw: bool = True):
     n = w.shape[2]
     if dy.shape != (e, m, n):
         raise ValueError(f"moe_gmm kernel: dy {tuple(dy.shape)} must be ({e}, {m}, {n})")
-    dx = dw = None
-    if need_dx:
-        dx = torch.empty_like(x)
-        if dx.numel():
-            _launch(dy, w, dx, m, k, n, False, True)
-            _build.count_launch(globals(), "bwd_launches")
-    if need_dw:
-        dw = torch.empty_like(w)
-        if dw.numel():
-            _launch(x, dy, dw, k, n, m, True, False)
+    dx, dw = bwd_call(_fn(), _stream(x), x, w, dy, need_dx, need_dw)
+    for out in (dx, dw):
+        if out is not None and out.numel():
             _build.count_launch(globals(), "bwd_launches")
     return dx, dw

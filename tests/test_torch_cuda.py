@@ -378,6 +378,83 @@ def test_moe_gmm_refuses_what_it_does_not_take(dev):
         mg.moe_gmm_fwd(x, w[:, :16].contiguous())                # contraction mismatch
 
 
+# The fp32 kernels on the CUDA cores.  K3 (E, M, K, N): one row and
+# DeepSeek-MoE-16B's decode step (4 rows an expert, both of its products)
+# on the few-rows kernel, as are 17 and 32 rows; 33 and 130 rows on tiles
+# of 64 rows (M % 128 is 64 or less), 100 and 256 on tiles of 128 rows in
+# the forward and dx (dw takes K's rows); K and N ragged and off a
+# multiple of 4 (4-byte copies).
+FP32_GMM_SHAPES = [(8, 1, 2048, 1408), (64, 4, 2048, 1408), (64, 4, 1408, 2048),
+                   (8, 32, 200, 300), (4, 17, 37, 130), (3, 33, 100, 70), (2, 130, 21, 258),
+                   (2, 100, 64, 136), (2, 256, 130, 70)]
+
+
+@pytest.mark.parametrize("e,m,k,n", FP32_GMM_SHAPES)
+def test_moe_gmm_fp32_kernel_matches_plain(dev, e, m, k, n):
+    """The fp32 K3's three layouts against their plain versions, one
+    launch each; the forward and dx twice give the same bits (the
+    few-rows kernel adds its warps' partial sums in a fixed order)."""
+    from repro_torch.kernels import moe_gmm as mg
+    x = _randn((e, m, k), torch.float32, dev, seed=0)
+    w = _randn((e, k, n), torch.float32, dev, seed=1, scale=k ** -0.5)
+    dy = _randn((e, m, n), torch.float32, dev, seed=2)
+    before = (mg.launches, mg.bwd_launches)
+    y = mg.moe_gmm_fwd(x, w)
+    dx, dw = mg.moe_gmm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    assert (mg.launches, mg.bwd_launches) == (before[0] + 1, before[1] + 2)
+    assert torch.equal(y, mg.moe_gmm_fwd(x, w))
+    assert torch.equal(dx, mg.moe_gmm_bwd(x, w, dy, need_dw=False)[0])
+    want_dx, want_dw = mg.moe_gmm_bwd_plain(x, w, dy)
+    for got, want in ((y, mg.moe_gmm_plain(x, w)), (dx, want_dx), (dw, want_dw)):
+        torch.testing.assert_close(got, want, **GMM_TOL[torch.float32])
+
+
+# K2 in fp32 (B, Hq, Hkv, Sq, Skv, D, causal, window): grids of 128-row
+# blocks (at least 132 blocks of 128 rows) and of 64-row ones, GQA and
+# MQA, ragged Sq and Skv, padded head dims, windows
+FP32_FLASH_CASES = [(4, 16, 16, 1024, 1024, 64, True, None),
+                    (2, 16, 8, 700, 900, 128, True, None),
+                    (4, 20, 20, 448, 1500, 64, False, None),
+                    (1, 40, 1, 300, 300, 80, False, None),
+                    (2, 32, 32, 257, 257, 40, True, 100),
+                    (1, 8, 2, 1000, 1000, 128, True, 333)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", FP32_FLASH_CASES)
+def test_flash_fp32_kernel_matches_plain(dev, b, hq, hkv, sq, skv, d, causal, window):
+    from repro_torch.kernels import flash_attention as fa
+    q = _randn((b, hq, sq, d), torch.float32, dev)
+    k = _randn((b, hkv, skv, d), torch.float32, dev, seed=1)
+    v = _randn((b, hkv, skv, d), torch.float32, dev, seed=2)
+    off = skv - sq if causal else 0
+    before = fa.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, q_offset=off, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want, want_lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal, q_offset=off,
+                                                  window=window)
+    torch.testing.assert_close(out, want, **TOL[torch.float32])
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_fp32_kernel_at_32k_keys(dev, d):
+    """The fp32 K2 over 32,768 keys (the configs' prefill_32k), causal,
+    its rows at the end of the sequence, against its plain version at the
+    fp32 tolerance.  v has mean 1, so every term of P v is positive and a
+    rounding that leans one way would add up over the keys."""
+    from repro_torch.kernels import flash_attention as fa
+    b, hq, hkv, sq, skv = 1, 8, 2, 512, 32768
+    q = _randn((b, hq, sq, d), torch.float32, dev)
+    k = _randn((b, hkv, skv, d), torch.float32, dev, seed=1)
+    v = _randn((b, hkv, skv, d), torch.float32, dev, seed=2, shift=1.0)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True, q_offset=skv - sq)
+    want, want_lse = fa.flash_attention_fwd_plain(q, k, v, causal=True, q_offset=skv - sq)
+    torch.testing.assert_close(out, want, **TOL[torch.float32])
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+
+
 # The bf16 tensor-core kernels (wgmma fed by TMA) at the paths' shapes.
 @pytest.mark.parametrize("e,m,k,n", [(64, 448, 2048, 1408), (64, 448, 1408, 2048)])
 def test_moe_gmm_tc_kernel_at_full_expert_count(dev, e, m, k, n):
