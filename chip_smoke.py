@@ -7,8 +7,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 nvcc, checks in the library's SASS (``cuobjdump -sass``) that every
 instantiation of the bf16 K2 and K3 kernels issues tensor-core ``wgmma``
-(HGMMA) and TMA loads (UTMALDG), that no instantiation of K4, K4-bwd
-and the fp32 K2 and K3 touches local memory (LDL, STL) and that the fp32
+(HGMMA) and TMA loads (UTMALDG), that no instantiation of K1, K4,
+K4-bwd and the fp32 K2 and K3 touches local memory (LDL, STL) and that the fp32
 K2 issues tensor-core ``mma.sync`` (HMMA: its split TF32), and holds each
 kernel against its plain PyTorch version at the main paths' shapes and
 at edge shapes (and K4-bwd against itself: two runs, the same bits).
@@ -82,7 +82,7 @@ Whisper (2 + 2 layers over 1500 frames: the cross cache) and Qwen2-VL (4
 layers, prefilled over image-layout positions), with (b) for all but the
 MoE (its capacity drops differ by group size) and Whisper (its cross cache
 stays empty); (d) ``examples/serve_torch.py`` at its defaults.  Phase 2
-holds the decode shapes too: K1 at (4, 2048), K3 at 4 rows (64 experts of
+holds the decode shapes too: K1 at one row a sequence, K3 at 4 rows (64 experts of
 DeepSeek's widths, both matmuls, fp32 and bf16; the fp32 K3's forward,
 dx and dw also at DeepSeek's training shape beside ``torch.bmm``) and K4
 at S = 1 with h0 and no saved states (Falcon-Mamba's width, and Zamba2's at N = 64 with
@@ -91,6 +91,13 @@ K4 and K4-bwd at Zamba2's SSD shape (4, 1024, 5120, 64) with bf16 x and
 fp32 dt too, at N = 32, 40, 64 and 5 at edge shapes, and K4-bwd twice
 there for the same bits.
 
+The kernel phase runs K1 at every width the configs train at (4096
+rows, and Whisper's 6000 encoder rows) and at the serving models'
+decode rows, in fp32 and bf16: each case against its plain version, two
+of its rows alone bit-equal to the same rows in the whole call, and
+timed L2-warm and L2-cold beside PyTorch's own RMSNorm, the plain version, its
+bound and the launch floor (an empty kernel by the same timer); and at
+edge shapes (a D no multiple of 8, x off 16-byte alignment).
 The kernel phase runs K2 at every head dim the paths and configs give
 it — 64, 128, qwen3-1b's GQA, granite-20b's MQA, and 32 and 80, which
 run on a padded instantiation — each against its plain version and
@@ -300,16 +307,17 @@ def gpu_line() -> str:
     return out.stdout.strip()
 
 
-def cuda_ms(torch, fn, reps: int = 20) -> float:
+def cuda_ms(torch, fn, reps: int = 20, sleep_cycles: int = 100_000_000) -> float:
     """Mean device milliseconds per call by CUDA events, after a warm-up.
-    The device first spins for ~50 ms so the host can queue every call
-    before the first one starts: the events then time the device, not
-    the host's launch rate (a small kernel takes less time on the card
-    than its Python wrapper takes to launch it)."""
+    The device first spins for ``sleep_cycles`` (~50 ms by default) so
+    the host can queue every call before the first one starts: the events
+    then time the device, not the host's launch rate (a small kernel
+    takes less time on the card than its Python wrapper takes to launch
+    it)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    torch.cuda._sleep(100_000_000)
+    torch.cuda._sleep(sleep_cycles)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -450,6 +458,124 @@ def window_band(torch, sq: int, skv: int, causal: bool, q_offset: int, window: i
     return int((hi - lo).clamp(min=0).sum()), int(hi.max() - lo.min())
 
 
+# K1's shapes (phase 2 and ``scripts/kernel_ab.py k1``): BATCH x SEQ rows
+# at each width the configs train at, Whisper's encoder rows (BATCH x 1500
+# frames), and one row a sequence at the widths of phase 3m's serving
+# models (Whisper 1280, qwen3-1b and DeepSeek 2048, Zamba2 2560, Qwen2-VL
+# 3584, Falcon-Mamba 4096), each in fp32 and bf16
+K1_WIDTHS = (1024, 1280, 2048, 2304, 2560, 3584, 4096, 5120, 6144)
+K1_SHAPES = ([(BATCH * SEQ, d) for d in K1_WIDTHS] + [(BATCH * 1500, 1280)]
+             + [(BATCH, d) for d in (1280, 2048, 2560, 3584, 4096)])
+# an L2-cold time rotates x through copies that fill at least this many
+# bytes (the H100's L2 holds 50 MB): each launch's x was last touched
+# that many bytes of other copies ago
+L2_COLD_BYTES = 128 << 20
+# the timer's spin before K1's calls: ~10 ms, ample for the host to queue
+# 20 calls of a wrapper
+K1_SLEEP_CYCLES = 20_000_000
+# calls timed on the host's clock
+K1_HOST_CALLS = 2000
+
+
+def k1_times(torch, rn, library, x, w) -> dict:
+    """K1 on (x, w) timed L2-warm (one x, as ``cuda_ms`` times) and
+    L2-cold (x rotating through copies filling ``L2_COLD_BYTES``; w, one
+    vector, stays warm as in a model's layer), beside ``library(x, w)``
+    (the PyTorch call computing the same function) timed both ways and
+    the plain version warm; with the bound."""
+    import itertools
+    n, d = x.shape
+    copies = max(2, -(-L2_COLD_BYTES // (x.numel() * x.element_size())) + 1)
+    g = torch.Generator(device="cuda").manual_seed(n * d)
+    pool = torch.randn((copies, n, d), generator=g, device="cuda").to(x.dtype)
+    fns = {"": lambda v: rn.rmsnorm_fwd(v, w),
+           "library_": lambda v: library(v, w)}
+    out = {}
+    for key, fn in fns.items():
+        out[f"{key}ms"] = cuda_ms(torch, lambda: fn(x), sleep_cycles=K1_SLEEP_CYCLES)
+        it = itertools.cycle(range(copies))
+        out[f"{key}ms_cold"] = cuda_ms(torch, lambda: fn(pool[next(it)]),
+                                       sleep_cycles=K1_SLEEP_CYCLES)
+    out["plain_ms"] = cuda_ms(torch, lambda: rn.rmsnorm_plain(x, w),
+                              sleep_cycles=K1_SLEEP_CYCLES)
+    return {**out, **bound(2 * x.numel() * x.element_size() + w.numel() * w.element_size(),
+                           5 * x.numel() / FP32_FLOPS)}   # square, sum, scale, cast, weight
+
+
+def k1_sweep(torch, rn, library) -> dict:
+    """K1 at ``K1_SHAPES``: each case held to the plain version, two of
+    its rows (the first and the last) computed alone and held bit for bit
+    to the whole call's, then ``k1_times``.  The launch floor is
+    ``torch.cuda._sleep(0)`` (a spin kernel of no cycles) by the same
+    timer.  Returns {"launch_floor_ms": t, "<dtype>_<n>_<d>": {...}}."""
+    g = torch.Generator(device="cuda").manual_seed(4321)
+    out = {"launch_floor_ms": cuda_ms(torch, lambda: torch.cuda._sleep(0),
+                                      sleep_cycles=K1_SLEEP_CYCLES)}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        for n, d in K1_SHAPES:
+            w = (torch.randn(d, generator=g, device="cuda") * 0.5 + 1.0).to(dt)
+            x = torch.randn((n, d), generator=g, device="cuda").to(dt)
+            name = f"rmsnorm {dname} {(n, d)}"
+            y = rn.rmsnorm_fwd(x, w)
+            err = check_close(torch, name, y, rn.rmsnorm_plain(x, w), dname)
+            for r in (0, n - 1):
+                if not torch.equal(rn.rmsnorm_fwd(x[r:r + 1], w).view(-1), y[r]):
+                    fail(f"{name}: row {r} alone differs in its bits from the same row "
+                         f"inside the {n}-row call")
+            case = out[f"{dname}_{n}_{d}"] = {"max_abs_err": err,
+                                              **k1_times(torch, rn, library, x, w)}
+            print(f"  {name}: max_abs_err={err:.3e}; kernel {case['ms'] * 1e3:.2f} warm / "
+                  f"{case['ms_cold'] * 1e3:.2f} cold us, library "
+                  f"{case['library_ms'] * 1e3:.2f} / {case['library_ms_cold'] * 1e3:.2f}, "
+                  f"plain {case['plain_ms'] * 1e3:.2f}, bound {case['bound_ms'] * 1e3:.3f} "
+                  f"({case['bound_by']})", flush=True)
+    print(f"  launch floor (torch.cuda._sleep(0), the same timer): "
+          f"{out['launch_floor_ms'] * 1e3:.2f} us", flush=True)
+    # the host's time a call at the decode shape, where the card is faster
+    # than the host: wall time over many calls ending in a synchronize
+    x = torch.randn((BATCH, 2048), generator=g, device="cuda").bfloat16()
+    w = torch.ones(2048, device="cuda").bfloat16()
+    for key, fn in (("host_us", lambda: rn.rmsnorm_fwd(x, w)),
+                    ("library_host_us", lambda: library(x, w))):
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(K1_HOST_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        out[key] = (time.perf_counter() - t0) / K1_HOST_CALLS * 1e6
+    print(f"  host time a call at ({BATCH}, 2048) bf16: kernel {out['host_us']:.2f} us, "
+          f"library {out['library_host_us']:.2f} us", flush=True)
+    return out
+
+
+def phase_k1(torch, rn, library) -> dict:
+    """K1 against its plain version at the edge shapes (rows that fill no
+    block, a D that is no multiple of 8, a misaligned x), then
+    ``k1_sweep``.  Returns the kernel line's entry: the main row at
+    (BATCH x SEQ, 1024) bf16, and every swept case under ``at_...``."""
+    g = torch.Generator(device="cuda").manual_seed(1234)
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        for shape, offset in (((130, 1024), 0), ((3, 5, 256), 0), ((7, 1001), 0),
+                              ((33, 2048), 1)):
+            buf = torch.randn(math.prod(shape) + offset, generator=g, device="cuda").to(dt)
+            x = buf[offset:].view(shape)          # offset 1: x 2 or 4 bytes off 16
+            w = (torch.randn(shape[-1:], generator=g, device="cuda") * 0.5 + 1.0).to(dt)
+            err = check_close(torch, f"rmsnorm {dname} {shape} offset {offset}",
+                              rn.rmsnorm_fwd(x, w), rn.rmsnorm_plain(x, w), dname)
+            print(f"  rmsnorm {dname:8s} {str(shape):16s} offset {offset}: max_abs_err="
+                  f"{err:.3e}", flush=True)
+    sweep = k1_sweep(torch, rn, library)
+    main = sweep[f"bfloat16_{BATCH * SEQ}_1024"]
+    return {**{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by")},
+            **{k: sweep.pop(k) for k in ("launch_floor_ms", "host_us", "library_host_us")},
+            **{f"at_{key}": case for key, case in sweep.items()}}
+
+
 def phase_kernels(torch, F, fa, rn) -> dict:
     """Each kernel against its plain version; times at the main path's shapes."""
     g = torch.Generator(device="cuda").manual_seed(1234)
@@ -457,41 +583,8 @@ def phase_kernels(torch, F, fa, rn) -> dict:
     def randn(shape, dtype, scale=1.0, shift=0.0):
         return (torch.randn(shape, generator=g, device="cuda") * scale + shift).to(dtype)
 
-    results = {}
-    # K1 rmsnorm: the model's (B*S, d_model) rows, and 130 rows
-    for dt in (torch.float32, torch.bfloat16):
-        dname = str(dt).split(".")[1]
-        for shape in ((BATCH * SEQ, 1024), (130, 1024), (3, 5, 256)):
-            x, w = randn(shape, dt), randn(shape[-1:], dt, 0.5, 1.0)
-            y = rn.rmsnorm_fwd(x, w)
-            torch.cuda.synchronize()
-            err = check_close(torch, f"rmsnorm {dname} {shape}", y, rn.rmsnorm_plain(x, w), dname)
-            print(f"  rmsnorm {dname:8s} {str(shape):16s} max_abs_err={err:.3e}", flush=True)
-            if dt == torch.bfloat16 and shape == (BATCH * SEQ, 1024):
-                results["rmsnorm"] = {"max_abs_err": err}
-    x, w = randn((BATCH * SEQ, 1024), torch.bfloat16), randn((1024,), torch.bfloat16, 0.5, 1.0)
-    n_bytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
-    n_ops = 5 * x.numel()      # square, sum, scale, cast, weight: fp32 CUDA-core ops
-    results["rmsnorm"].update(
-        ms=cuda_ms(torch, lambda: rn.rmsnorm_fwd(x, w)),
-        plain_ms=cuda_ms(torch, lambda: rn.rmsnorm_plain(x, w)),
-        library_ms=cuda_ms(torch, lambda: F.rms_norm(x, (1024,), w, 1e-6)),
-        **bound(n_bytes, n_ops / FP32_FLOPS))
-
-    # K1 at the serving path's decode shape: one row per sequence of the
-    # batch at qwen3-1b's width
-    x, w = randn((BATCH, 2048), torch.bfloat16), randn((2048,), torch.bfloat16, 0.5, 1.0)
-    err = check_close(torch, f"rmsnorm bfloat16 {tuple(x.shape)}", rn.rmsnorm_fwd(x, w),
-                      rn.rmsnorm_plain(x, w), "bfloat16")
-    decode = dict(max_abs_err=err, ms=cuda_ms(torch, lambda: rn.rmsnorm_fwd(x, w)),
-                  plain_ms=cuda_ms(torch, lambda: rn.rmsnorm_plain(x, w)),
-                  library_ms=cuda_ms(torch, lambda: F.rms_norm(x, (2048,), w, 1e-6)),
-                  **bound(2 * x.numel() * 2 + w.numel() * 2, 5 * x.numel() / FP32_FLOPS))
-    results["rmsnorm"][f"at_decode_{BATCH}_2048"] = decode
-    print(f"  rmsnorm bfloat16 ({BATCH}, 2048), the decode shape: max_abs_err={err:.3e}; kernel "
-          f"{decode['ms']:.4f} ms, plain {decode['plain_ms']:.4f} ms, F.rms_norm "
-          f"{decode['library_ms']:.4f} ms, bound {decode['bound_ms']:.4f} ms "
-          f"({decode['bound_by']})", flush=True)
+    results = {"rmsnorm": phase_k1(torch, rn,
+                                   lambda x, w: F.rms_norm(x, x.shape[-1:], w, 1e-6))}
 
     # K2 flash attention: the model's shape, then MQA / GQA / offsets / D=128 / ragged.
     # lse is fp32 on both sides in either dtype, so it is held at the fp32 tolerance.
@@ -650,11 +743,13 @@ TC_KERNELS = {"flash_fwd_wgmma_kernel": 8, "moe_gmm_wgmma_kernel": 3}
 # and their instantiations: the scans (x fp32 or bf16, dt fp32 or bf16,
 # the built state sizes 16, 32 and 64), the fp32 K3 (few rows: row tiles
 # 8, 16, 24, 32 x 3 layouts; tiles of 64 and 128 rows x 3 layouts x 16- or
-# 4-byte copies) and the fp32 K2 (head dims 64 and 128 x blocks of 64 and
-# 128 rows)
+# 4-byte copies), the fp32 K2 (head dims 64 and 128 x blocks of 64 and
+# 128 rows) and K1 (fp32 and bf16 x 1 to 5 chunks a thread and the
+# generic two-pass kernel with 16-byte accesses, and the generic one
+# element by element)
 SCAN_KERNELS = {"mamba_scan_fwd_kernel": 12, "mamba_scan_bwd_kernel": 12}
 LOCAL_FREE_KERNELS = {**SCAN_KERNELS, "gmm_few_rows_kernel": 12, "gmm_tile_kernel": 12,
-                      "flash_fwd_fp32_kernel": 4}
+                      "flash_fwd_fp32_kernel": 4, "rmsnorm_kernel": 14}
 # the kernels whose fp32 products are split TF32 on the tensor cores
 SPLIT_TF32_KERNELS = ("flash_fwd_fp32_kernel",)
 
@@ -680,7 +775,7 @@ def sass_check(lib: pathlib.Path) -> dict:
     SASS, and fail if one is missing or has none of either; count local
     memory loads and stores (LDL, STL: spills or arrays the compiler could
     not keep in registers) in each instantiation of ``LOCAL_FREE_KERNELS``
-    (the scans and the fp32 K2 and K3), and fail if one is missing or has
+    (K1, the scans and the fp32 K2 and K3), and fail if one is missing or has
     any; and fail if an instantiation of the fp32 K2 has no HMMA
     (``mma.sync``: its products are split TF32 on the tensor cores)."""
     out = subprocess.run([cuobjdump(), "-sass", str(lib)], capture_output=True, text=True,
@@ -4307,7 +4402,8 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         **{key: r[key] for key in r if key.startswith("at_")
-                           or key in ("tflops", "two_bmm_ms", "max_abs_err_fp32_p")}})
+                           or key in ("tflops", "two_bmm_ms", "max_abs_err_fp32_p",
+                                      "launch_floor_ms", "host_us", "library_host_us")}})
     phase("done")
     print("3g " + json.dumps(summary_3g), flush=True)
     print("3h " + json.dumps(summary_3h), flush=True)

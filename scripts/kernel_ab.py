@@ -2,7 +2,7 @@
 
 Usage (on a machine with a CUDA card, from the root of a checkout):
 
-    python3 scripts/kernel_ab.py {k4,fp32} OTHER_CHECKOUT
+    python3 scripts/kernel_ab.py {k1,k4,fp32} OTHER_CHECKOUT
 
 Times the set's kernels in OTHER_CHECKOUT and in this one, in turns:
 other, this, this, other.  Each turn is a subprocess that builds its
@@ -10,6 +10,15 @@ checkout's kernels and times them with CUDA events, on the same inputs
 from the same seed.  Prints the card's name and power limit, then one
 line a turn, in microseconds.  The sets:
 
+- ``k1``: RMSNorm at ``chip_smoke.K1_SHAPES`` in fp32 and bf16 (the
+  training widths at 4096 rows, Whisper's encoder rows, the serving
+  models' decode rows), L2-warm and L2-cold (``_cold``), beside
+  ``F.rms_norm`` (``_library``, ``_library_cold``) and the plain version
+  (``_plain``), timed by this checkout's ``chip_smoke.k1_sweep``, which
+  also holds each case to the plain version and two rows alone to the
+  same rows of the whole call; the launch floor (``floor``:
+  ``torch.cuda._sleep(0)`` by the same timer); and the host's time a
+  call at the decode shape (``host``, ``host_library``).
 - ``k4``: the scan kernels at Falcon-Mamba-7B's training shape (4, 1024,
   8192, 16) in bf16 (the forward saving its chunk states, the backward)
   and at its decode step (S = 1 from a cached state).
@@ -46,7 +55,19 @@ def us_of(fn, reps=20):
     return e0.elapsed_time(e1) / reps * 1e3
 '''
 
-SETS = {"k4": r'''
+SETS = {"k1": r'''
+sys.path.insert(1, sys.argv[2])          # this checkout's chip_smoke, the timed one's kernels
+import chip_smoke
+from repro_torch.kernels import rmsnorm as rn
+res = chip_smoke.k1_sweep(torch, rn, lambda x, w: F.rms_norm(x, x.shape[-1:], w, 1e-6))
+out = {"floor": res.pop("launch_floor_ms") * 1e3, "host": res.pop("host_us"),
+       "host_library": res.pop("library_host_us")}
+suffixes = {"ms": "", "ms_cold": "_cold", "library_ms": "_library",
+            "library_ms_cold": "_library_cold", "plain_ms": "_plain"}
+for key, case in res.items():
+    for k, suffix in suffixes.items():
+        out[key + suffix] = case[k] * 1e3
+''', "k4": r'''
 from repro_torch.kernels import mamba_scan as ms
 g = torch.Generator(device="cuda").manual_seed(7)
 b, s, c, n = 4, 1024, 8192, 16
@@ -99,9 +120,13 @@ def main() -> int:
                           "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     for name, root in (("other", other), ("this", this), ("this", this), ("other", other)):
-        out = subprocess.run([sys.executable, "-c", child, root], capture_output=True,
-                             text=True, check=True).stdout.strip().splitlines()[-1]
-        times = json.loads(out)
+        run = subprocess.run([sys.executable, "-c", child, root, this], capture_output=True,
+                             text=True)
+        if run.returncode:
+            print(f"{name} ({root}) failed:\n{run.stdout[-3000:]}\n{run.stderr[-3000:]}",
+                  file=sys.stderr, flush=True)
+            return 1
+        times = json.loads(run.stdout.strip().splitlines()[-1])
         print(name, {k: round(v, 2) for k, v in times.items()}, "us", flush=True)
     return 0
 

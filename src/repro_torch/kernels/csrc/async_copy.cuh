@@ -1,4 +1,4 @@
-// cp.async for the CUDA-core kernels (moe_gmm_fp32.cu, flash_attention_fp32.cu):
+// cp.async for the CUDA-core kernels (moe_gmm_fp32.cu, flash_attention_fp32.cu, rmsnorm.cu):
 // copies from device memory to shared memory that hold no registers,
 // committed in groups and waited for by count, so a ring of shared tiles
 // fills while the block computes on an earlier tile.  A copy moves the

@@ -3,8 +3,21 @@
 Replaces the Pallas TPU kernel ``repro/kernels/rmsnorm.py``
 (``_rmsnorm_kernel`` / ``rmsnorm_pallas``).  Source:
 ``csrc/rmsnorm.cu``.  The op is bound by bytes on the H100 (it reads x
-and writes y once); the kernel runs one warp per row with 16-byte
-accesses, so each row leaves device memory once.
+and writes y once; at a decode step's few rows, by the launch and one
+round trip to memory).  The kernel spreads a row over as many threads
+as hold it at up to five 16-byte chunks each (one warp up to 1280 bf16
+or 640 fp32), keeps the row and the thread's share of w in registers,
+and writes y from them: x leaves device memory once.  Few rows take a
+block each and load straight into registers; many rows are walked by
+as many blocks as fit on the card, with w held and the next rows
+streaming into a ring in shared memory (cp.async).  A D that is no
+multiple of 16 bytes, a misaligned pointer or a row past 512 threads x
+5 chunks takes a generic two-pass kernel over the same chunks.
+
+A row's output bits depend on that row, w, eps, D and the dtype alone:
+the partition of a row and the order of its sums are the same whatever
+N, the rows a block takes, or the pointers' alignment (the multi-rank
+lanes, which cut the same rows into other calls, rely on it).
 
 ``rmsnorm_fwd`` launches the kernel on a CUDA tensor and uses the plain
 PyTorch version on a CPU or meta tensor.  ``launches`` counts kernel launches.
@@ -34,6 +47,22 @@ def _lib():
     return fn
 
 
+def fwd_call(fn, stream, x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """The kernel's C call ``fn`` on ``stream`` (a pointer) and the work
+    around it: x made contiguous and seen as (N, D) rows, y allocated,
+    and no call at N = 0.  Returns y in x's shape."""
+    d = x.shape[-1]
+    x2 = x.contiguous().view(-1, d)
+    w = w.contiguous()
+    y = torch.empty_like(x2)
+    if x2.shape[0]:
+        rc = fn(x2.data_ptr(), w.data_ptr(), y.data_ptr(), x2.shape[0], d, float(eps),
+                DTYPES[x.dtype], stream)
+        if rc:
+            raise RuntimeError(f"rmsnorm kernel launch failed: CUDA error {rc}")
+    return y.view(x.shape)
+
+
 def rmsnorm_fwd(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """x: (..., D), w: (D,) of x's dtype."""
     if _build.takes_plain(x, w):
@@ -46,14 +75,7 @@ def rmsnorm_fwd(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Te
     d = x.shape[-1]
     if tuple(w.shape) != (d,):
         raise ValueError(f"rmsnorm kernel: w shape {tuple(w.shape)} != ({d},)")
-    x2 = x.contiguous().view(-1, d)
-    w = w.contiguous()
-    y = torch.empty_like(x2)
-    if x2.shape[0]:
-        rc = _lib()(x2.data_ptr(), w.data_ptr(), y.data_ptr(), x2.shape[0], d,
-                    float(eps), DTYPES[x.dtype],
-                    torch.cuda.current_stream(x.device).cuda_stream)
-        if rc:
-            raise RuntimeError(f"rmsnorm kernel launch failed: CUDA error {rc}")
+    y = fwd_call(_lib(), torch.cuda.current_stream(x.device).cuda_stream, x, w, eps)
+    if x.numel():
         _build.count_launch(globals(), "launches")
-    return y.view(x.shape)
+    return y

@@ -1,11 +1,14 @@
 // The subset of the CUDA runtime and device API that the kernels without
 // TMA or wgmma (src/repro_torch/kernels/csrc/mamba_scan.cuh,
-// moe_gmm_fp32.cu, flash_attention_fp32.cu) use, for running them on the
-// CPU in tests: every thread of a block is a std::thread, blocks run one
-// after another (over x, y and z), a barrier stands in for __syncthreads
-// and one per warp for the shuffles and the warp's mma.sync.  tests/test_torch_scan_emulated.py and
-// tests/test_torch_fp32_kernels_emulated.py build the sources against it
-// with g++.
+// moe_gmm_fp32.cu, flash_attention_fp32.cu, rmsnorm.cu) use, for running
+// them on the CPU in tests: every thread of a block is a std::thread,
+// blocks run one after another (over x, y and z), a barrier stands in for
+// __syncthreads and one per warp for the shuffles and the warp's
+// mma.sync.  The device has emu_multiprocessors SMs, each holding one
+// block at a time.  tests/test_torch_scan_emulated.py,
+// tests/test_torch_fp32_kernels_emulated.py and
+// tests/test_torch_rmsnorm_emulated.py build the sources against it with
+// g++.
 #pragma once
 #include <barrier>
 #include <cmath>
@@ -42,6 +45,21 @@ typedef void* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+inline int emu_multiprocessors = 4;
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return 0;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
+  *value = emu_multiprocessors;
+  return 0;
+}
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, F, int, size_t) {
+  *blocks = 1;
+  return 0;
+}
 using std::max;
 using std::min;
 
@@ -107,6 +125,7 @@ inline void emu_mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (
 }
 
 inline float emu_ex2(float x) { return std::exp2(x); }
+inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
 inline float __expf(float x) { return std::exp(x); }
 
 // kernel<<<grid, threads, smem, stream>>>(args...), rewritten by the test.

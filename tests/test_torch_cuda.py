@@ -40,6 +40,54 @@ def test_rmsnorm_kernel_matches_plain(dev, shape, dtype):
     torch.testing.assert_close(y.float(), rn.rmsnorm_plain(x, w).float(), **TOL[dtype])
 
 
+# K1 at every width the configs give it (d_model), 4096 rows, Whisper's
+# 6000 encoder rows, one row a sequence at the serving models' widths, a
+# D that is no multiple of 8, and rows wider than 512 threads x 5 chunks
+# (the generic two-pass kernel)
+RMSNORM_SHAPES = ([(4096, d) for d in (1024, 1280, 2048, 2304, 2560, 3584, 4096, 5120, 6144)]
+                  + [(6000, 1280)] + [(4, d) for d in (1280, 2048, 2560, 3584, 4096)]
+                  + [(37, 1001), (3, 24000)])
+
+
+@pytest.mark.parametrize("shape", RMSNORM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_at_every_width(dev, shape, dtype):
+    """One launch, within tolerance of the plain version, and in bf16
+    under 1% of the outputs off the plain version's bits (the cast to
+    bf16 before the multiply by w: one rounding fewer moves about a
+    quarter of them)."""
+    from repro_torch.kernels import rmsnorm as rn
+    x = _randn(shape, dtype, dev, seed=shape[1])
+    w = _randn(shape[-1:], dtype, dev, seed=shape[1] + 1, scale=0.5, shift=1.0)
+    before = rn.launches
+    y = rn.rmsnorm_fwd(x, w)
+    torch.cuda.synchronize()
+    assert rn.launches == before + 1
+    want = rn.rmsnorm_plain(x, w)
+    torch.testing.assert_close(y.float(), want.float(), **TOL[dtype])
+    if dtype == torch.bfloat16:
+        assert (y != want).float().mean().item() < 0.01
+
+
+@pytest.mark.parametrize("d", [1024, 2048, 6144, 1001])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_row_bits_independent_of_the_call(dev, d, dtype):
+    """A row alone, three rows, and the same rows inside 4096 (the grid
+    walking them through the ring), and x one element off 16-byte
+    alignment (the generic kernel, element by element): the same bits."""
+    from repro_torch.kernels import rmsnorm as rn
+    x = _randn((4096, d), dtype, dev, seed=d)
+    w = _randn((d,), dtype, dev, seed=d + 1, scale=0.5, shift=1.0)
+    y = rn.rmsnorm_fwd(x, w)
+    for lo, hi in ((0, 1), (2049, 2052), (4095, 4096)):
+        assert torch.equal(rn.rmsnorm_fwd(x[lo:hi].clone(), w), y[lo:hi])
+    buf = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+    x_off = buf[1:].view(x.shape)
+    x_off.copy_(x)
+    assert x_off.data_ptr() % 16
+    assert torch.equal(rn.rmsnorm_fwd(x_off, w), y)
+
+
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal", [
     (4, 16, 16, 1024, 1024, 64, True),
     (2, 4, 1, 64, 64, 64, True),
