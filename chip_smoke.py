@@ -91,6 +91,17 @@ K4 and K4-bwd at Zamba2's SSD shape (4, 1024, 5120, 64) with bf16 x and
 fp32 dt too, at N = 32, 40, 64 and 5 at edge shapes, and K4-bwd twice
 there for the same bits.
 
+Phase 2 also holds the rest of the TPU kernels' contract: K2 at head
+dims 1, 5, 50, 68, 100, 192 and 256 (``FLASH_CONTRACT`` timed L2-warm and
+L2-cold beside SDPA, fp32 at 256 too), K3 with K and N no multiple of 8
+(``GMM_CONTRACT``; the gate/up shape less 4 in each timed beside the
+unpadded one and ``torch.bmm``) and K4 and K4-bwd at 128 states (Zamba2's
+scan shape at N = 128, timed warm and cold, K4-bwd twice for the same
+bits, the bytes of the partial rows one call allocates), and 96; phase 3j
+reports which of its bf16 runs, the kernels' or the plain versions', is
+nearer an fp32 run of the same step through the plain versions
+(``nearer_fp32``).
+
 The kernel phase runs K1 at every width the configs train at (4096
 rows, and Whisper's 6000 encoder rows) and at the serving models'
 decode rows, in fp32 and bf16: each case against its plain version, two
@@ -168,7 +179,9 @@ and step times; (c) the CLI's ``--elastic`` on ``spmd`` and ``--chaos``
 with ``--chaos-report`` on ``mpmd`` for phase 3g's winner.  Last it
 runs the training CLI at its defaults
 for the ported archs, qwen3-1b, minicpm-2b (its WSD schedule checked
-step by step), qwen2-vl-7b and ``--d-model 128`` (head_dim 32).
+step by step), qwen2-vl-7b, ``--d-model 128`` (head_dim 32), ``--d-model
+200`` (head_dim 50) and DeepSeek at ``--d-model 1020`` (head_dim 68,
+experts of 1020 x 2040).
 
 The production SPMD lane (phase 3n) runs in a one-rank NCCL world on a
 (1, 1) ("data", "model") ``DeviceMesh``, destroyed at its end: (a)
@@ -416,11 +429,21 @@ FLASH_TIMED = {(BATCH, 16, 16, SEQ, 64): None, (BATCH, 16, 16, SEQ, 128): "at_he
                (BATCH, 48, 1, SEQ, 128): "at_mqa_48_1_head_dim_128",
                (BATCH, 16, 16, SEQ, 32): "at_head_dim_32",
                (BATCH, 32, 32, SEQ, 80): "at_head_dim_80"}
+# K2 at the rest of the TPU kernel's contract to D = 256, timed in
+# bf16 L2-warm and L2-cold, and their keys: head dims no multiple of 8
+# (50 and 68, the CLI's --d-model 200 and DeepSeek at --d-model 1020,
+# padded to 56 and 72 by the wrapper and run on 64 and 128), and 192 and
+# 256 on the 256-wide instantiation (fp32 at 256 too)
+FLASH_CONTRACT = {(BATCH, 16, 16, SEQ, 50): "at_head_dim_50_padded",
+                  (BATCH, 16, 16, SEQ, 68): "at_head_dim_68_padded",
+                  (BATCH, 16, 16, SEQ, 192): "at_head_dim_192",
+                  (BATCH, 16, 16, SEQ, 256): "at_head_dim_256"}
 # K2 with a sliding window, (B, Hq, Hkv, Sq, Skv, D, causal, q_offset,
 # window), and its key in the kernels line: Zamba2's shared attention
 # (window 4096, which masks nothing at SEQ tokens), windows that are no
 # multiple of the 64-key tile, a real band at 8,192 tokens, GQA at head
-# dim 128, non-causal, and a query block past the keys' start
+# dims 128 and 256 (two blocks a query block), non-causal, and a query
+# block past the keys' start
 FLASH_WINDOWS = {
     (BATCH, 32, 32, SEQ, SEQ, 80, True, 0, 4096): "at_window_4096_zamba2",
     (BATCH, 32, 32, SEQ, SEQ, 80, True, 0, 1): "at_window_1",
@@ -430,6 +453,7 @@ FLASH_WINDOWS = {
     (BATCH, 16, 8, SEQ, SEQ, 128, True, 0, 256): "at_window_256_gqa_16_8_head_dim_128",
     (BATCH, 32, 32, SEQ, SEQ, 80, False, 0, 256): "at_window_256_non_causal",
     (BATCH, 32, 32, SEQ // 2, SEQ, 80, True, SEQ // 2, 300): "at_window_300_q_offset_512",
+    (BATCH, 16, 8, SEQ, SEQ, 256, True, 0, 300): "at_window_300_gqa_16_8_head_dim_256",
 }
 
 
@@ -477,25 +501,32 @@ K1_SLEEP_CYCLES = 20_000_000
 K1_HOST_CALLS = 2000
 
 
+def cold_ms(torch, fn, args: tuple, reps: int = 20, sleep_cycles: int = 100_000_000) -> float:
+    """``fn(*args)`` timed L2-cold by ``cuda_ms``: each call takes the next
+    of copies of the tensors in ``args`` that together fill at least
+    ``L2_COLD_BYTES`` (the H100's L2 holds 50 MB), so no input was touched
+    in the last that many bytes of other calls' inputs."""
+    import itertools
+    n_bytes = sum(a.numel() * a.element_size() for a in args if torch.is_tensor(a))
+    copies = max(2, -(-L2_COLD_BYTES // n_bytes) + 1)
+    pool = [args] + [tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+                     for _ in range(copies - 1)]
+    it = itertools.cycle(pool)
+    return cuda_ms(torch, lambda: fn(*next(it)), reps=reps, sleep_cycles=sleep_cycles)
+
+
 def k1_times(torch, rn, library, x, w) -> dict:
     """K1 on (x, w) timed L2-warm (one x, as ``cuda_ms`` times) and
     L2-cold (x rotating through copies filling ``L2_COLD_BYTES``; w, one
     vector, stays warm as in a model's layer), beside ``library(x, w)``
     (the PyTorch call computing the same function) timed both ways and
     the plain version warm; with the bound."""
-    import itertools
-    n, d = x.shape
-    copies = max(2, -(-L2_COLD_BYTES // (x.numel() * x.element_size())) + 1)
-    g = torch.Generator(device="cuda").manual_seed(n * d)
-    pool = torch.randn((copies, n, d), generator=g, device="cuda").to(x.dtype)
     fns = {"": lambda v: rn.rmsnorm_fwd(v, w),
            "library_": lambda v: library(v, w)}
     out = {}
     for key, fn in fns.items():
         out[f"{key}ms"] = cuda_ms(torch, lambda: fn(x), sleep_cycles=K1_SLEEP_CYCLES)
-        it = itertools.cycle(range(copies))
-        out[f"{key}ms_cold"] = cuda_ms(torch, lambda: fn(pool[next(it)]),
-                                       sleep_cycles=K1_SLEEP_CYCLES)
+        out[f"{key}ms_cold"] = cold_ms(torch, fn, (x,), sleep_cycles=K1_SLEEP_CYCLES)
     out["plain_ms"] = cuda_ms(torch, lambda: rn.rmsnorm_plain(x, w),
                               sleep_cycles=K1_SLEEP_CYCLES)
     return {**out, **bound(2 * x.numel() * x.element_size() + w.numel() * w.element_size(),
@@ -599,7 +630,14 @@ def phase_kernels(torch, F, fa, rn) -> dict:
              (4, 16, 8, 1024, 1024, 128, True), (4, 48, 1, 1024, 1024, 128, True),
              (4, 16, 16, 1024, 1024, 32, True), (4, 32, 32, 1024, 1024, 80, True),
              (2, 4, 2, 40, 72, 32, True), (1, 6, 2, 130, 200, 80, True),
-             (1, 4, 1, 50, 90, 80, False), *FLASH_PATHS]
+             (1, 4, 1, 50, 90, 80, False), *FLASH_PATHS,
+             # the rest of the TPU kernel's contract: FLASH_CONTRACT's
+             # shapes, then 256 with GQA and an offset, 192 ragged and
+             # non-causal, and head dims 5, 1 and 100 (padded to 8, 8, 104)
+             *[(b, hq, hkv, s, s, d, True) for b, hq, hkv, s, d in FLASH_CONTRACT],
+             (1, 8, 2, 100, 300, 256, True), (2, 4, 2, 40, 72, 192, False),
+             (1, 4, 1, 50, 90, 5, True), (1, 4, 4, 130, 200, 1, True),
+             (2, 6, 2, 70, 130, 100, False)]
     errs = {}      # (case, dtype name) -> (max abs error of out and lse, against fp32 P)
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[1]
@@ -678,7 +716,7 @@ def phase_kernels(torch, F, fa, rn) -> dict:
               f"({timed['bound_by']}; {pairs} visible pairs a head)", flush=True)
         return timed
 
-    def flash_times(b, hq, hkv, sq, skv, d, causal, dt=torch.bfloat16) -> dict:
+    def flash_times(b, hq, hkv, sq, skv, d, causal, dt=torch.bfloat16, cold=False) -> dict:
         """K2, its plain version and SDPA with q (b, hq, sq, d) and k, v
         (b, hkv, skv, d) in ``dt`` (causal calls are square), with the
         errors the checks above found there.  The bound counts the (query,
@@ -686,7 +724,8 @@ def phase_kernels(torch, F, fa, rn) -> dict:
         run as 128, shows as distance from it), and the bytes of q, k, v,
         out and lse; fp32 K2's bound counts the work it issues, three TF32
         products a product at the TF32 rate (its split TF32), and the
-        time of the same FLOPs at the fp32 FFMA rate is printed beside it."""
+        time of the same FLOPs at the fp32 FFMA rate is printed beside it.
+        With ``cold`` K2 and SDPA are also timed L2-cold (``cold_ms``)."""
         q = randn((b, hq, sq, d), dt)
         k, v = (randn((b, hkv, skv, d), dt) for _ in range(2))
         pairs = b * hq * (sq * (sq + 1) // 2 if causal else sq * skv)
@@ -699,6 +738,11 @@ def phase_kernels(torch, F, fa, rn) -> dict:
             library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=hq != hkv)),
             **bound(n_bytes, op_s))
+        if cold:
+            timed["ms_cold"] = cold_ms(torch, lambda *a: fa.flash_attention_fwd(
+                *a, causal=causal), (q, k, v))
+            timed["library_ms_cold"] = cold_ms(torch, lambda *a: F.scaled_dot_product_attention(
+                *a, is_causal=causal, enable_gqa=hq != hkv), (q, k, v))
         case = (b, hq, hkv, sq, skv, d, causal)
         tflops = 4 * d * pairs / timed["ms"] / 1e9
         if dt == torch.bfloat16:
@@ -710,6 +754,9 @@ def phase_kernels(torch, F, fa, rn) -> dict:
             timed["max_abs_err"] = errs[case, "float32"][0]
         floor = "" if dt == torch.bfloat16 else \
             f", the same FLOPs at the fp32 FFMA rate {4 * d * pairs / FP32_FLOPS * 1e3:.4f} ms"
+        if cold:
+            floor += (f"; L2-cold: kernel {timed['ms_cold']:.4f} ms, SDPA "
+                      f"{timed['library_ms_cold']:.4f} ms")
         print(f"  flash {(b, f'{hq}/{hkv}', sq, skv, d)} {'causal' if causal else 'non-causal'} "
               f"{str(dt)[6:]}: kernel {timed['ms']:.4f} ms ({tflops:.1f} TFLOP/s), "
               f"plain {timed['plain_ms']:.4f} ms, SDPA {timed['library_ms']:.4f} ms "
@@ -717,16 +764,21 @@ def phase_kernels(torch, F, fa, rn) -> dict:
               f"{timed['bound_ms']:.4f} ms ({timed['bound_by']}){floor}", flush=True)
         return timed
 
-    # Qwen1.5's head_dim 64 first (the row's main numbers), then the rest
-    results["flash_attention"] = flash_times(BATCH, 16, 16, SEQ, SEQ, 64, True)
+    # Qwen1.5's head_dim 64 first (the row's main numbers, and cold beside
+    # the padded 50 and 68), then the rest
+    results["flash_attention"] = flash_times(BATCH, 16, 16, SEQ, SEQ, 64, True, cold=True)
     for (b, hq, hkv, sq, d), key in FLASH_TIMED.items():
         if key:
             results["flash_attention"][key] = flash_times(b, hq, hkv, sq, sq, d, True)
+    for (b, hq, hkv, sq, d), key in FLASH_CONTRACT.items():
+        results["flash_attention"][key] = flash_times(b, hq, hkv, sq, sq, d, True, cold=True)
+        torch.cuda.empty_cache()
     # the fp32 kernel (split TF32), which the paths' fp32 checks launch, at
-    # head dims 128 (qwen3-1b, DeepSeek, Qwen2-VL) and 64 (Whisper)
-    for d in (64, 128):
+    # head dims 128 (qwen3-1b, DeepSeek, Qwen2-VL) and 64 (Whisper), and
+    # 256 (the contract's widest)
+    for d in (64, 128, 256):
         results["flash_attention"][f"at_fp32_head_dim_{d}"] = flash_times(
-            BATCH, 16, 16, SEQ, SEQ, d, True, torch.float32)
+            BATCH, 16, 16, SEQ, SEQ, d, True, torch.float32, cold=d == 256)
     for case, key in FLASH_PATHS.items():
         results["flash_attention"][key] = flash_times(*case)
     for case, key in FLASH_WINDOWS.items():
@@ -735,21 +787,21 @@ def phase_kernels(torch, F, fa, rn) -> dict:
     return results
 
 
-# the bf16 tensor-core kernels and their instantiations (head dims 64 and
-# 128, each exact and padded, each with and without a sliding window;
+# the bf16 tensor-core kernels and their instantiations (head dims 64, 128
+# and 256, each exact and padded, each with and without a sliding window;
 # layouts)
-TC_KERNELS = {"flash_fwd_wgmma_kernel": 8, "moe_gmm_wgmma_kernel": 3}
+TC_KERNELS = {"flash_fwd_wgmma_kernel": 12, "moe_gmm_wgmma_kernel": 3}
 # the kernels that must keep their state in registers and shared memory,
 # and their instantiations: the scans (x fp32 or bf16, dt fp32 or bf16,
-# the built state sizes 16, 32 and 64), the fp32 K3 (few rows: row tiles
-# 8, 16, 24, 32 x 3 layouts; tiles of 64 and 128 rows x 3 layouts x 16- or
-# 4-byte copies), the fp32 K2 (head dims 64 and 128 x blocks of 64 and
-# 128 rows) and K1 (fp32 and bf16 x 1 to 5 chunks a thread and the
+# the built state sizes 16, 32, 64 and 128), the fp32 K3 (few rows: row
+# tiles 8, 16, 24, 32 x 3 layouts; tiles of 64 and 128 rows x 3 layouts x
+# 16- or 4-byte copies), the fp32 K2 (head dims 64 and 128 x blocks of 64
+# and 128 rows, and 256 in blocks of 64) and K1 (fp32 and bf16 x 1 to 5 chunks a thread and the
 # generic two-pass kernel with 16-byte accesses, and the generic one
 # element by element)
-SCAN_KERNELS = {"mamba_scan_fwd_kernel": 12, "mamba_scan_bwd_kernel": 12}
+SCAN_KERNELS = {"mamba_scan_fwd_kernel": 16, "mamba_scan_bwd_kernel": 16}
 LOCAL_FREE_KERNELS = {**SCAN_KERNELS, "gmm_few_rows_kernel": 12, "gmm_tile_kernel": 12,
-                      "flash_fwd_fp32_kernel": 4, "rmsnorm_kernel": 14}
+                      "flash_fwd_fp32_kernel": 5, "rmsnorm_kernel": 14}
 # the kernels whose fp32 products are split TF32 on the tensor cores
 SPLIT_TF32_KERNELS = ("flash_fwd_fp32_kernel",)
 
@@ -845,16 +897,26 @@ def decode_gmm_shapes(cfg) -> list:
     return [(e, rows, cfg.d_model, cfg.moe.d_expert), (e, rows, cfg.moe.d_expert, cfg.d_model)]
 
 
+# K3 at widths that are no multiple of 8 (bf16 runs them padded to
+# the next multiple): the gate/up shape less 4 in K and N, timed beside the
+# unpadded one, and the CLI's DeepSeek at --d-model 1020 (K 1020, N
+# 2040), 100 x 200 and 36 x 20
+GMM_PADDED = (64, 448, 2044, 1404)
+GMM_CONTRACT = [GMM_PADDED, (4, 448, 1020, 2040), (8, 130, 100, 200), (8, 130, 36, 20)]
+
+
 def phase_gmm_kernels(torch, mg, cfg) -> dict:
     """K3's three layouts (forward, dx, dw) against their plain versions
-    at the MoE path's shapes and the JAX test's edge shapes, in fp32 and
-    bf16.  Times at the gate/up shape in bf16."""
+    at the MoE path's shapes, the JAX test's edge shapes and
+    ``GMM_CONTRACT``, in fp32 and bf16.  Times at the gate/up shape in
+    bf16, and at ``GMM_PADDED`` beside it, L2-warm and L2-cold."""
     g = torch.Generator(device="cuda").manual_seed(2468)
     path = gmm_shapes(cfg)
     results = {}
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[1]
-        for e, m, k, n in path + [(4, 32, 64, 128), (2, 16, 32, 32), (8, 130, 64, 96)]:
+        for e, m, k, n in path + [(4, 32, 64, 128), (2, 16, 32, 32), (8, 130, 64, 96),
+                                  *GMM_CONTRACT]:
             x = torch.randn((e, m, k), generator=g, device="cuda").to(dt)
             w = (torch.randn((e, k, n), generator=g, device="cuda") * k ** -0.5).to(dt)
             dy = torch.randn((e, m, n), generator=g, device="cuda").to(dt)
@@ -874,6 +936,8 @@ def phase_gmm_kernels(torch, mg, cfg) -> dict:
                 timed = (x, w, dy)
             if dt == torch.float32 and (e, m, k, n) == path[0]:
                 timed32, errs32 = (x, w, dy), errs
+            if dt == torch.bfloat16 and (e, m, k, n) == GMM_PADDED:
+                padded, errs_padded = (x, w, dy), errs
             del x, w, dy, y, dx, dw, want_dx, want_dw
     x, w, dy = timed
     e, m, k = x.shape
@@ -894,6 +958,11 @@ def phase_gmm_kernels(torch, mg, cfg) -> dict:
         # reads x, w, dy; writes dx, dw
         **bound(2 * (x.numel() + w.numel()) * io + dy.numel() * io, 2 * flops / BF16_FLOPS))
     results["moe_gmm_bwd"]["two_bmm_ms"] = two_bmm_ms
+    # the same shape L2-cold, beside the padded one's
+    results["moe_gmm"]["ms_cold"] = cold_ms(torch, mg.moe_gmm_fwd, (x, w), reps=10)
+    results["moe_gmm_bwd"]["ms_cold"] = cold_ms(torch, mg.moe_gmm_bwd, (x, w, dy), reps=5)
+    results.update(gmm_padded_times(torch, mg, results, *padded, errs_padded))
+    del padded
     for name, work in (("moe_gmm", flops), ("moe_gmm_bwd", 2 * flops)):
         r = results[name]
         r["tflops"] = work / r["ms"] / 1e9
@@ -963,6 +1032,43 @@ def phase_gmm_kernels(torch, mg, cfg) -> dict:
     return results
 
 
+def gmm_padded_times(torch, mg, results, x, w, dy, errs) -> dict:
+    """K3 (bf16) at ``GMM_PADDED``, whose K and N its wrappers pad to
+    multiples of 8, timed L2-warm and L2-cold beside ``torch.bmm`` (two
+    for dx and dw), the plain versions and the bounds of the true shape,
+    under the ``at_padded_...`` keys of ``results``' rows."""
+    e, m, k = x.shape
+    n = w.shape[2]
+    flops, io = 2 * e * m * k * n, x.element_size()
+    fwd = dict(max_abs_err=errs[0], ms=cuda_ms(torch, lambda: mg.moe_gmm_fwd(x, w), reps=10),
+               ms_cold=cold_ms(torch, mg.moe_gmm_fwd, (x, w), reps=10),
+               plain_ms=cuda_ms(torch, lambda: mg.moe_gmm_plain(x, w)),
+               library_ms=cuda_ms(torch, lambda: torch.bmm(x, w)),
+               library_ms_cold=cold_ms(torch, torch.bmm, (x, w), reps=10),
+               **bound((x.numel() + w.numel() + e * m * n) * io, flops / BF16_FLOPS))
+
+    def two_bmm(x, w, dy):
+        return torch.bmm(dy, w.transpose(1, 2)), torch.bmm(x.transpose(1, 2), dy)
+    bwd = dict(max_abs_err=max(errs[1:]),
+               ms=cuda_ms(torch, lambda: mg.moe_gmm_bwd(x, w, dy), reps=5),
+               ms_cold=cold_ms(torch, mg.moe_gmm_bwd, (x, w, dy), reps=5),
+               plain_ms=cuda_ms(torch, lambda: mg.moe_gmm_bwd_plain(x, w, dy)),
+               library_ms=None, two_bmm_ms=cuda_ms(torch, lambda: two_bmm(x, w, dy)),
+               two_bmm_ms_cold=cold_ms(torch, two_bmm, (x, w, dy), reps=5),
+               **bound(2 * (x.numel() + w.numel()) * io + dy.numel() * io,
+                       2 * flops / BF16_FLOPS))
+    key = "at_padded_" + "_".join(map(str, (e, m, k, n)))
+    main = results["moe_gmm"], results["moe_gmm_bwd"]
+    for name, r, unpadded in (("moe_gmm", fwd, main[0]), ("moe_gmm_bwd", bwd, main[1])):
+        lib = r["library_ms"] or r["two_bmm_ms"]
+        print(f"  {name} {(e, m, k, n)} bf16, K and N padded to {mg.tc_dims(x.dtype, k, n)}: "
+              f"kernel {r['ms']:.4f} ms warm / {r['ms_cold']:.4f} cold (the gate/up shape, "
+              f"unpadded: {unpadded['ms']:.4f} / {unpadded['ms_cold']:.4f}), plain "
+              f"{r['plain_ms']:.4f} ms, library {lib:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})", flush=True)
+    return {"moe_gmm": {**main[0], key: fwd}, "moe_gmm_bwd": {**main[1], key: bwd}}
+
+
 def scan_inputs(torch, g, b, s, c, n, dtype, with_h0=False, dt_dtype=None, bc_dtype=None):
     """The JAX scan test's distributions: x, dt = softplus(.), A < 0, B, C
     and, if asked, h0; dt in ``dt_dtype`` and B, C in ``bc_dtype`` (x's
@@ -990,7 +1096,8 @@ def _nbytes(*tensors) -> int:
 SCAN_EXPS = {"mamba_scan": 1.0, "mamba_scan_bwd": 2.5}
 
 
-def scan_timing(torch, ms, x, dt, A, B, C, hs, dy, reps_plain: int = 3) -> dict:
+def scan_timing(torch, ms, x, dt, A, B, C, hs, dy, reps_plain: int = 3,
+                cold: bool = False) -> dict:
     """K4 (saving its chunk states, as a training step does) and K4-bwd
     timed at one shape beside their plain versions and their bounds:
     each input read once and each output written once, and per (b, t, c,
@@ -1000,7 +1107,8 @@ def scan_timing(torch, ms, x, dt, A, B, C, hs, dy, reps_plain: int = 3) -> dict:
     exps' floor at the SFU rate and the byte time without the chunk states
     (whose interval is the design's choice: bytes here against exps in
     the backward) are worked out from the design's constants and printed
-    beside them, not kept: they were not measured."""
+    beside them, not kept: they were not measured.  With ``cold`` both
+    kernels are also timed L2-cold (``cold_ms``)."""
     b, s, c, n = *x.shape, A.shape[1]
     elems = b * s * c * n
     # forward: reads x, dt, B, C, A; writes y, hT and the chunk states
@@ -1021,6 +1129,11 @@ def scan_timing(torch, ms, x, dt, A, B, C, hs, dy, reps_plain: int = 3) -> dict:
                                 reps=reps_plain),
                library_ms=None,
                **bound(bwd_bytes, 20 * elems / FP32_FLOPS))}
+    if cold:
+        out["mamba_scan"]["ms_cold"] = cold_ms(
+            torch, lambda *a: ms.mamba_scan_fwd(*a, save_states=True), (x, dt, A, B, C))
+        out["mamba_scan_bwd"]["ms_cold"] = cold_ms(torch, ms.mamba_scan_bwd,
+                                                   (x, dt, A, B, C, hs, dy))
     no_states = {"mamba_scan": fwd_bytes - hs.numel() * 4,
                  "mamba_scan_bwd": bwd_bytes - hs.numel() * 4}
     for name, r in out.items():
@@ -1029,7 +1142,8 @@ def scan_timing(torch, ms, x, dt, A, B, C, hs, dy, reps_plain: int = 3) -> dict:
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}); {SCAN_EXPS[name]} exps per element, at the SFU rate "
               f"{exp_floor_ms:.4f} ms; bytes without the chunk states "
-              f"{no_states[name] / HBM_BYTES_PER_S * 1e3:.4f} ms", flush=True)
+              f"{no_states[name] / HBM_BYTES_PER_S * 1e3:.4f} ms"
+              + (f"; L2-cold {r['ms_cold']:.4f} ms" if cold else ""), flush=True)
     return out
 
 
@@ -1087,7 +1201,11 @@ def phase_scan_kernels(torch, ms) -> dict:
     f32, bf16 = torch.float32, torch.bfloat16
     main = (BATCH, SEQ, 8192, 16, bf16, bf16)         # Falcon-Mamba-7B's d_inner, state
     zamba2 = (BATCH, SEQ, 5120, 64, bf16, f32)        # Zamba2-2.7B's H*P, state; fp32 dt
-    cases = [(*main, False), (*zamba2, False), (1, 16, 8, 4, f32, f32, False),
+    # Zamba2's scan shape at the public Mamba-2 models' 128 states (Mamba-2
+    # 2.7B: d_model 2560, expand 2, headdim 64, d_state 128)
+    wide = (BATCH, SEQ, 5120, 128, bf16, f32)
+    timed_shapes = {main: "main", zamba2: "zamba2", wide: "wide"}
+    cases = [(*main, False), (*zamba2, False), (*wide, False), (1, 16, 8, 4, f32, f32, False),
              (2, 24, 16, 8, f32, f32, False), (1, 8, 6, 4, f32, f32, False),
              (2, 1000, 256, 16, f32, f32, True), (2, 1000, 256, 16, bf16, bf16, True),
              # the kernels' tiling edges: C ragged past a 128-channel block
@@ -1100,7 +1218,11 @@ def phase_scan_kernels(torch, ms) -> dict:
              (1, 300, 136, 64, f32, f32, True), (2, 37, 20, 5, bf16, bf16, True),
              # fp32 B and C beside bf16 x at 16 states: the 32-state
              # kernel, padded (the 16-state forward reads B, C in x's type)
-             (2, 45, 136, 16, bf16, f32, True, f32)]
+             (2, 45, 136, 16, bf16, f32, True, f32),
+             # 128 states (8 lanes a channel; the backward's blocks four
+             # 16-channel groups), C ragged past a block's 64 channels, and
+             # 96 run on 128, with h0
+             (2, 77, 200, 128, bf16, f32, True), (2, 45, 70, 96, f32, f32, True)]
     results, timed = {}, {}
     for b, s, c, n, dtype, dt_dtype, with_h0, *bc in cases:
         bc_dtype = bc[0] if bc else dtype
@@ -1162,27 +1284,46 @@ def phase_scan_kernels(torch, ms) -> dict:
         kind = "max_abs_err" if dtype == torch.float32 else "worst relative L2 error"
         print(f"  {tag} grads vs autograd through ssm_scan_ref: {kind} {worst:.3e}",
               flush=True)
-        if (b, s, c, n, dtype, dt_dtype) in (main, zamba2):
-            key = "main" if (b, s, c, n, dtype, dt_dtype) == main else "zamba2"
-            timed[key] = ({"mamba_scan": fwd_err, "mamba_scan_bwd": bwd_err},
-                          (x, dt, A, B, C, hs, dy))
+        if (b, s, c, n, dtype, dt_dtype) in timed_shapes:
+            timed[timed_shapes[b, s, c, n, dtype, dt_dtype]] = (
+                {"mamba_scan": fwd_err, "mamba_scan_bwd": bwd_err}, (x, dt, A, B, C, hs, dy))
         del x, dt, A, B, C, h0, y, hT, hs, want, dy, dhT
 
     # the serving path's calls: Falcon-Mamba's, and Zamba2's (fp32 dt)
     decode = scan_decode(torch, ms, g, 8192, 16, bf16)
     decode_zamba2 = scan_decode(torch, ms, g, 5120, 64, f32)
-    for key, label in (("main", "bf16"), ("zamba2", "bf16 x, fp32 dt")):
+    for key, label in (("main", "bf16"), ("zamba2", "bf16 x, fp32 dt"),
+                       ("wide", "bf16 x, fp32 dt, 128 states")):
         errs, inputs = timed[key]
         same_bits_twice(torch, ms, *inputs, label)
-        times = scan_timing(torch, ms, *inputs)
+        times = scan_timing(torch, ms, *inputs, cold=key == "wide")
+        x, n = inputs[0], inputs[2].shape[1]
+        b, s, c = x.shape
+        # K4-bwd's partial rows of dB and dC, as one call allocates them (the
+        # wrapper's record of its buffers), and the allocator's peak over the
+        # call beside them
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms.partial_bytes = 0
+        grads = ms.mamba_scan_bwd(*inputs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del grads
+        times["mamba_scan_bwd"]["dB_dC_partial_bytes"] = ms.partial_bytes
+        times["mamba_scan_bwd"]["call_peak_bytes"] = peak
+        print(f"  mamba_scan_bwd {(b, s, c, n)}: partial rows of dB and dC "
+              f"{ms.partial_bytes} bytes each ({ms.bwd_channels(n)} channels a block); the "
+              f"call's peak allocation {peak} bytes", flush=True)
+        if not 0 < 2 * ms.partial_bytes <= peak:
+            fail(f"mamba_scan_bwd {(b, s, c, n)}: partial rows of {ms.partial_bytes} bytes "
+                 f"do not fit the call's peak allocation of {peak}")
         for name in ("mamba_scan", "mamba_scan_bwd"):
             row = {"max_abs_err": errs[name], **times[name]}
             if key == "main":
                 results[name] = row
             else:
-                x = inputs[0]
-                results[name]["at_zamba2_" + "_".join(map(str, (*x.shape, inputs[2].shape[1])))] \
-                    = row
+                results[name][f"at_{key}_" + "_".join(map(str, (b, s, c, n)))] = row
         del inputs
         timed[key] = None
     results["mamba_scan"][f"at_decode_{BATCH}_1_8192_16"] = decode
@@ -1487,6 +1628,45 @@ def check_moe_block(torch, cfg) -> None:
         fail(f"moe block: K3 and plain disagree: {worst} at {errs[worst]:.3e}")
 
 
+def nearer_fp32(torch, cfg, params, batch, paths, errs, k_grads, p_grads) -> dict:
+    """The hybrid's watch item (ROADMAP Queue 3): the same step in fp32
+    (every weight widened from its bf16 value) through the plain versions,
+    so that the reference leans toward neither run, and each bf16 run's
+    relative L2 distance to it, the kernels' (K4's scan) and the plain
+    versions', at the worst leaf of the bf16 comparison and over all
+    leaves together.  Printed and returned, not held: a kernel run
+    farther from fp32 than the plain run is a fault to record there."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import train_loss
+    from repro_torch.tree import tree_flatten_with_path, tree_map
+    ops.unregister_kernels()
+    before = ops.launch_counts()
+    p = tree_map(lambda t: t.detach().float().requires_grad_(True), params)
+    loss = train_loss(dataclasses.replace(cfg, dtype="float32"), p, batch)
+    ref = [g.float() for g in torch.autograd.grad(
+        loss, [leaf for _, leaf in tree_flatten_with_path(p)])]
+    del p, loss
+    if ops.launch_counts() != before:
+        fail(f"3j watch: the fp32 reference step launched a kernel: {ops.launch_counts()}")
+
+    def whole(grads):
+        num = sum((g - r).square().sum() for g, r in zip(grads, ref))
+        return torch.sqrt(num / sum(r.square().sum() for r in ref)).item()
+    worst = max(errs, key=errs.get)
+    i = paths.index(worst)
+    out = {"worst_leaf": worst, "kernels_vs_plain": errs[worst],
+           "kernels_vs_fp32": rel_l2(k_grads[i], ref[i]),
+           "plain_vs_fp32": rel_l2(p_grads[i], ref[i]),
+           "all_leaves_kernels_vs_fp32": whole(k_grads), "all_leaves_plain_vs_fp32": whole(p_grads)}
+    out["nearer_fp32_at_worst_leaf"] = \
+        "kernels" if out["kernels_vs_fp32"] <= out["plain_vs_fp32"] else "plain"
+    out["nearer_fp32_all_leaves"] = ("kernels" if out["all_leaves_kernels_vs_fp32"]
+                                     <= out["all_leaves_plain_vs_fp32"] else "plain")
+    del ref
+    print(f"  3j watch {json.dumps(out)}", flush=True)
+    return out
+
+
 def compare_with_plain(torch, cfg, params, step_loss: float | None = None) -> None:
     """Step 1's loss and every gradient leaf on the same weights and
     batch, with the kernels and with their plain versions, held to
@@ -1568,6 +1748,8 @@ def compare_with_plain(torch, cfg, params, step_loss: float | None = None) -> No
     errs = leaf_errors(k_grads, p_grads, held=True)
     if not all(math.isfinite(e) for e in errs.values()):
         fail("non-finite gradient error")
+    if cfg.hybrid_every and cfg.dtype == "bfloat16":
+        nearer_fp32(torch, cfg, params, batch, paths, errs, k_grads, p_grads)
     over = [name for name, err in errs.items() if err > grad_rtol]
     if not over:
         return
@@ -1611,22 +1793,32 @@ def compare_with_plain(torch, cfg, params, step_loss: float | None = None) -> No
         fail(f"kernel and followed plain gradients disagree: {worst} at {errs[worst]:.3e}")
 
 
+# the CLI's steps in phase 4 (its default is 200): the loss falls well
+# within them, and each launch count is exact from the first step
+CLI_STEPS = 50
+
+
 def phase_cli(torch) -> None:
-    """The CLI at its defaults for the ported paths (Falcon at 50 steps),
+    """The CLI at its defaults but ``CLI_STEPS`` steps for the ported paths,
     qwen3-1b, minicpm-2b (whose learning rate must follow WSD step by
     step), qwen2-vl-7b (M-RoPE on the text-only default positions, as the
-    CLI's loader gives none) and ``--d-model 128`` (4 heads of 32: K2 on
-    a padded head dim); the loss must fall in each."""
+    CLI's loader gives none), ``--d-model 128`` (4 heads of 32: K2 on a
+    padded head dim), ``--d-model 200`` (4 heads of 50: K2 on a head dim
+    no multiple of 8, padded by its wrapper) and DeepSeek at ``--d-model
+    1020`` (15 heads of 68, and experts of K = 1020 by N = 2040: K3's bf16
+    operands padded); the loss must fall in each, and K2 (and K3 in
+    DeepSeek's) must launch."""
     from repro_torch.kernels import ops
     from repro_torch.launch import train
     from repro_torch.optim import wsd_schedule
-    for extra in ([], ["--arch", "falcon-mamba-7b", "--steps", "50"],
+    for extra in ([], ["--arch", "falcon-mamba-7b"],
                   ["--arch", "deepseek-moe-16b"], ["--arch", "qwen3-1b"],
-                  ["--arch", "minicpm-2b"], ["--arch", "qwen2-vl-7b"], ["--d-model", "128"]):
+                  ["--arch", "minicpm-2b"], ["--arch", "qwen2-vl-7b"], ["--d-model", "128"],
+                  ["--d-model", "200"], ["--arch", "deepseek-moe-16b", "--d-model", "1020"]):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
             ops.reset_launch_counts()
             t0 = time.perf_counter()
-            sup, _ = train.run(["--ckpt-dir", tmp, *extra])
+            sup, _ = train.run(["--ckpt-dir", tmp, "--steps", str(CLI_STEPS), *extra])
             torch.cuda.synchronize()
             counts = ops.launch_counts()
             print(f"  CLI {' '.join(extra) or 'at its defaults'}: {len(sup.history)} steps in "
@@ -1637,6 +1829,8 @@ def phase_cli(torch) -> None:
         if "--arch" not in extra or extra[1] != "falcon-mamba-7b":
             if not counts["rmsnorm"] or not counts["flash_attention"]:
                 fail(f"CLI {extra}: K1 or K2 never launched: {counts}")
+        if "deepseek-moe-16b" in extra and not (counts["moe_gmm"] and counts["moe_gmm_bwd"]):
+            fail(f"CLI {extra}: K3 never launched: {counts}")
         if extra[-1:] == ["minicpm-2b"]:
             lr = wsd_schedule(3e-3, len(losses))
             want = [float(lr(i)) for i in range(len(losses))]
@@ -4402,8 +4596,9 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         **{key: r[key] for key in r if key.startswith("at_")
-                           or key in ("tflops", "two_bmm_ms", "max_abs_err_fp32_p",
-                                      "launch_floor_ms", "host_us", "library_host_us")}})
+                           or key in ("tflops", "two_bmm_ms", "max_abs_err_fp32_p", "ms_cold",
+                                      "library_ms_cold", "launch_floor_ms", "host_us",
+                                      "library_host_us")}})
     phase("done")
     print("3g " + json.dumps(summary_3g), flush=True)
     print("3h " + json.dumps(summary_3h), flush=True)

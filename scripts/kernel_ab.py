@@ -21,7 +21,9 @@ line a turn, in microseconds.  The sets:
   call at the decode shape (``host``, ``host_library``).
 - ``k4``: the scan kernels at Falcon-Mamba-7B's training shape (4, 1024,
   8192, 16) in bf16 (the forward saving its chunk states, the backward)
-  and at its decode step (S = 1 from a cached state).
+  and at its decode step (S = 1 from a cached state); and at Zamba2's
+  scan shape (4, 1024, 5120, N) with bf16 x and fp32 dt at N = 32, 64
+  and 128 (``fwd_n64``, ``bwd_n64``, ...).
 - ``fp32``: the kernels that run fp32 inputs, beside the PyTorch call
   computing the same function (fp32 SDPA, ``torch.bmm`` with TF32 off):
   K2 at (4, 16, 1024, D) causal for D = 64 and 128, and K3 at
@@ -84,6 +86,16 @@ x1, dt1, B1, C1 = (t[:, :1].contiguous() for t in (x, dt, B, C))
 out = {"fwd": us_of(lambda: ms.mamba_scan_fwd(x, dt, A, B, C, save_states=True)),
        "bwd": us_of(lambda: ms.mamba_scan_bwd(x, dt, A, B, C, hs, dy)),
        "decode": us_of(lambda: ms.mamba_scan_fwd(x1, dt1, A, B1, C1, h0))}
+c = 5120
+x, dy = randn((b, s, c), 0.5).bfloat16(), randn((b, s, c)).bfloat16()
+dt = torch.nn.functional.softplus(randn((b, s, c)))
+for n in (32, 64, 128):
+    A = -torch.exp(randn((c, n), 0.2))
+    B, C = randn((b, s, n), 0.5).bfloat16(), randn((b, s, n), 0.5).bfloat16()
+    _, _, hs = ms.mamba_scan_fwd(x, dt, A, B, C, save_states=True)
+    out[f"fwd_n{n}"] = us_of(lambda: ms.mamba_scan_fwd(x, dt, A, B, C, save_states=True))
+    out[f"bwd_n{n}"] = us_of(lambda: ms.mamba_scan_bwd(x, dt, A, B, C, hs, dy), reps=5)
+    del hs
 ''', "fp32": r'''
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_gmm as mg

@@ -128,6 +128,26 @@ def aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def padded(t, sizes):
+    """``t`` zero-padded at the end of its trailing dims to ``sizes`` (the
+    last dim's first), contiguous and 16-byte aligned, ``t`` itself if no
+    dim grows.  The copy and the zero strips are written once each (a
+    fill of the whole and a copy over it would write t's part twice)."""
+    shape = list(t.shape)
+    for i, size in enumerate(sizes):
+        shape[-1 - i] = size
+    if shape == list(t.shape):
+        return t
+    out = t.new_empty(shape)
+    region = out
+    for i in range(len(sizes)):
+        dim = t.ndim - 1 - i
+        region.narrow(dim, t.shape[dim], shape[dim] - t.shape[dim]).zero_()
+        region = region.narrow(dim, 0, t.shape[dim])
+    region.copy_(t)
+    return out
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use: threads that reach
     their first kernel together wait for one build."""

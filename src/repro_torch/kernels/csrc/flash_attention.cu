@@ -22,17 +22,30 @@
 // every row must see at least one key: the wrapper refuses a window
 // under which the last query row sees none (q_offset + Sq - W >= Skv).
 //
-// Head dims: every D with D % 8 == 0 and 8 <= D <= 128.  Each kernel is
-// instantiated at DPAD = 64 and 128 and runs a D on the next of the two:
-// the columns D..DPAD-1 of q, k and v are zeros (the bf16 tensor maps have
-// D columns and zero-fill the rest of each 64-column box; the fp32
-// kernel's copies zero-fill them), so they add nothing to q k^T and give
-// zero output columns, which are not stored.  A padded D pays DPAD's
-// matmul work (80 runs as 128).  D % 8 == 0 keeps TMA's global row stride
-// a multiple of 16 bytes.  The bf16 kernel keeps D = 64 and 128 on
-// instantiations of their own (kPad false): sharing the padded one's
-// runtime row stride and column test made them a few per cent slower on
-// the H100.
+// Head dims: every D with D % 8 == 0 and 8 <= D <= 256 (the wrapper pads
+// any other D up to 256 with zero columns to a multiple of 8).  Each
+// kernel is instantiated at DPAD = 64, 128 and 256 and runs a D on the
+// next of the three: the columns D..DPAD-1 of q, k and v are zeros (the
+// bf16 tensor maps have D columns and zero-fill the rest of each 64-column
+// box; the fp32 kernel's copies zero-fill them), so they add nothing to
+// q k^T and give zero output columns, which are not stored.  A padded D
+// pays DPAD's matmul work (80 runs as 128).  D % 8 == 0 keeps TMA's global
+// row stride a multiple of 16 bytes.  The bf16 kernel keeps D = 64, 128
+// and 256 on instantiations of their own (kPad false): sharing the padded
+// one's runtime row stride and column test made them a few per cent
+// slower on the H100.
+//
+// DPAD = 256.  A consumer warpgroup's 64 x 256 fp32 O would be 128
+// registers a thread before S and P, and q (64 KB) beside K and V stages
+// of 64 keys at 256 columns (64 KB each) leaves room for one stage.  So
+// two blocks share each query block: both compute S = q k^T over all 256
+// columns, and each computes O for 128 of them, loading only its half of
+// V.  They run the same instructions on the same values, so their S, m
+// and l are the same bits; the first writes lse.  Each keeps D = 128's
+// registers, and its ring keeps three stages of K (32 KB) and its half of
+// V (16 KB) beside q: 209 KB.  S's products are done twice (1.5x the MMA
+// work of one block); the two blocks are neighbours in the grid, so the
+// second reads K from L2.
 //
 // Bound on the H100: at the training shapes (S = 1024, causal) the bytes
 // of q, k, v, out and lse bound the call (10.1 us at D = 64, 20.1 us at
@@ -91,10 +104,15 @@ constexpr int kTcStages = 3;
 template <int D>
 struct TcShape {
   static constexpr int kBN = D == 64 ? 128 : 64;             // keys per tile
-  static constexpr int kChunks = D / 64;                     // 128-byte column blocks
+  static constexpr int kDO = D > 128 ? 128 : D;              // O's columns a block
+  static constexpr int kHalves = D / kDO;                    // blocks a query block
+  static constexpr int kChunks = D / 64;                     // 128-byte column blocks of q, K
+  static constexpr int kOChunks = kDO / 64;                  // and of V
   static constexpr int kQBytes = kTcBQ * D * 2;
-  static constexpr int kTileBytes = kBN * D * 2;             // a K or a V tile
-  static constexpr int kSmem = kQBytes + kTcStages * 2 * kTileBytes + 1024;
+  static constexpr int kKBytes = kBN * D * 2;                // a K tile
+  static constexpr int kVBytes = kBN * kDO * 2;              // a V tile: this block's columns
+  static constexpr int kStageBytes = kKBytes + kVBytes;
+  static constexpr int kSmem = kQBytes + kTcStages * kStageBytes + 1024;
 };
 
 template <int N>
@@ -115,10 +133,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// Shared memory: q as [D/64][128 rows][64], then per stage K and V, each
-// [D/64][BN keys][64]; every block of 64 columns is one TMA box.  D is the
-// padded head dim; with kPad the tensors' rows hold d < D columns, and the
-// boxes' columns past d arrive as zeros.  Without kPad, d == D.  kWindow
+// Shared memory: q as [D/64][128 rows][64], then per stage K as [D/64][BN
+// keys][64] and V as [kDO/64][BN keys][64] (columns col0 on); every block
+// of 64 columns is one TMA box.  D is the padded head dim; with kPad the
+// tensors' rows hold d < D columns, and the boxes' columns past d arrive as
+// zeros.  Without kPad, d == D.  kWindow
 // compiles the sliding window's tile range and mask in (window > 0): with
 // them in a runtime branch the calls without a window ran markedly slower
 // on the H100 (the same registers, no spills).
@@ -136,7 +155,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   uint8_t* smem = align1024(smem_raw);
   uint8_t* kv = smem + T::kQBytes;
 
-  const int bh = blockIdx.x;
+  const int bh = blockIdx.x / T::kHalves;
+  const int col0 = (blockIdx.x % T::kHalves) * T::kDO;   // this block's columns of O and v
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcBQ;    // the longest rows first
   const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
   const int rows_end = min(q0 + kTcBQ, sq);
@@ -165,13 +185,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       for (int i = t_lo; i < n_tiles; ++i) {
         const int j = i - t_lo, s = j % kTcStages;
         if (j >= kTcStages) mbar_wait(&empty[s], (j / kTcStages - 1) & 1);
-        uint8_t* ks = kv + s * 2 * T::kTileBytes;
-        uint8_t* vs = ks + T::kTileBytes;
-        mbar_expect_tx(&full[s], 2 * T::kTileBytes);
-        for (int c = 0; c < T::kChunks; ++c) {
+        uint8_t* ks = kv + s * T::kStageBytes;
+        uint8_t* vs = ks + T::kKBytes;
+        mbar_expect_tx(&full[s], T::kStageBytes);
+        for (int c = 0; c < T::kChunks; ++c)
           tma_load_3d(ks + c * BN * 128, &kmap, &full[s], c * 64, i * BN, kvh);
-          tma_load_3d(vs + c * BN * 128, &vmap, &full[s], c * 64, i * BN, kvh);
-        }
+        for (int c = 0; c < T::kOChunks; ++c)
+          tma_load_3d(vs + c * BN * 128, &vmap, &full[s], col0 + c * 64, i * BN, kvh);
       }
     }
     return;
@@ -189,9 +209,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   // the window's lower edge for some row
   const int w_lo_last = wq0 + 63 + q_offset - window + 1;
   const int row0 = wq0 + (warp % 4) * 16 + lane / 4;     // and row0 + 8
-  float oacc[D / 2];
+  constexpr int DO = T::kDO;
+  float oacc[DO / 2];
 #pragma unroll
-  for (int j = 0; j < D / 2; ++j) oacc[j] = 0.f;
+  for (int j = 0; j < DO / 2; ++j) oacc[j] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   const uint32_t qs = smem_u32(smem) + wg * 64 * 128;
   mbar_wait(&q_full, 0);
@@ -200,8 +221,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const int s = (i - t_lo) % kTcStages;
     mbar_wait(&full[s], ((i - t_lo) / kTcStages) & 1);
     if (i >= t_mine && i < n_mine) {
-      const uint32_t ks = smem_u32(kv + s * 2 * T::kTileBytes);
-      const uint32_t vs = ks + T::kTileBytes;
+      const uint32_t ks = smem_u32(kv + s * T::kStageBytes);
+      const uint32_t vs = ks + T::kKBytes;
       float sc[BN / 2];
       wgmma_fence();
 #pragma unroll
@@ -249,13 +270,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + psum[h];
 #pragma unroll
-      for (int j = 0; j < D / 2; ++j) oacc[j] *= corr[(j >> 1) & 1];
+      for (int j = 0; j < DO / 2; ++j) oacc[j] *= corr[(j >> 1) & 1];
 
       fence_regs(oacc);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_rs<D>(oacc, pa[kk], sw128_desc(vs + kk * 2048, BN * 128, 1024));
+        wgmma_rs<DO>(oacc, pa[kk], sw128_desc(vs + kk * 2048, BN * 128, 1024));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(oacc);
@@ -272,13 +293,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const float denom = fmaxf(l[h], 1e-30f);
     const int row = row0 + 8 * h;
     if (row >= sq) continue;
-    __nv_bfloat16* orow = o + (obase + row) * (kPad ? d : D) + 2 * (lane % 4);
+    __nv_bfloat16* orow = o + (obase + row) * (kPad ? d : D) + col0 + 2 * (lane % 4);
 #pragma unroll
-    for (int j = 2 * h; j < D / 2; j += 4)   // 8-column groups; d % 8 == 0
-      if (!kPad || 8 * (j >> 2) < d)
+    for (int j = 2 * h; j < DO / 2; j += 4)  // 8-column groups; d % 8 == 0
+      if (!kPad || col0 + 8 * (j >> 2) < d)
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * (j >> 2)) =
             __floats2bfloat162_rn(oacc[j] / denom, oacc[j + 1] / denom);
-    if (lane % 4 == 0) lse[obase + row] = m[h] + logf(denom);
+    if (lane % 4 == 0 && col0 == 0) lse[obase + row] = m[h] + logf(denom);
   }
 }
 
@@ -297,7 +318,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, void* lse
       flash_fwd_wgmma_kernel<D, kPad, kWindow>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       T::kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid(b * hq, (sq + kTcBQ - 1) / kTcBQ);
+  const dim3 grid(b * hq * T::kHalves, (sq + kTcBQ - 1) / kTcBQ);
   flash_fwd_wgmma_kernel<D, kPad, kWindow><<<grid, kTcThreads, T::kSmem, s>>>(
       qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), hq, hkv, sq,
       skv, d, causal, q_offset, window, scale);
@@ -317,27 +338,31 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
   if (window > 0) {
     if (d == 64) return FLASH_WGMMA(64, false, true);
     if (d == 128) return FLASH_WGMMA(128, false, true);
+    if (d == 256) return FLASH_WGMMA(256, false, true);
     if (d < 64) return FLASH_WGMMA(64, true, true);
-    return FLASH_WGMMA(128, true, true);
+    if (d < 128) return FLASH_WGMMA(128, true, true);
+    return FLASH_WGMMA(256, true, true);
   }
   if (d == 64) return FLASH_WGMMA(64, false, false);
   if (d == 128) return FLASH_WGMMA(128, false, false);
+  if (d == 256) return FLASH_WGMMA(256, false, false);
   if (d < 64) return FLASH_WGMMA(64, true, false);
-  return FLASH_WGMMA(128, true, false);
+  if (d < 128) return FLASH_WGMMA(128, true, false);
+  return FLASH_WGMMA(256, true, false);
 #undef FLASH_WGMMA
 }
 
 }  // namespace
 
 // dtype: 0 = float32 (split TF32), 1 = bfloat16 (wgmma); d % 8 == 0
-// and 8 <= d <= 128.  window: the sliding window W (0 = none).  Both need
+// and 8 <= d <= 256.  window: the sliding window W (0 = none).  Both need
 // 16-byte aligned q, k, v and out.  Returns cudaGetLastError() after the
 // launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int b, int hq, int hkv, int sq, int skv,
                                    int d, int causal, int q_offset, int window, float scale,
                                    int dtype, void* stream) {
-  if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv || sq <= 0 || skv <= 0 || d < 8 || d > 128 ||
+  if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv || sq <= 0 || skv <= 0 || d < 8 || d > 256 ||
       d % 8 || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -10,8 +10,8 @@
 // h / (Hq / Hkv); keys masked by kpos < Skv, when causal by kpos <= qpos,
 // with a window W > 0 by kpos > qpos - W (qpos = row + q_offset), masked
 // scores at -1e30; KV tiles wholly above the diagonal or below every row's
-// window skipped; every D % 8 == 0 up to 128 run on DPAD = 64 or 128 with
-// the columns past D read as zeros.
+// window skipped; every D % 8 == 0 up to 256 run on DPAD = 64, 128 or 256
+// with the columns past D read as zeros.
 //
 // Bound on the H100.  A causal (4, 16, 1024, 128) call does 4 D FLOPs per
 // visible (query, key) pair, 17.2 GFLOP: 257 us at the 67 TFLOP/s of fp32
@@ -27,7 +27,15 @@
 // conversion instruction.
 //
 // A block of 2 BQ threads owns BQ = 128 query rows of one (b, h) (64 when
-// B Hq blocks of 128 would not fill the 132 SMs): a warp 16 rows.  q stays
+// B Hq blocks of 128 would not fill the 132 SMs): a warp 16 rows.  At
+// DPAD = 256 two blocks share a (b, h) and its query rows, each computing
+// S = q k^T over all 256 columns and O for 128 of them: a warp's 16 x 256
+// tile of O alone would take 128 registers a thread.  The two compute the
+// same S, m and l (the same instructions on the same values), the first
+// writes lse, and S's products are done twice (1.5x the MMA work of one
+// block); their blocks are neighbours, so the second reads K from L2.
+// There BQ is 64 and the tiles hold 32 keys: q (256 wide) and two stages
+// of K (256 wide) and V (128) fill 164 KB of shared memory.  q stays
 // in shared memory, scaled once; K and V tiles of 64 keys stream through a
 // 2-stage cp.async ring of 16-byte copies, the next tile's loads in flight
 // behind the current tile's math.  Rows are padded (q and K by 4 floats, V
@@ -64,14 +72,16 @@ using cuda_core::copies_commit;
 using cuda_core::copies_wait;
 using cuda_core::copy16;
 
-constexpr int kBK = 64;            // keys a tile
 constexpr int kSms = 132;          // the H100 SXM's SMs: below that many blocks, BQ = 64
 constexpr float kNegInf = -1e30f;
 
 template <int D, int BQ>
 struct FaShape {
   static constexpr int kThreads = 2 * BQ;       // a warp a group of 16 rows
-  static constexpr int kLdQ = D + 4, kLdK = D + 4, kLdV = D + 8;   // row strides
+  static constexpr int kBK = D > 128 ? 32 : 64;              // keys a tile
+  static constexpr int kDO = D > 128 ? 128 : D;              // O's columns a block
+  static constexpr int kHalves = D / kDO;                    // blocks a query block
+  static constexpr int kLdQ = D + 4, kLdK = D + 4, kLdV = kDO + 8;   // row strides
   static constexpr int kQ = BQ * kLdQ;
   static constexpr int kK = kBK * kLdK, kV = kBK * kLdV;
   static constexpr int kSmem = 4 * (kQ + 2 * (kK + kV));
@@ -104,14 +114,17 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
   mma_tf32(d, ah, bh);
 }
 
-template <int D, int LD>
+// Rows r0 .. r0 + n - 1 of a tensor whose rows are `stride` floats
+// apart, W floats of each from g (the first column to load), into dst's
+// rows LD floats apart: zeros past nmax rows and past `cols` columns.
+template <int W, int LD>
 __device__ __forceinline__ void load_rows(float* dst, const float* g, int r0, int n, int nmax,
-                                          int d, int nt) {
-  constexpr int kChunks = D / 4;
+                                          int cols, int stride, int nt) {
+  constexpr int kChunks = W / 4;
   for (int i = threadIdx.x; i < n * kChunks; i += nt) {
     const int r = i / kChunks, col = 4 * (i % kChunks);
-    const bool in = r0 + r < nmax && col < d;
-    copy16(dst + r * LD + col, in ? g + int64_t(r0 + r) * d + col : g, in ? 16 : 0);
+    const bool in = r0 + r < nmax && col < cols;
+    copy16(dst + r * LD + col, in ? g + int64_t(r0 + r) * stride + col : g, in ? 16 : 0);
   }
 }
 
@@ -122,35 +135,36 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       float* __restrict__ lse, int hq, int hkv, int sq, int skv, int d,
                       int causal, int q_offset, int window, float scale) {
   using S = FaShape<D, BQ>;
-  constexpr int kNT = S::kThreads;
+  constexpr int kNT = S::kThreads, kBK = S::kBK, kDO = S::kDO;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);
   float* ks = qs + S::kQ;                       // stages 0, 1
   float* vs = ks + 2 * S::kK;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.x;
+  const int bh = blockIdx.x / S::kHalves;
+  const int col0 = (blockIdx.x % S::kHalves) * kDO;     // this block's columns of O and v
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;     // the longest rows first
   const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
   const float* qg = q + int64_t(bh) * sq * d;
   const float* kg = k + int64_t(kvh) * skv * d;
-  const float* vg = v + int64_t(kvh) * skv * d;
+  const float* vg = v + int64_t(kvh) * skv * d + col0;
   const int rows_end = min(q0 + BQ, sq);
   const int kv_end = causal ? min(skv, rows_end + q_offset) : skv;
   const int t_lo = window > 0 ? max(0, q0 + q_offset - window + 1) / kBK : 0;
   const int t_hi = (kv_end + kBK - 1) / kBK;
 
-  load_rows<D, S::kLdQ>(qs, qg, q0, BQ, sq, d, kNT);
+  load_rows<D, S::kLdQ>(qs, qg, q0, BQ, sq, d, d, kNT);
   if (t_lo < t_hi) {
-    load_rows<D, S::kLdK>(ks, kg, t_lo * kBK, kBK, skv, d, kNT);
-    load_rows<D, S::kLdV>(vs, vg, t_lo * kBK, kBK, skv, d, kNT);
+    load_rows<D, S::kLdK>(ks, kg, t_lo * kBK, kBK, skv, d, d, kNT);
+    load_rows<kDO, S::kLdV>(vs, vg, t_lo * kBK, kBK, skv, d - col0, d, kNT);
   }
   copies_commit();
 
-  // a warp's rows 16 warp + g (ra) and + 8 (rb); O's columns 8 n + 2 t, + 1
-  float oacc[D / 8][4];
+  // a warp's rows 16 warp + g (ra) and + 8 (rb); O's columns col0 + 8 n + 2 t, + 1
+  float oacc[kDO / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < kDO / 8; ++n)
 #pragma unroll
     for (int x = 0; x < 4; ++x) oacc[n][x] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
@@ -166,8 +180,9 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();
     }
     if (tt + 1 < t_hi) {
-      load_rows<D, S::kLdK>(ks + (stage ^ 1) * S::kK, kg, (tt + 1) * kBK, kBK, skv, d, kNT);
-      load_rows<D, S::kLdV>(vs + (stage ^ 1) * S::kV, vg, (tt + 1) * kBK, kBK, skv, d, kNT);
+      load_rows<D, S::kLdK>(ks + (stage ^ 1) * S::kK, kg, (tt + 1) * kBK, kBK, skv, d, d, kNT);
+      load_rows<kDO, S::kLdV>(vs + (stage ^ 1) * S::kV, vg, (tt + 1) * kBK, kBK, skv, d - col0,
+                              d, kNT);
     }
     copies_commit();
     const int k0 = tt * kBK;
@@ -176,7 +191,7 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float* kt = ks + stage * S::kK;
     const float* vt = vs + stage * S::kV;
 
-    // S = q k^T: this warp's 16 rows by 64 keys, 8 keys an n-tile
+    // S = q k^T: this warp's 16 rows by kBK keys, 8 keys an n-tile
     float sacc[kBK / 8][4];
 #pragma unroll
     for (int j = 0; j < kBK / 8; ++j)
@@ -198,7 +213,7 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
 
-    // the online softmax on the accumulators: a row's 64 keys sit in the
+    // the online softmax on the accumulators: a row's kBK keys sit in the
     // 4 threads of a quad
     const bool edge = k0 + kBK > skv || (causal && k0 + kBK - 1 > wq0) ||
                       (window > 0 && k0 <= wq0 + 15 - window);
@@ -255,7 +270,7 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       pa[kk][2] = (t & 1) ? z1 : z0;          // (ra, key t + 4)
       pa[kk][3] = (t & 1) ? w1 : w0;          // (rb, key t + 4)
     }
-    constexpr int kN = D / 16;                // n-tiles in half of O's columns
+    constexpr int kN = kDO / 16;              // n-tiles in half of this block's O
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       float pv[kN][4];
@@ -296,11 +311,11 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (row >= sq) continue;
     const float denom = fmaxf(lh, 1e-30f);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      if (8 * n < d)
-        *reinterpret_cast<float2*>(o + (obase + row) * d + 8 * n + 2 * t) =
+    for (int n = 0; n < kDO / 8; ++n)
+      if (col0 + 8 * n < d)
+        *reinterpret_cast<float2*>(o + (obase + row) * d + col0 + 8 * n + 2 * t) =
             make_float2(oacc[n][2 * h] / denom, oacc[n][2 * h + 1] / denom);
-    if (t == 0) lse[obase + row] = m[h] + logf(denom);
+    if (t == 0 && col0 == 0) lse[obase + row] = m[h] + logf(denom);
   }
 }
 
@@ -312,7 +327,7 @@ int launch(const float* q, const float* k, const float* v, float* o, float* lse,
   const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_fp32_kernel<D, BQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid(b * hq, (sq + BQ - 1) / BQ);
+  const dim3 grid(b * hq * S::kHalves, (sq + BQ - 1) / BQ);
   flash_fwd_fp32_kernel<D, BQ><<<grid, S::kThreads, S::kSmem, s>>>(
       q, k, v, o, lse, hq, hkv, sq, skv, d, causal, q_offset, window, scale);
   return static_cast<int>(cudaGetLastError());
@@ -321,22 +336,23 @@ int launch(const float* q, const float* k, const float* v, float* o, float* lse,
 }  // namespace
 
 // fp32 q (B, Hq, Sq, d), k and v (B, Hkv, Skv, d), out and lse; d % 8 == 0,
-// 8 <= d <= 128; window 0 (none) or the sliding window; q, k, v and out
-// 16-byte aligned.  rows: the query rows a block, 64 or 128, or 0 to choose
-// (64 when B Hq blocks of 128 rows would not fill the SMs; the entry point
-// passes 0, the CPU emulation test 128 to reach that block on small
-// grids).  Returns cudaGetLastError() after the launch (0 on success).
+// 8 <= d <= 256; window 0 (none) or the sliding window; q, k, v and out
+// 16-byte aligned.  rows: the query rows a block, 64 or 128 (64 only at
+// d > 128), or 0 to choose (64 when B Hq blocks of 128 rows would not fill
+// the SMs, and at d > 128; the entry point passes 0, the CPU emulation
+// test 128 to reach that block on small grids).  Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attention_fwd_fp32(const void* q, const void* k, const void* v, void* o,
                                         void* lse, int b, int hq, int hkv, int sq, int skv,
                                         int d, int causal, int q_offset, int window,
                                         float scale, int rows, void* stream) {
-  if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv || sq <= 0 || skv <= 0 || d < 8 || d > 128 ||
-      d % 8 || window < 0 || int64_t(b) * hq > 0x7fffffff || (sq + 63) / 64 > 65535 ||
+  if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv || sq <= 0 || skv <= 0 || d < 8 || d > 256 ||
+      d % 8 || window < 0 || int64_t(b) * hq * 2 > 0x7fffffff || (sq + 63) / 64 > 65535 ||
       (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (rows == 0) rows = int64_t(b) * hq * ((sq + 127) / 128) < kSms ? 64 : 128;
-  if (rows != 64 && rows != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) rows = d > 128 || int64_t(b) * hq * ((sq + 127) / 128) < kSms ? 64 : 128;
+  if ((rows != 64 && rows != 128) || (d > 128 && rows != 64))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* qp = static_cast<const float*>(q);
   const float* kp = static_cast<const float*>(k);
@@ -346,6 +362,7 @@ extern "C" int flash_attention_fwd_fp32(const void* q, const void* k, const void
 #define FLASH_FP32(D, BQ) \
   launch<D, BQ>(qp, kp, vp, op, lp, b, hq, hkv, sq, skv, d, causal, q_offset, window, scale, s)
   if (d <= 64) return rows == 64 ? FLASH_FP32(64, 64) : FLASH_FP32(64, 128);
-  return rows == 64 ? FLASH_FP32(128, 64) : FLASH_FP32(128, 128);
+  if (d <= 128) return rows == 64 ? FLASH_FP32(128, 64) : FLASH_FP32(128, 128);
+  return FLASH_FP32(256, 64);
 #undef FLASH_FP32
 }

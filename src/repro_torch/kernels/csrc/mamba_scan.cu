@@ -22,7 +22,7 @@ int by_type(bool bwd, const Args& a, int dtype, int dt_dtype) {
 }
 
 bool valid(int batch, int S, int C, int n, int chunk) {
-  return batch > 0 && S > 0 && C > 0 && (n == 16 || n == 32 || n == 64) && chunk == kChunk;
+  return batch > 0 && S > 0 && C > 0 && (n == 16 || n == 32 || n == 64 || n == 128) && chunk == kChunk;
 }
 
 }  // namespace
@@ -30,7 +30,7 @@ bool valid(int batch, int S, int C, int n, int chunk) {
 
 // x, dt: (batch, S, C); A: (C, n) fp32; B, C: (batch, S, n), in x's type
 // at n = 16 and fp32 above; h0: (batch, C, n) fp32 or null; n a built
-// size (16, 32, 64).  A, B, C, h0 and hs 16-byte aligned.  Writes y (batch, S, C) in x's type without the x*D
+// size (16, 32, 64, 128).  A, B, C, h0 and hs 16-byte aligned.  Writes y (batch, S, C) in x's type without the x*D
 // term, hT (batch, C, n) fp32 and, when hs is not null, the state at the
 // start of every chunk of `chunk` steps: hs (batch, ceil(S/chunk), C, n)
 // fp32.  Type codes (0 = float32, 1 = bfloat16): dtype for x and y,
@@ -52,7 +52,8 @@ extern "C" int mamba_scan_fwd(const void* x, const void* dt, const float* A, con
 // dx in x's type, ddt in dt's, dh0 (batch, C, n) fp32, and partial sums
 // that the caller adds up: dA_part (batch, C, n) over batch rows, dB_part
 // and dC_part (batch, nblk, S, n) over the nblk channel blocks of 128 / L
-// channels (L = 1 at 16 states, 2 at 32, 4 at 64).
+// channels (L = 1 at 16 states, 2 at 32, 4 at 64), and of 4 x 16 channels
+// at 128 states (8 lanes a channel, kBwdGroups).
 extern "C" int mamba_scan_bwd(const void* x, const void* dt, const float* A, const float* Bm,
                               const float* Cm, const float* hs, const void* dy,
                               const float* dhT, void* dx, void* ddt, float* dA_part,

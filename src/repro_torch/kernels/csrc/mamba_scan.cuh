@@ -17,11 +17,11 @@
 // neighbouring threads take neighbouring channels, so the (B, S, C)
 // tensors are read and written contiguously at every step as they lie.
 //
-// What it takes.  State sizes NP = 16, 32 and 64, each built with its
-// size known to the compiler: with a run-time state count (masked loads
-// past it) ptxas spilled in most instantiations.  The wrapper runs any N
-// from 1 to 64 on the next of them, its extra states padded with 0 (A,
-// B, C and h0), which stay 0 and add nothing to y or to any gradient.
+// What it takes.  State sizes NP = 16, 32, 64 and 128, each built with
+// its size known to the compiler: with a run-time state count (masked
+// loads past it) ptxas spilled in most instantiations.  The wrapper runs
+// any N from 1 to 128 on the next of them, its extra states padded with 0
+// (A, B, C and h0), which stay 0 and add nothing to y or to any gradient.
 // Each input in its own type, as the TPU kernel casts each one to fp32
 // on its own: x (and y, dy, dx) fp32 or bf16, dt (and ddt) fp32 or bf16
 // (a template type of its own, so an fp32 dt is never rounded to x's
@@ -42,12 +42,13 @@
 // floor.  The backward takes 2.5 exps per element (below) and ~30 fp32
 // operations, the channel sums included, and moves ~0.5 GB.  At Zamba2's
 // SSD shape (4, 1024, 5120, 64), fp32 dt, the exps (1.34G, ~321 us) are
-// the floor again.
+// the floor again; at N = 128 (the public Mamba-2 models' state size),
+// 2.68G exps, ~642 us.
 //
 // Forward design.  A channel's NP states are held in registers by L
 // lanes of one warp, 16 states each (L = 1 at 16 states, 2 at 32, 4 at
-// 64; the state arrays are indexed only by unrolled loop counters, so
-// nothing goes to local memory), with A
+// 64, 8 at 128; the state arrays are indexed only by unrolled loop
+// counters, so nothing goes to local memory), with A
 // pre-scaled by log2(e) so each exp is one MUFU.EX2 (ex2.approx.ftz).  A
 // lane's states are whole quads dealt to the L lanes in turn, so the L
 // lanes read neighbouring 16-byte words of a row.  A block of 128 threads
@@ -89,7 +90,15 @@
 // the block's 4 warps, written as one partial row per block; the sum
 // over batch rows of dA is a per-row partial.  The wrapper adds the
 // partials with torch.sum: no atomics, and the result is the same bits
-// from run to run.
+// from run to run.  At 128 states a block's 128 threads hold 16 channels,
+// and a partial row of dB and dC a block would be 671 MB each at
+// (4, 1024, 5120, 128), four times the 168 MB at 64 states; so a block
+// there walks kBwdGroups = 4 groups of 16 channels in turn, adding each
+// group's sums to the partial rows the group before wrote (the same
+// thread reads back its own store, in a fixed order): 64 channels a
+// partial row, 168 MB.  Its shared memory (128 KB: the 64 KB of
+// recomputed states as at 64 states, and twice the B, C and channel sums)
+// leaves one block an SM, where the smaller sizes fit two.
 //
 // What limits them (measured on the H100; PERF.md has the numbers).
 // Neither kernel reaches its exp floor: each warp's step is
@@ -342,12 +351,13 @@ __device__ __forceinline__ void fwd_tile(float (&h)[NP / kLanes<NP>],
 }
 
 // Blocks per SM the forward is compiled for above 16 states: three (a
-// 170-register budget), which they fit without spilling; left to itself
-// ptxas took ~250 registers at 64 states (two blocks an SM).  The
-// 16-state forward keeps its own choice (~168), as before: under 170 its
-// fp32 instantiation spilled.
+// 170-register budget), which they fit without spilling at 32 and 64;
+// left to itself ptxas took ~250 registers at 64 states (two blocks an
+// SM).  At 128 states three spilled (4-16 bytes), so two (~246 registers).
+// The 16-state forward keeps its own choice (~168), as before: under 170
+// its fp32 instantiation spilled.
 template <int NP>
-constexpr int kFwdBlocks = NP > 16 ? 3 : 1;
+constexpr int kFwdBlocks = NP > 64 ? 2 : NP > 16 ? 3 : 1;
 
 template <typename T, typename TD, int NP>
 __global__ void __launch_bounds__(kThreads, kFwdBlocks<NP>)
@@ -549,16 +559,20 @@ __device__ __forceinline__ void bwd_segment(BwdSmem<NP>& sm, int sg, int nt, int
   }
 }
 
-// Blocks per SM the backward is compiled for, which sets its register
-// budget to the 255-register cap (65536 / (128 * 2)); two fit an SM's
-// shared memory at every built size.
-constexpr int kBwdBlocks = 2;
-static_assert(sizeof(BwdSmem<16>) <= 113 * 1024 && sizeof(BwdSmem<32>) <= 113 * 1024 &&
-                  sizeof(BwdSmem<64>) <= 113 * 1024,
-              "kBwdBlocks blocks fit an SM's shared memory");
+// Blocks per SM the backward is compiled for: two where their shared
+// memory fits an SM's (up to 64 states), else one.  Either sets its
+// register budget to the 255-register cap (65536 / (128 * 2)).
+template <int NP>
+constexpr int kBwdBlocks = sizeof(BwdSmem<NP>) <= 113 * 1024 ? 2 : 1;
+static_assert(sizeof(BwdSmem<128>) <= 227 * 1024, "a block fits an SM's shared memory");
+
+// Groups of kThreads / L channels a backward block walks in turn, adding
+// their channel sums into one partial row of dB and dC (see the note).
+template <int NP>
+constexpr int kBwdGroups = NP > 64 ? 4 : 1;
 
 template <typename T, typename TD, int NP>
-__global__ void __launch_bounds__(kThreads, kBwdBlocks)
+__global__ void __launch_bounds__(kThreads, kBwdBlocks<NP>)
 mamba_scan_bwd_kernel(const T* __restrict__ x, const TD* __restrict__ dt,
                       const float* __restrict__ A, const float* __restrict__ Bm,
                       const float* __restrict__ Cm, const float* __restrict__ hs,
@@ -567,100 +581,110 @@ mamba_scan_bwd_kernel(const T* __restrict__ x, const TD* __restrict__ dt,
                       float* __restrict__ dB_part, float* __restrict__ dC_part,
                       float* __restrict__ dh0, int S, int C) {
   constexpr int L = kLanes<NP>, NL = NP / L;
-  constexpr int kBC = 2 * kChunk * NP / kThreads;
+  // B and C as in the forward: at 16 states the next chunk's are loaded
+  // into registers a chunk ahead (4 a thread); above, the chunk's are
+  // copied by cp.async at its start, through no registers (through 32 of
+  // them the 128-state kernel spilled 144-176 bytes)
+  constexpr bool kCopies = NP > 16;
+  constexpr int kBC = kCopies ? 1 : 2 * kChunk * NP / kThreads;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   BwdSmem<NP>& sm = *reinterpret_cast<BwdSmem<NP>*>(smem_raw);
   const int tid = threadIdx.x, sub = tid % L;
   const int b = blockIdx.y, blk = blockIdx.x, nblk = gridDim.x;
-  const int c = blk * (kThreads / L) + tid / L;
-  const bool active = c < C, writer = active && sub == 0;
   const int nchunk = (S + kChunk - 1) / kChunk;
   const size_t row0 = static_cast<size_t>(b) * S;
-  const size_t st = (static_cast<size_t>(b) * C + c) * NP;
-  float a2[NL], g[NL], dA[NL];
-#pragma unroll
-  for (int k = 0; k < NL; ++k) a2[k] = g[k] = dA[k] = 0.f;
-  if (active) {
-    load_row<NL, L>(a2, A + static_cast<size_t>(c) * NP, sub);
-    if (dhT) load_row<NL, L>(g, dhT + st, sub);
-  }
-#pragma unroll
-  for (int k = 0; k < NL; ++k) a2[k] *= kLog2e;
-
-  // the next chunk's B and C are loaded a chunk ahead where they take few
-  // registers (NP <= 16); above, at the chunk's start, so that their
-  // registers are free while it runs
-  constexpr bool kAhead = kBC <= 4;
-  float bc[kBC];
-  if (kAhead) load_bc<float, NP, kChunk>(bc, Bm, Cm, row0, (nchunk - 1) * kChunk, S, tid);
   int par = 0;
-  for (int k = nchunk - 1; k >= 0; --k) {
-    const int ts = k * kChunk;
-    const int nseg = (min(kChunk, S - ts) + kSeg - 1) / kSeg;
-    if (!kAhead) load_bc<float, NP, kChunk>(bc, Bm, Cm, row0, ts, S, tid);
-    // every thread is past the last segment's barrier, so none reads sBC now
-    store_bc<float, NP, kChunk>(&sm.sBC[0][0][0], bc, tid);
-    __syncthreads();
-    if (kAhead && k > 0)
-      load_bc<float, NP, kChunk>(bc, Bm, Cm, row0, ts - kChunk, S, tid);
-    const float(*sB)[NP] = sm.sBC[0];
-
-    // the state at the start of each segment, from the chunk's saved state
-    float h[NL];
+  for (int grp = 0; grp < kBwdGroups<NP>; ++grp) {
+    const int c = (blk * kBwdGroups<NP> + grp) * (kThreads / L) + tid / L;
+    const bool active = c < C, writer = active && sub == 0;
+    const size_t st = (static_cast<size_t>(b) * C + c) * NP;
+    float a2[NL], g[NL], dA[NL];
 #pragma unroll
-    for (int q = 0; q < NL; ++q) h[q] = 0.f;
-    if (active)
-      load_row<NL, L>(h, hs + ((static_cast<size_t>(b) * nchunk + k) * C + c) * NP, sub);
-    for (int sg = 0; sg < nseg; ++sg) {
-      store_col<NL>(sm.ck[sg], tid, h);
-      if (sg + 1 == nseg) break;
-      T xs[kSeg];
-      TD ds[kSeg];
-      load_steps<T, kSeg>(xs, x, row0, ts + sg * kSeg, S, C, c, active);
-      load_steps<TD, kSeg>(ds, dt, row0, ts + sg * kSeg, S, C, c, active);
-#pragma unroll
-      for (int r = 0; r < kSeg; ++r) {       // a whole segment: a later one follows
-        const float d = to_f(ds[r]), u = d * to_f(xs[r]);
-        float Bv[NL];
-        load_row<NL, L>(Bv, sB[sg * kSeg + r], sub);
-#pragma unroll
-        for (int q = 0; q < NL; ++q) h[q] = fmaf(h[q], ex2(d * a2[q]), u * Bv[q]);
-      }
+    for (int k = 0; k < NL; ++k) a2[k] = g[k] = dA[k] = 0.f;
+    if (active) {
+      load_row<NL, L>(a2, A + static_cast<size_t>(c) * NP, sub);
+      if (dhT) load_row<NL, L>(g, dhT + st, sub);
     }
+#pragma unroll
+    for (int k = 0; k < NL; ++k) a2[k] *= kLog2e;
 
-    for (int sg = nseg - 1; sg >= 0; --sg) {
-      const int s0 = ts + sg * kSeg, nt = min(kSeg, S - s0);
-      T xs[kSeg], dys[kSeg];
-      TD ds[kSeg];
-      load_steps<T, kSeg>(xs, x, row0, s0, S, C, c, active);
-      load_steps<TD, kSeg>(ds, dt, row0, s0, S, C, c, active);
-      load_steps<T, kSeg>(dys, dy, row0, s0, S, C, c, active);
-      const size_t off = (row0 + s0) * C + c;
-      if (nt == kSeg)
-        bwd_segment<T, TD, NP, true>(sm, sg, nt, par, tid, a2, g, dA, xs, ds, dys, dx, ddt,
-                                     off, C, writer);
-      else
-        bwd_segment<T, TD, NP, false>(sm, sg, nt, par, tid, a2, g, dA, xs, ds, dys, dx, ddt,
-                                      off, C, writer);
+    float bc[kBC];
+    if constexpr (!kCopies)
+      load_bc<float, NP, kChunk>(bc, Bm, Cm, row0, (nchunk - 1) * kChunk, S, tid);
+    for (int k = nchunk - 1; k >= 0; --k) {
+      const int ts = k * kChunk;
+      const int nseg = (min(kChunk, S - ts) + kSeg - 1) / kSeg;
+      // every thread is past the last segment's barrier, so none reads sBC now
+      if constexpr (kCopies) {
+        stage_bc<NP, kChunk>(&sm.sBC[0][0][0], Bm, Cm, row0, ts, S, tid);
+        copies_wait();
+      } else {
+        store_bc<float, NP, kChunk>(&sm.sBC[0][0][0], bc, tid);
+      }
       __syncthreads();
-      // the block's sums over its channels, warp by warp in a fixed order
-      for (int j = tid; j < nt * 2 * NP; j += kThreads) {
-        const int r = j / (2 * NP), m = j % (2 * NP);
-        float s = 0.f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) s += sm.red[par][r][w][m];
-        const size_t at = ((static_cast<size_t>(b) * nblk + blk) * S + s0 + r) * NP + m % NP;
-        (m < NP ? dB_part : dC_part)[at] = s;
+      if constexpr (!kCopies) {
+        if (k > 0) load_bc<float, NP, kChunk>(bc, Bm, Cm, row0, ts - kChunk, S, tid);
       }
-      if constexpr (kRedBufs<NP> == 2)
-        par ^= 1;
-      else
-        __syncthreads();                     // the sums are read before the next segment's
+      const float(*sB)[NP] = sm.sBC[0];
+
+      // the state at the start of each segment, from the chunk's saved state
+      float h[NL];
+#pragma unroll
+      for (int q = 0; q < NL; ++q) h[q] = 0.f;
+      if (active)
+        load_row<NL, L>(h, hs + ((static_cast<size_t>(b) * nchunk + k) * C + c) * NP, sub);
+      for (int sg = 0; sg < nseg; ++sg) {
+        store_col<NL>(sm.ck[sg], tid, h);
+        if (sg + 1 == nseg) break;
+        T xs[kSeg];
+        TD ds[kSeg];
+        load_steps<T, kSeg>(xs, x, row0, ts + sg * kSeg, S, C, c, active);
+        load_steps<TD, kSeg>(ds, dt, row0, ts + sg * kSeg, S, C, c, active);
+#pragma unroll
+        for (int r = 0; r < kSeg; ++r) {       // a whole segment: a later one follows
+          const float d = to_f(ds[r]), u = d * to_f(xs[r]);
+          float Bv[NL];
+          load_row<NL, L>(Bv, sB[sg * kSeg + r], sub);
+#pragma unroll
+          for (int q = 0; q < NL; ++q) h[q] = fmaf(h[q], ex2(d * a2[q]), u * Bv[q]);
+        }
+      }
+
+      for (int sg = nseg - 1; sg >= 0; --sg) {
+        const int s0 = ts + sg * kSeg, nt = min(kSeg, S - s0);
+        T xs[kSeg], dys[kSeg];
+        TD ds[kSeg];
+        load_steps<T, kSeg>(xs, x, row0, s0, S, C, c, active);
+        load_steps<TD, kSeg>(ds, dt, row0, s0, S, C, c, active);
+        load_steps<T, kSeg>(dys, dy, row0, s0, S, C, c, active);
+        const size_t off = (row0 + s0) * C + c;
+        if (nt == kSeg)
+          bwd_segment<T, TD, NP, true>(sm, sg, nt, par, tid, a2, g, dA, xs, ds, dys, dx, ddt,
+                                       off, C, writer);
+        else
+          bwd_segment<T, TD, NP, false>(sm, sg, nt, par, tid, a2, g, dA, xs, ds, dys, dx, ddt,
+                                        off, C, writer);
+        __syncthreads();
+        // the block's sums over its channels, warp by warp in a fixed order
+        for (int j = tid; j < nt * 2 * NP; j += kThreads) {
+          const int r = j / (2 * NP), m = j % (2 * NP);
+          float s = 0.f;
+#pragma unroll
+          for (int w = 0; w < kWarps; ++w) s += sm.red[par][r][w][m];
+          const size_t at = ((static_cast<size_t>(b) * nblk + blk) * S + s0 + r) * NP + m % NP;
+          float* dst = (m < NP ? dB_part : dC_part) + at;
+          *dst = grp ? *dst + s : s;           // this thread's own store of the group before
+        }
+        if constexpr (kRedBufs<NP> == 2)
+          par ^= 1;
+        else
+          __syncthreads();                     // the sums are read before the next segment's
+      }
     }
-  }
-  if (active) {
-    store_row<NL, L>(dh0 + st, g, sub);
-    store_row<NL, L>(dA_part + st, dA, sub);
+    if (active) {
+      store_row<NL, L>(dh0 + st, g, sub);
+      store_row<NL, L>(dA_part + st, dA, sub);
+    }
   }
 }
 
@@ -691,7 +715,7 @@ int launch_fwd(const Args& a) {
 
 template <typename T, typename TD, int NP>
 int launch_bwd(const Args& a) {
-  constexpr int kCh = kThreads / kLanes<NP>;
+  constexpr int kCh = kThreads / kLanes<NP> * kBwdGroups<NP>;
   const dim3 grid((a.C + kCh - 1) / kCh, a.batch);
   if (static_cast<int>(grid.x) != a.nblk) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = static_cast<int>(sizeof(BwdSmem<NP>));
@@ -706,13 +730,14 @@ int launch_bwd(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The built state sizes: 16, 32 and 64.
+// The built state sizes: 16, 32, 64 and 128.
 template <bool kBwd, typename T, typename TD>
 int by_state(const Args& a) {
   switch (a.n) {
     case 16: return kBwd ? launch_bwd<T, TD, 16>(a) : launch_fwd<T, TD, 16>(a);
     case 32: return kBwd ? launch_bwd<T, TD, 32>(a) : launch_fwd<T, TD, 32>(a);
     case 64: return kBwd ? launch_bwd<T, TD, 64>(a) : launch_fwd<T, TD, 64>(a);
+    case 128: return kBwd ? launch_bwd<T, TD, 128>(a) : launch_fwd<T, TD, 128>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -29,8 +29,10 @@
 // operand is read through a 3-D tensor map over (E, rows, cols), so TMA
 // zero-fills past every expert's ragged edge (M = 448 is 3.5 tiles, K may
 // be below 64) and the epilogue masks its stores.  TMA needs 16-byte rows:
-// every operand's contiguous extent is a multiple of 8 (the wrapper
-// checks).  A product of two bf16 values is exact in fp32, so the kernel
+// every operand's contiguous extent (K or N) is a multiple of 8; the
+// wrapper pads any other K or N with zeros to the next one (one copy of
+// each operand, and the output cut back).  A product of two bf16 values
+// is exact in fp32, so the kernel
 // computes the TPU kernel's function; only the order of the sum differs.
 //
 // fp32 runs on the CUDA cores in moe_gmm_fp32.cu (moe_gmm_fp32), which

@@ -8,9 +8,17 @@ returns the row logsumexp, so the backward needs no second forward, and
 it takes the sliding window of the JAX package's ``_blk_mask`` (a key is
 visible when ``kpos > qpos - window``), which the JAX package computes in
 its jnp reference only.  Ragged Sq and Skv are taken, and every head dim
-D with D % 8 == 0 and 8 <= D <= 128: each kernel is built for D = 64 and
-128 and runs a D on the next of the two, with the columns past D read as
-zeros (``head_dim_refusal``).
+D from 1 to 256 (``head_dim_refusal``): each kernel is built for D = 64,
+128 and 256 and runs a D on the next of the three, with the columns past
+D read as zeros.  A D that is no multiple of 8 is first padded here with
+zero columns to the next multiple (``fwd_call``): TMA reads bf16 rows of
+a multiple of 16 bytes.  The zero columns add nothing to q.k^T, the scale
+stays D**-0.5 of the true D, and out is cut back to D, so only such a D
+pays for the copies, one pass over q, k, v and one over out.  On the
+256-wide instantiation two blocks share each query block, each computing
+S over all the columns and O for 128 of them (a warp's O at 256 columns
+would not fit its registers): S's products are done twice, 1.5x the MMA
+work of one block.
 
 Two hand-written kernels, chosen by dtype, both on the tensor cores: bf16
 by ``wgmma`` fed by TMA, fp32 by ``mma.sync`` with each fp32 product split
@@ -36,7 +44,7 @@ from ..models.attention import NEG_INF, repeat_kv
 from . import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-PADDED_HEAD_DIMS = (64, 128)   # the kernels' instantiations
+PADDED_HEAD_DIMS = (64, 128, 256)   # the kernels' instantiations
 TC_ROWS = 128            # query rows per block of the bf16 kernel
 FP32_ROWS = 64           # the fewest query rows a block of the fp32 kernel takes
 GRID_Y = 65535           # CUDA's limit on gridDim.y
@@ -97,11 +105,9 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = True, q_offset: int = 0
 
 def head_dim_refusal(d: int) -> str | None:
     """Why neither kernel takes head dim ``d``, or None: d must fit the
-    larger instantiation and be a multiple of 8, so that TMA's rows of d
-    bf16 values are a multiple of 16 bytes."""
-    if d % 8 or not 8 <= d <= PADDED_HEAD_DIMS[-1]:
-        return (f"head_dim {d} is not a multiple of 8 in "
-                f"[8, {PADDED_HEAD_DIMS[-1]}]")
+    largest instantiation (``fwd_call`` pads it to a multiple of 8)."""
+    if not 1 <= d <= PADDED_HEAD_DIMS[-1]:
+        return f"head_dim {d} is not in [1, {PADDED_HEAD_DIMS[-1]}]"
     return None
 
 
@@ -163,14 +169,19 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0,
 def fwd_call(fn, stream, q, k, v, *, causal: bool, q_offset: int, window: int | None):
     """The forward by the C call ``fn`` (``flash_attention_fwd``'s
     signature) on ``stream`` (a pointer), on contiguous, 16-byte aligned
-    q, k, v: (out in q's dtype, lse fp32 (B, Hq, Sq))."""
+    q, k, v: (out in q's dtype, lse fp32 (B, Hq, Sq)).  A head dim d that
+    is no multiple of 8 runs padded with zero columns to the next one, at
+    the scale d**-0.5 of the true d, and out comes back cut to d."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
+    dp = -(-d // 8) * 8
+    if dp != d:
+        q, k, v = (_build.padded(t, (dp,)) for t in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            b, hq, hkv, sq, skv, d, int(causal), q_offset, window or 0, d ** -0.5,
+            b, hq, hkv, sq, skv, dp, int(causal), q_offset, window or 0, d ** -0.5,
             DTYPES[q.dtype], stream)
     if rc:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {rc}")
-    return out, lse
+    return (out if dp == d else out[..., :d].contiguous()), lse

@@ -10,8 +10,8 @@ scan); the port's K4-bwd is its own.
 
 Both return the scan without the skip term ``x*D``, which the caller
 adds in x's dtype (``ops.mamba_scan``), as the JAX wrapper does.  They
-take any state size N from 1 to ``MAX_STATE`` (64) on the card: the
-kernels are built for the ``BUILT`` sizes (16, 32, 64), and an N in
+take any state size N from 1 to ``MAX_STATE`` (128) on the card: the
+kernels are built for the ``BUILT`` sizes (16, 32, 64, 128), and an N in
 between runs on the next one up, A, B, C and h0 padded here with zeros
 (those states stay 0 and add nothing) and the outputs cut back to N.
 They take each input in its own dtype, as the TPU kernel does: x, dt, B
@@ -36,8 +36,9 @@ walks them in reverse: 2.5 exps per element (the reverse walk's, the
 segment recompute's, and half a chunk more for the segment starts),
 register sums over n (a butterfly across a channel's lanes), a warp
 transpose-reduce for the sums over channels, and one partial row of dB
-and dC per 128-thread block, added here with ``torch.sum`` (no atomics:
-the same bits every run).  Measured, neither kernel reaches its exp
+and dC per 128-thread block (at 128 states, per block of four 16-channel
+groups, which it walks in turn: ``bwd_channels``), added here with
+``torch.sum`` (no atomics: the same bits every run).  Measured, neither kernel reaches its exp
 floor: each warp's step is latency-bound (PERF.md has the times).
 
 ``mamba_scan_fwd`` and ``mamba_scan_bwd`` launch the kernels on CUDA
@@ -56,12 +57,13 @@ from . import _build
 
 CHUNK = 16              # steps between saved states (the kernel's kChunk)
 THREADS = 128           # threads per block (kThreads)
-BUILT = (16, 32, 64)    # the state sizes the kernels are built for
+BUILT = (16, 32, 64, 128)    # the state sizes the kernels are built for
 MAX_STATE = BUILT[-1]
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
 bwd_launches = 0
+partial_bytes = 0       # the bytes of each of the last backward call's dB and dC partial rows
 
 
 def _check(x, dt, A, B, C, h0):
@@ -92,11 +94,16 @@ def lanes(n: int) -> int:
     return max(1, built(n) // 16)
 
 
+def bwd_channels(n: int) -> int:
+    """Channels a backward block sums into one partial row of dB and dC at
+    state size n: its THREADS // lanes(n), walked four groups at a time
+    above 64 states (the kernel's kBwdGroups)."""
+    return THREADS // lanes(n) * (4 if built(n) > 64 else 1)
+
+
 def _pad(t, n: int):
     """``t`` with its last dim padded by zeros to n (None stays None)."""
-    if t is None or t.shape[-1] == n:
-        return t
-    return torch.nn.functional.pad(t, (0, n - t.shape[-1]))
+    return None if t is None else _build.padded(t, (n,))
 
 
 def _check_kernel(x, dt, A, B, C, *others):
@@ -255,6 +262,7 @@ def bwd_call(fn, stream, x, dt, A, B, C, hs, dy, dhT=None):
     """The backward kernel's C call ``fn`` on ``stream`` and the work
     around it, as ``fwd_call``'s; the partial sums of dA, dB and dC are
     added here.  Returns what ``mamba_scan_bwd`` returns."""
+    global partial_bytes
     b, s, c = x.shape
     n, nb = A.shape[1], built(A.shape[1])
     dtypes = B.dtype, C.dtype
@@ -262,11 +270,12 @@ def bwd_call(fn, stream, x, dt, A, B, C, hs, dy, dhT=None):
     B, C = (_build.aligned(_pad(t.float(), nb)) for t in (B, C))
     A, hs = _build.aligned(_pad(A, nb)), _build.aligned(_pad(hs, nb))
     dhT = None if dhT is None else _build.aligned(_pad(dhT.float(), nb))
-    nblk = -(-c // (THREADS // lanes(n)))     # channel blocks: partial rows of dB, dC
+    nblk = -(-c // bwd_channels(n))           # channel blocks: partial rows of dB, dC
     f32 = dict(dtype=torch.float32, device=x.device)
     dx, ddt = torch.empty_like(x), torch.empty_like(dt)
     dA_part, dh0 = torch.empty((b, c, nb), **f32), torch.empty((b, c, nb), **f32)
     dB_part, dC_part = (torch.empty((b, nblk, s, nb), **f32) for _ in range(2))
+    partial_bytes = dB_part.nbytes
     rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
             hs.data_ptr(), dy.data_ptr(), _ptr(dhT), dx.data_ptr(), ddt.data_ptr(),
             dA_part.data_ptr(), dB_part.data_ptr(), dC_part.data_ptr(), dh0.data_ptr(), b, s, c,

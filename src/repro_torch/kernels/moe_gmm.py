@@ -16,8 +16,12 @@ Hand-written kernels chosen by dtype: bf16 runs on the tensor cores
 the CUDA cores (tensor cores would take fp32 only as TF32) and takes any
 shape: at M <= 32 rows (the decode step) a kernel that streams w once at
 the bytes' pace, above it tiles of 64 or 128 rows by 128 columns fed by a
-``cp.async`` ring.  ``tc_refusal`` holds the rules under which the bf16 kernel takes
-a call; one it does not take raises.
+``cp.async`` ring.  The bf16 kernel reads every operand's rows by TMA,
+which needs K and N multiples of 8 (16-byte rows; its C entry point
+refuses the rest); the wrappers take any K and N by padding bf16
+operands with zeros to the next multiples (``tc_dims``): zero rows and
+columns of the contraction add nothing, and each output is cut back.  Only such a K or N pays for the copies, one pass
+over x and w (and dy) and one over the output.
 
 ``moe_gmm_fwd`` and ``moe_gmm_bwd`` launch the kernel on CUDA tensors
 and use the plain PyTorch versions ``moe_gmm_plain`` and
@@ -72,17 +76,13 @@ def _check_shapes(x, w):
         raise ValueError(f"moe_gmm kernel: {e} experts x {m} rows x {k} exceed the grid")
 
 
-def tc_refusal(x_shape, w_shape) -> str | None:
-    """Why the bf16 tensor-core kernel would not take x (E, M, K) @ w (E,
-    K, N), or its gradients dx and dw, or None if it takes them: the shape
-    rule of that kernel alone, beside the checks of devices, dtypes and the
-    grid.  TMA reads rows of a multiple of 16 bytes, and every operand of
-    the three products has K or N as its contiguous extent: both must be
-    multiples of 8 in bf16."""
-    k, n = x_shape[2], w_shape[2]
-    if k % 8 or n % 8:
-        return f"K = {k} and N = {n} must be multiples of 8 (16-byte rows for TMA)"
-    return None
+def tc_dims(dtype, k: int, n: int) -> tuple:
+    """(K, N) a call of ``dtype`` runs at: in bf16 each rounded up to a
+    multiple of 8, every operand's contiguous extent being K or N (the
+    operands padded with zeros), in fp32 as they are."""
+    if dtype != torch.bfloat16:
+        return k, n
+    return -(-k // 8) * 8, -(-n // 8) * 8
 
 
 def _admit(x, w, *more):
@@ -91,9 +91,6 @@ def _admit(x, w, *more):
     _check_shapes(x, w)
     if x.dtype != torch.bfloat16:
         return (x, w, *more)
-    why = tc_refusal(x.shape, w.shape)
-    if why:
-        raise ValueError(f"moe_gmm kernel: {why}")
     return tuple(map(_build.aligned, (x, w, *more)))
 
 
@@ -116,30 +113,37 @@ def _launch(fn, stream, a, b, c, m, n, k, trans_a, trans_b):
 def fwd_call(fn, stream, x, w):
     """The forward by the C call ``fn`` (``moe_gmm``'s signature) on
     ``stream`` (a pointer): y (E, M, N) in x's dtype, launched only if it
-    has elements."""
+    has elements, at ``tc_dims`` (x and w padded, y cut back)."""
     e, m, k = x.shape
     n = w.shape[2]
-    y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
+    kp, np_ = tc_dims(x.dtype, k, n)
+    x, w = _build.padded(x, (kp,)), _build.padded(w, (np_, kp))
+    y = torch.empty((e, m, np_), dtype=x.dtype, device=x.device)
     if y.numel():
-        _launch(fn, stream, x, w, y, m, n, k, False, False)
-    return y
+        _launch(fn, stream, x, w, y, m, np_, kp, False, False)
+    return y if np_ == n else y[..., :n].contiguous()
 
 
 def bwd_call(fn, stream, x, w, dy, need_dx: bool = True, need_dw: bool = True):
     """The backward's two products by the C call ``fn``: dx = dy @ w^T (the
     layout with B k-contiguous) and dw = x^T @ dy (A m-contiguous), each
-    None where not asked for and launched only if it has elements."""
+    None where not asked for and launched only if it has elements, at
+    ``tc_dims`` (x, w and dy padded, dx and dw cut back)."""
     e, m, k = x.shape
     n = w.shape[2]
+    kp, np_ = tc_dims(x.dtype, k, n)
+    x, w, dy = _build.padded(x, (kp,)), _build.padded(w, (np_, kp)), _build.padded(dy, (np_,))
     dx = dw = None
     if need_dx:
         dx = torch.empty_like(x)
         if dx.numel():
-            _launch(fn, stream, dy, w, dx, m, k, n, False, True)
+            _launch(fn, stream, dy, w, dx, m, kp, np_, False, True)
+        dx = dx if kp == k else dx[..., :k].contiguous()
     if need_dw:
         dw = torch.empty_like(w)
         if dw.numel():
-            _launch(fn, stream, x, dy, dw, k, n, m, True, False)
+            _launch(fn, stream, x, dy, dw, kp, np_, m, True, False)
+        dw = dw if (kp, np_) == (k, n) else dw[:, :k, :n].contiguous()
     return dx, dw
 
 

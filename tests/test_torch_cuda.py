@@ -116,10 +116,10 @@ def test_flash_kernel_matches_plain(dev, b, hq, hkv, sq, skv, d, causal, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_takes_every_head_dim_of_eight(dev, dtype):
-    """Every d % 8 == 0 up to 128, one launch each, against the plain
+    """Every d % 8 == 0 up to 256, one launch each, against the plain
     version: none goes to a library call or to the plain version."""
     from repro_torch.kernels import flash_attention as fa
-    for d in range(8, 129, 8):
+    for d in range(8, 257, 8):
         q = _randn((1, 4, 70, d), dtype, dev, seed=d)
         k, v = (_randn((1, 2, 90, d), dtype, dev, seed=d + i) for i in (1, 2))
         before = fa.launches
@@ -153,7 +153,7 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     x = _randn((4, 64), torch.bfloat16, dev)
     with pytest.raises(TypeError):
         rn.rmsnorm_fwd(x, torch.ones(64, device=dev))           # dtype mismatch
-    q = _randn((1, 2, 16, 256), torch.float32, dev)
+    q = _randn((1, 2, 16, 264), torch.float32, dev)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_fwd(q, q, q)
     q = _randn((1, 2, 16, 64), torch.float32, dev)
@@ -163,11 +163,13 @@ def test_kernels_refuse_what_they_do_not_take(dev):
 
 # K2 with a sliding window: windows of 1, under a tile, straddling tiles
 # and past the sequence; causal and not; q_offset > 0; GQA; ragged Skv;
-# the bf16 kernel's 64- and 128-wide instantiations and the padded 80
+# the bf16 kernel's 64-, 128- and 256-wide instantiations and the padded
+# 80 and 192
 WINDOW_CASES = [(1, 4, 4, 300, 300, 64, True, 1), (1, 4, 4, 300, 300, 64, True, 100),
                 (2, 4, 2, 200, 333, 128, True, 70), (1, 8, 2, 257, 257, 80, True, 129),
                 (1, 4, 4, 130, 130, 80, True, 4096), (1, 2, 1, 100, 260, 64, False, 150),
-                (1, 4, 4, 64, 200, 128, True, 33)]
+                (1, 4, 4, 64, 200, 128, True, 33), (2, 4, 2, 200, 333, 256, True, 70),
+                (1, 4, 4, 130, 200, 192, False, 50)]
 
 
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", WINDOW_CASES)
@@ -280,18 +282,25 @@ def test_mamba_scan_grads_match_reference(dev):
 
 
 def test_mamba_scan_refuses_other_state_sizes(dev):
-    """Every state size up to ``MAX_STATE`` (64) launches; above it the
-    wrappers raise, naming the limit."""
+    """Every state size up to ``MAX_STATE`` (128) launches once, forward
+    and backward, against the plain forward; above it the wrappers raise,
+    naming the limit."""
     from repro_torch.kernels import mamba_scan as ms
-    for n in (ms.MAX_STATE + 1, 128):
+    assert ms.MAX_STATE == 128
+    for n in (ms.MAX_STATE + 1, 256):
         x, dt, A, B, C, _ = _scan_inputs(1, 8, 6, n, torch.float32, dev)
-        with pytest.raises(ValueError, match="state size .* above 64"):
+        with pytest.raises(ValueError, match="state size .* above 128"):
             ms.mamba_scan_fwd(x, dt, A, B, C)
-    x, dt, A, B, C, _ = _scan_inputs(1, 8, 6, 3, torch.float32, dev)
-    before = ms.launches
-    ms.mamba_scan_fwd(x, dt, A, B, C)
-    torch.cuda.synchronize()
-    assert ms.launches == before + 1
+    for n in range(1, ms.MAX_STATE + 1):
+        x, dt, A, B, C, _ = _scan_inputs(1, 20, 6, n, torch.float32, dev)
+        before = (ms.launches, ms.bwd_launches)
+        y, hT, hs = ms.mamba_scan_fwd(x, dt, A, B, C, save_states=True)
+        ms.mamba_scan_bwd(x, dt, A, B, C, hs, torch.ones_like(x))
+        torch.cuda.synchronize()
+        assert (ms.launches, ms.bwd_launches) == (before[0] + 1, before[1] + 1), n
+        want_y, want_h, _ = ms.mamba_scan_plain(x, dt, A, B, C)
+        torch.testing.assert_close(y, want_y, atol=1e-5, rtol=1e-4, msg=str(n))
+        torch.testing.assert_close(hT, want_h, atol=1e-5, rtol=1e-4, msg=str(n))
 
 
 # state sizes split over 2 and 4 lanes a channel (32, 64) and between the
@@ -301,7 +310,12 @@ def test_mamba_scan_refuses_other_state_sizes(dev):
 # beside bf16 x at 16 states, which run on the 32-state kernel, padded
 WIDE_SCAN_CASES = [(2, 77, 200, 32, True, torch.bfloat16), (2, 37, 70, 40, True, torch.bfloat16),
                    (2, 300, 136, 64, True, torch.bfloat16), (4, 1, 5120, 64, True, torch.bfloat16),
-                   (2, 45, 136, 16, True, torch.float32)]
+                   (2, 45, 136, 16, True, torch.float32),
+                   # 128 states over 8 lanes a channel (the backward's blocks
+                   # four 16-channel groups), C ragged past a block's 64
+                   # channels, and 96 run on 128
+                   (2, 300, 200, 128, True, torch.bfloat16), (2, 37, 70, 96, True, torch.bfloat16),
+                   (4, 1, 5120, 128, True, torch.bfloat16)]
 
 
 @pytest.mark.parametrize("b,s,c,n,with_h0,bc_dtype", WIDE_SCAN_CASES)
@@ -486,7 +500,7 @@ def test_flash_fp32_kernel_matches_plain(dev, b, hq, hkv, sq, skv, d, causal, wi
     torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_flash_fp32_kernel_at_32k_keys(dev, d):
     """The fp32 K2 over 32,768 keys (the configs' prefill_32k), causal,
     its rows at the end of the sequence, against its plain version at the
@@ -543,19 +557,82 @@ def test_flash_tc_kernel_bf16(dev, b, hq, hkv, sq, skv, d):
 
 def test_tc_kernels_refuse_bf16_shapes_they_do_not_take(dev):
     """A bf16 call the tensor-core kernel does not take raises: it never
-    goes to the CUDA-core kernel or to the plain version."""
+    goes to the CUDA-core kernel or to the plain version.  K2 takes every
+    head dim to 256 and refuses wider ones; K3's rows that TMA cannot read
+    (K or N no multiple of 8) are padded by the wrappers and launch once,
+    within tolerance of the plain version."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as mg
     before = (fa.launches, mg.launches)
-    q = _randn((1, 2, 16, 36), torch.bfloat16, dev)
+    q = _randn((1, 2, 16, 264), torch.bfloat16, dev)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_fwd(q, q, q)
-    x = _randn((2, 16, 36), torch.bfloat16, dev)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        mg.moe_gmm_fwd(x, _randn((2, 36, 24), torch.bfloat16, dev))
-    with pytest.raises(ValueError, match="multiples of 8"):
-        mg.moe_gmm_fwd(x[:, :, :32].contiguous(), _randn((2, 32, 20), torch.bfloat16, dev))
     assert (fa.launches, mg.launches) == before
+    for k, n in ((36, 24), (32, 20)):
+        x = _randn((2, 16, k), torch.bfloat16, dev)
+        w = _randn((2, k, n), torch.bfloat16, dev, seed=1, scale=k ** -0.5)
+        before = mg.launches
+        y = mg.moe_gmm_fwd(x, w)
+        torch.cuda.synchronize()
+        assert mg.launches == before + 1 and y.shape == (2, 16, n)
+        torch.testing.assert_close(y.float(), mg.moe_gmm_plain(x, w).float(),
+                                   **GMM_TOL[torch.bfloat16])
+
+
+# K2 at every head dim the TPU kernel takes up to 256 that the tests name:
+# no multiple of 8 (1, 5, 50 and 68, the CLI's --d-model 200 and DeepSeek
+# at --d-model 1020, 100), and 192 and 256 on the 256-wide instantiation
+CONTRACT_HEAD_DIMS = [1, 5, 50, 68, 100, 192, 256]
+
+
+@pytest.mark.parametrize("d", CONTRACT_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_contract_head_dims(dev, d, dtype):
+    """One launch, against the plain version (causal GQA with a query
+    offset, and non-causal), and the same bits on a second call."""
+    from repro_torch.kernels import flash_attention as fa
+    for causal in (True, False):
+        q = _randn((2, 8, 200, d), dtype, dev, seed=d)
+        k, v = (_randn((2, 2, 300, d), dtype, dev, seed=d + i) for i in (1, 2))
+        off = 100 if causal else 0
+        before = fa.launches
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, q_offset=off)
+        torch.cuda.synchronize()
+        assert fa.launches == before + 1
+        want, want_lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal, q_offset=off)
+        torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+        torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+        again = fa.flash_attention_fwd(q, k, v, causal=causal, q_offset=off)
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+# K3 at widths that are no multiple of 8 (bf16 runs them padded): the CLI's
+# DeepSeek at --d-model 1020 (K 1020, N 2040), 100 x 200 and 36 x 20
+CONTRACT_GMM_KN = [(100, 200), (1020, 2040), (36, 20)]
+
+
+@pytest.mark.parametrize("k,n", CONTRACT_GMM_KN)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gmm_kernel_at_contract_widths(dev, k, n, dtype):
+    """The forward and both gradients, one launch each, against the plain
+    versions, and the same bits on a second call."""
+    from repro_torch.kernels import moe_gmm as mg
+    e, m = 4, 130
+    x = _randn((e, m, k), dtype, dev, seed=k)
+    w = _randn((e, k, n), dtype, dev, seed=n, scale=k ** -0.5)
+    dy = _randn((e, m, n), dtype, dev, seed=k + n)
+    before = (mg.launches, mg.bwd_launches)
+    y = mg.moe_gmm_fwd(x, w)
+    dx, dw = mg.moe_gmm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    assert (mg.launches, mg.bwd_launches) == (before[0] + 1, before[1] + 2)
+    want_dx, want_dw = mg.moe_gmm_bwd_plain(x, w, dy)
+    for got, want in ((y, mg.moe_gmm_plain(x, w)), (dx, want_dx), (dw, want_dw)):
+        assert got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(), **GMM_TOL[dtype])
+    assert torch.equal(y, mg.moe_gmm_fwd(x, w))
+    again = mg.moe_gmm_bwd(x, w, dy)
+    assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
 
 
 @pytest.mark.parametrize("remat", ["full", "none"])

@@ -193,7 +193,7 @@ def test_emulated_gmm_without_contraction_gives_zeros(lib):
 
 
 # K2 cases (B, Hq, Hkv, Sq, Skv, D, causal, q_offset, window, rows a block):
-# D = 8, 40, 64, 80, 128 (8, 40 and 80 padded); GQA and MQA; causal with
+# D = 8, 40, 64, 80, 128 (8, 40 and 80 padded), 50, 192 and 256; GQA and MQA; causal with
 # q_offset 0 and past the keys' start (warps skipping the tiles past their
 # rows), and not; windows (warps skipping the tiles below theirs); Sq and
 # Skv off the blocks and 64-key tiles; blocks of 64 rows (the kernel's
@@ -210,6 +210,13 @@ FLASH_CASES = [
     (1, 4, 2, 90, 90, 128, False, 0, 40, 0),
     (1, 2, 1, 200, 200, 80, True, 0, 70, 128),
     (1, 2, 2, 150, 170, 40, True, 20, None, 128),
+    # D no multiple of 8 (50: padded by the wrapper to 56, run on 64), and
+    # D = 192 and 256 on the 256-wide instantiation: two blocks a query
+    # block, each O's half of the columns, tiles of 32 keys; GQA, a window,
+    # ragged Sq and Skv
+    (1, 4, 2, 70, 90, 50, True, 20, None, 0),
+    (1, 2, 1, 100, 130, 192, True, 30, None, 0),
+    (1, 2, 2, 80, 100, 256, False, 0, 40, 0),
 ]
 
 

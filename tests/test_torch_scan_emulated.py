@@ -129,14 +129,19 @@ WIDE_CASES = [(1, 37, 70, 64, True, bf16, f32, bf16), (1, 45, 40, 32, True, bf16
               (2, 24, 20, 40, True, bf16, f32, bf16), (1, 19, 9, 64, False, f32, f32, f32),
               (1, 33, 36, 5, True, f32, bf16, f32), (2, 1, 70, 64, True, bf16, f32, bf16),
               (1, 20, 12, 1, True, f32, f32, bf16), (1, 17, 66, 33, True, bf16, bf16, f32),
-              (1, 19, 40, 16, True, bf16, f32, f32)]
+              (1, 19, 40, 16, True, bf16, f32, f32),
+              # 128 states (8 lanes a channel; the backward's blocks walk four
+              # groups of 16 channels into one partial row of dB and dC), C
+              # ragged past a block's 64 channels and inside a group, and 96
+              # run on 128
+              (1, 37, 70, 128, True, bf16, f32, bf16), (2, 21, 20, 96, False, f32, f32, f32)]
 
 
 @pytest.mark.parametrize("b,s,c,n,with_h0,dtype,dt_dtype,bc_dtype", WIDE_CASES)
 def test_emulated_wide_states_and_mixed_dtypes(lib, b, s, c, n, with_h0, dtype, dt_dtype,
                                                bc_dtype):
-    """N = 32 and 64 on several lanes a channel, odd N on the next built
-    size, and each input in its own dtype (ddt back in dt's)."""
+    """N = 32, 64 and 128 on several lanes a channel, odd N on the next
+    built size, and each input in its own dtype (ddt back in dt's)."""
     _check_against_plain(lib, b, s, c, n, with_h0, dtype, dt_dtype, bc_dtype)
 
 

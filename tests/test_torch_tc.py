@@ -111,7 +111,9 @@ class TestAdmission:
         assert fa.tc_refusal((b, hq, sq, d)) is None
 
     def test_flash_refuses(self):
-        for d in (4, 36, 136, 256):
+        """Head dims past the 256-wide instantiation (every D in [1, 256]
+        runs, padded where it is no multiple of 8)."""
+        for d in (257, 264, 300, 512):
             assert "head_dim" in fa.tc_refusal((1, 2, 16, d))
         assert "blocks" in fa.tc_refusal((1, 1, 128 * 65536, 64))
         # mixed devices fail the wrapper's checks before any launch
@@ -132,11 +134,29 @@ class TestAdmission:
 
     @pytest.mark.parametrize("e,m,k,n", _gmm_shapes())
     def test_gmm_takes_model_and_jax_grid_shapes(self, e, m, k, n):
-        assert mg.tc_refusal((e, m, k), (e, k, n)) is None
+        """The paths' widths run unpadded."""
+        assert mg.tc_dims(torch.bfloat16, k, n) == (k, n)
 
     @pytest.mark.parametrize("k,n", [(36, 24), (32, 20), (2050, 1408), (2048, 1404)])
     def test_gmm_refuses_rows_tma_cannot_read(self, k, n):
-        assert "multiples of 8" in mg.tc_refusal((4, 32, k), (4, k, n))
+        """The bf16 kernel refuses rows TMA cannot read (K or N no multiple
+        of 8); the wrappers call it at ``tc_dims``, both padded to the next
+        multiples of 8, and cut the outputs back.  fp32 runs at the call's
+        own K and N."""
+        calls = []
+
+        def kernel(a, b, c, e, m, n_, k_, trans_a, trans_b, dtype, stream):
+            calls.append((m, n_, k_))
+            return int(bool(((m if trans_a else k_) % 8) or ((k_ if trans_b else n_) % 8)))
+        x, w = torch.zeros((2, 4, k), dtype=torch.bfloat16), torch.zeros((2, k, n),
+                                                                         dtype=torch.bfloat16)
+        kp, np_ = mg.tc_dims(torch.bfloat16, k, n)
+        assert (kp % 8, np_ % 8) == (0, 0) and 0 <= kp - k < 8 and 0 <= np_ - n < 8
+        assert mg.fwd_call(kernel, None, x, w).shape == (2, 4, n)
+        dx, dw = mg.bwd_call(kernel, None, x, w, torch.zeros((2, 4, n), dtype=torch.bfloat16))
+        assert dx.shape == x.shape and dw.shape == w.shape
+        assert calls == [(4, np_, kp), (4, kp, np_), (kp, np_, 4)]
+        assert mg.tc_dims(torch.float32, k, n) == (k, n)
 
     def test_gmm_refuses_mixed_devices(self):
         x, w = _meta((4, 32, 64)), torch.zeros((4, 64, 128), dtype=torch.bfloat16)
