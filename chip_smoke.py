@@ -56,10 +56,26 @@ their plain versions.  Only Qwen1.5's run ends with a checkpoint save
   - Qwen2-VL-7B, 4 of its 28 layers at full width (phase 3l: K1, and K2
     at GQA 28/4, head_dim 128), qkv bias and M-RoPE, each row's
     positions in Qwen2-VL's own layout: a text prefix, one image of a 16
-    x 24 patch grid, then text (``image_positions``).
+    x 24 patch grid, then text (``image_positions``);
+  - the zoo configurations the card had not run before (phases 3p-3t,
+    ``ZOO``), each at its published widths and at the depth of one
+    pipeline stage with the embedding and lm_head, the kernels held to
+    their plain versions first (bf16 at the path's depth), then
+    ``ZOO_STEPS`` steps of ``build_step`` in a loop of their own (the
+    supervisor's restart snapshot would hold 10 B a parameter more than
+    the card has), one profiled kernel step and the fp32 check:
+    minicpm-2b whole (40 layers: K1, K2 at 36 heads of 64, its odd vocab
+    of 122,753 in the cross-entropy), qwen3-9b at 6 of 36 layers (GQA
+    32/8), qwen2.5-32b at 2 of 64 (GQA 40/8, qkv bias), granite-20b at 4
+    of 52 (MQA 48/1) and dbrx-132b at 1 of 40, forward and backward only
+    (its AdamW step, 22 B a parameter, does not fit one card: K2 at GQA
+    48/8, K3 and K3-bwd at (16, 1280, 6144) @ (16, 6144, 10752), its MoE
+    block held at full width); each path's step time, peak beside the
+    card's memory and busy share go to a ``zoo {...}`` line near the end.
 
 Falcon-Mamba's and Zamba2's plain profiles are skipped (the plain runs
-differ only in kernels whose plain versions phase 2 times).
+differ only in kernels whose plain versions phase 2 times), and so are
+the zoo paths' (they differ in K1, K2 and K3).
 
 The serving phase (3m) drives ``init_cache``, ``prefill`` and
 ``decode_step`` under inference mode: (a) qwen3-1b, all 28 layers in
@@ -67,9 +83,11 @@ bf16, prefills 4 x 1024 prompt tokens and greedy-decodes 32 tokens in a
 cache of 1056 positions with the kernels (K1 and K2 launches exact; prefill
 ms, decode ms a token, tokens/s, one decode step's busy share, cache bytes
 and peak memory), then with their plain versions fed the kernel run's
-tokens, each step's logits held to ``SERVE_RTOL``; (b) decode from an
+tokens, each step's logits held to ``SERVE_RTOL``, and then qwen3-9b
+whole (36 layers, 16.4 GB of bf16 weights) the same way; (b) for each,
+decode from an
 empty cache, teacher-forced over 64 prompt tokens, against the training
-forward's logits, in bf16 at 28 layers and in fp32 at 2 (the cache
+forward's logits, in bf16 at full depth and in fp32 at 2 (the cache
 writes, the offset rotation and the masks: prefill leaves its cache
 empty, as the JAX package's does); (c) the other families' decode
 branches at published widths and their training phases' depths, 8 steps
@@ -84,7 +102,9 @@ MoE (its capacity drops differ by group size) and Whisper (its cross cache
 stays empty); (d) ``examples/serve_torch.py`` at its defaults.  Phase 2
 holds the decode shapes too: K1 at one row a sequence, K3 at 4 rows (64 experts of
 DeepSeek's widths, both matmuls, fp32 and bf16; the fp32 K3's forward,
-dx and dw also at DeepSeek's training shape beside ``torch.bmm``) and K4
+dx and dw also at DeepSeek's training shape beside ``torch.bmm``; K3 and
+K3-bwd in fp32 and bf16 at DBRX's two training shapes, each fp32 w 4.2
+GB, timed in bf16 beside ``torch.bmm``) and K4
 at S = 1 with h0 and no saved states (Falcon-Mamba's width, and Zamba2's at N = 64 with
 fp32 dt), each timed beside its bound and library call.  Phase 2 holds
 K4 and K4-bwd at Zamba2's SSD shape (4, 1024, 5120, 64) with bf16 x and
@@ -114,8 +134,9 @@ it — 64, 128, qwen3-1b's GQA, granite-20b's MQA, and 32 and 80, which
 run on a padded instantiation — each against its plain version and
 timed beside SDPA, and the fp32 K2 (split TF32 on the tensor cores) at
 head dims 64 and 128 beside fp32 SDPA; K2 at the encoder-decoder's and
-the VLM's shapes (``FLASH_PATHS``: ragged query blocks, non-causal keys
-past 1,000, GQA 28/4) in fp32 and bf16 against its plain version and
+the VLM's shapes and the zoo paths' (``FLASH_PATHS``: ragged query
+blocks, non-causal keys past 1,000, GQA 28/4, 36 heads of 64, GQA 32/8,
+40/8 and 48/8) in fp32 and bf16 against its plain version and
 timed beside SDPA; and K2 with a sliding window (``FLASH_WINDOWS``: Zamba2's own call, windows
 of 1, 100 and 1000, a band at 8,192 tokens, GQA, non-causal, a query
 offset) in fp32 and bf16 against its plain version with the window, timed
@@ -462,12 +483,19 @@ FLASH_WINDOWS = {
 # self-attention (non-causal, 1500 rows: 11.7 blocks of 128 query rows,
 # 23.4 tiles of 64 keys), its decoder self-attention (448 rows, 3.5
 # blocks) and cross-attention (448 queries over 1500 keys, non-causal),
-# and Qwen2-VL's GQA 28/4 (n_rep 7, no power of two)
+# and Qwen2-VL's GQA 28/4 (n_rep 7, no power of two); then the zoo paths'
+# (``ZOO``; granite-20b's MQA 48/1 is in ``FLASH_TIMED``): minicpm-2b's 36
+# heads of 64, qwen3-9b's GQA 32/8, qwen2.5-32b's 40/8 (n_rep 5) and
+# DBRX's 48/8 (n_rep 6)
 FLASH_PATHS = {
     (BATCH, 20, 20, 1500, 1500, 64, False): "at_whisper_encoder_1500_non_causal",
     (BATCH, 20, 20, WHISPER_SEQ, WHISPER_SEQ, 64, True): "at_whisper_decoder_448_causal",
     (BATCH, 20, 20, WHISPER_SEQ, 1500, 64, False): "at_whisper_cross_448_1500",
     (BATCH, 28, 4, SEQ, SEQ, 128, True): "at_qwen2_vl_gqa_28_4_head_dim_128",
+    (BATCH, 36, 36, SEQ, SEQ, 64, True): "at_minicpm_2b_36_36_head_dim_64",
+    (BATCH, 32, 8, SEQ, SEQ, 128, True): "at_qwen3_9b_gqa_32_8_head_dim_128",
+    (BATCH, 40, 8, SEQ, SEQ, 128, True): "at_qwen2_5_32b_gqa_40_8_head_dim_128",
+    (BATCH, 48, 8, SEQ, SEQ, 128, True): "at_dbrx_132b_gqa_48_8_head_dim_128",
 }
 
 
@@ -905,18 +933,23 @@ GMM_PADDED = (64, 448, 2044, 1404)
 GMM_CONTRACT = [GMM_PADDED, (4, 448, 1020, 2040), (8, 130, 100, 200), (8, 130, 36, 20)]
 
 
-def phase_gmm_kernels(torch, mg, cfg) -> dict:
+def phase_gmm_kernels(torch, mg, cfg, others: tuple = ()) -> dict:
     """K3's three layouts (forward, dx, dw) against their plain versions
-    at the MoE path's shapes, the JAX test's edge shapes and
-    ``GMM_CONTRACT``, in fp32 and bf16.  Times at the gate/up shape in
-    bf16, and at ``GMM_PADDED`` beside it, L2-warm and L2-cold."""
+    at the MoE path's shapes, the JAX test's edge shapes,
+    ``GMM_CONTRACT`` and the training shapes of the MoE configs
+    ``others``, in fp32 and bf16.  Times in bf16 (``gmm_times``) at the
+    gate/up shape and at ``GMM_PADDED`` beside it, L2-warm and L2-cold,
+    and at each of ``others``' shapes under ``at_<arch>_...`` keys.  At
+    DBRX's widths each w holds 1.06 G elements: 4.2 GB in fp32, past 2^32
+    bytes, so a 32-bit byte offset in either kernel would show here."""
     g = torch.Generator(device="cuda").manual_seed(2468)
     path = gmm_shapes(cfg)
-    results = {}
+    at_other = {shape: other.name for other in others for shape in gmm_shapes(other)}
+    kept, errs_at = {}, {}
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[1]
         for e, m, k, n in path + [(4, 32, 64, 128), (2, 16, 32, 32), (8, 130, 64, 96),
-                                  *GMM_CONTRACT]:
+                                  *GMM_CONTRACT, *at_other]:
             x = torch.randn((e, m, k), generator=g, device="cuda").to(dt)
             w = (torch.randn((e, k, n), generator=g, device="cuda") * k ** -0.5).to(dt)
             dy = torch.randn((e, m, n), generator=g, device="cuda").to(dt)
@@ -925,59 +958,45 @@ def phase_gmm_kernels(torch, mg, cfg) -> dict:
             torch.cuda.synchronize()
             want_dx, want_dw = mg.moe_gmm_bwd_plain(x, w, dy)
             tag = f"moe_gmm {dname} {(e, m, k, n)}"
+            if (e, m, k, n) in at_other:
+                tag += f", {at_other[e, m, k, n]}'s shape"
             errs = [check_close(torch, f"{tag} {name}", got, want, dname, GMM_TOL[dname])
                     for name, got, want in (("y", y, mg.moe_gmm_plain(x, w)),
                                             ("dx", dx, want_dx), ("dw", dw, want_dw))]
             print(f"  {tag} max_abs_err y={errs[0]:.3e} dx={errs[1]:.3e} dw={errs[2]:.3e}",
                   flush=True)
-            if dt == torch.bfloat16 and (e, m, k, n) == path[0]:
-                results["moe_gmm"] = {"max_abs_err": errs[0]}
-                results["moe_gmm_bwd"] = {"max_abs_err": max(errs[1:])}
-                timed = (x, w, dy)
+            errs_at[dname, (e, m, k, n)] = errs
+            if dt == torch.bfloat16 and (e, m, k, n) in (path[0], GMM_PADDED, *at_other):
+                kept[e, m, k, n] = (x, w, dy)
             if dt == torch.float32 and (e, m, k, n) == path[0]:
-                timed32, errs32 = (x, w, dy), errs
-            if dt == torch.bfloat16 and (e, m, k, n) == GMM_PADDED:
-                padded, errs_padded = (x, w, dy), errs
+                timed32 = (x, w, dy)
             del x, w, dy, y, dx, dw, want_dx, want_dw
-    x, w, dy = timed
-    e, m, k = x.shape
-    n = w.shape[2]
-    flops = 2 * e * m * k * n
-    io = x.element_size()
-    results["moe_gmm"].update(
-        ms=cuda_ms(torch, lambda: mg.moe_gmm_fwd(x, w), reps=10),
-        plain_ms=cuda_ms(torch, lambda: mg.moe_gmm_plain(x, w)),
-        library_ms=cuda_ms(torch, lambda: torch.bmm(x, w)),
-        **bound((x.numel() + w.numel() + e * m * n) * io, flops / BF16_FLOPS))
-    two_bmm_ms = cuda_ms(torch, lambda: (torch.bmm(dy, w.transpose(1, 2)),
-                                         torch.bmm(x.transpose(1, 2), dy)))
-    results["moe_gmm_bwd"].update(
-        ms=cuda_ms(torch, lambda: mg.moe_gmm_bwd(x, w, dy), reps=5),
-        plain_ms=cuda_ms(torch, lambda: mg.moe_gmm_bwd_plain(x, w, dy)),
-        library_ms=None,     # no single PyTorch call computes both dx and dw
-        # reads x, w, dy; writes dx, dw
-        **bound(2 * (x.numel() + w.numel()) * io + dy.numel() * io, 2 * flops / BF16_FLOPS))
-    results["moe_gmm_bwd"]["two_bmm_ms"] = two_bmm_ms
-    # the same shape L2-cold, beside the padded one's
-    results["moe_gmm"]["ms_cold"] = cold_ms(torch, mg.moe_gmm_fwd, (x, w), reps=10)
-    results["moe_gmm_bwd"]["ms_cold"] = cold_ms(torch, mg.moe_gmm_bwd, (x, w, dy), reps=5)
-    results.update(gmm_padded_times(torch, mg, results, *padded, errs_padded))
-    del padded
-    for name, work in (("moe_gmm", flops), ("moe_gmm_bwd", 2 * flops)):
-        r = results[name]
-        r["tflops"] = work / r["ms"] / 1e9
-        lib_ms = r["library_ms"] or two_bmm_ms
-        lib = "torch.bmm" if r["library_ms"] else "two torch.bmm calls"
-        print(f"  {name} {(e, m, k, n)} bf16: kernel {r['ms']:.4f} ms "
-              f"({r['tflops']:.1f} TFLOP/s), plain "
-              f"{r['plain_ms']:.4f} ms, {lib} {lib_ms:.4f} ms (kernel/library "
-              f"{r['ms'] / lib_ms:.2f}x), bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
-              flush=True)
+    torch.cuda.empty_cache()
+    shape = path[0]
+    fwd, bwd = gmm_times(torch, mg, *kept.pop(shape), errs_at["bfloat16", shape], cold=True)
+    results = {"moe_gmm": fwd, "moe_gmm_bwd": bwd}
+    print_gmm_times(results, shape, "")
+    padded = gmm_times(torch, mg, *kept.pop(GMM_PADDED), errs_at["bfloat16", GMM_PADDED],
+                       cold=True)
+    key = "at_padded_" + "_".join(map(str, GMM_PADDED))
+    results["moe_gmm"][key], results["moe_gmm_bwd"][key] = padded
+    print_gmm_times(results, GMM_PADDED,
+                    f", K and N padded to {mg.tc_dims(torch.bfloat16, *GMM_PADDED[2:])}", key)
+    for shape, arch in at_other.items():
+        fwd, bwd = gmm_times(torch, mg, *kept.pop(shape), errs_at["bfloat16", shape])
+        errs32 = errs_at["float32", shape]
+        fwd["max_abs_err_fp32"], bwd["max_abs_err_fp32"] = errs32[0], max(errs32[1:])
+        key = "at_" + "_".join(map(str, (arch.replace("-", "_").replace(".", "_"), *shape)))
+        results["moe_gmm"][key], results["moe_gmm_bwd"][key] = fwd, bwd
+        print_gmm_times(results, shape, f", {arch}'s shape", key)
+    torch.cuda.empty_cache()
     # the fp32 kernel (CUDA cores: tiles of 64 rows here) at the training shape,
     # the forward beside torch.bmm and dx, dw beside a torch.bmm each (TF32
     # off); the bound is the FFMAs at the fp32 rate
     x, w, dy = timed32
-    io = x.element_size()
+    errs32 = errs_at["float32", path[0]]
+    e, m, k, n = path[0]
+    flops, io = 2 * e * m * k * n, x.element_size()
     fwd32 = dict(max_abs_err=errs32[0], ms=cuda_ms(torch, lambda: mg.moe_gmm_fwd(x, w), reps=5),
                  plain_ms=cuda_ms(torch, lambda: mg.moe_gmm_plain(x, w), reps=5),
                  library_ms=cuda_ms(torch, lambda: torch.bmm(x, w), reps=5),
@@ -1032,41 +1051,50 @@ def phase_gmm_kernels(torch, mg, cfg) -> dict:
     return results
 
 
-def gmm_padded_times(torch, mg, results, x, w, dy, errs) -> dict:
-    """K3 (bf16) at ``GMM_PADDED``, whose K and N its wrappers pad to
-    multiples of 8, timed L2-warm and L2-cold beside ``torch.bmm`` (two
-    for dx and dw), the plain versions and the bounds of the true shape,
-    under the ``at_padded_...`` keys of ``results``' rows."""
+def gmm_times(torch, mg, x, w, dy, errs: list, cold: bool = False) -> tuple:
+    """K3 and K3-bwd (bf16) on ``x``, ``w``, ``dy`` timed L2-warm (and
+    L2-cold with ``cold``) beside ``torch.bmm`` (two for dx and dw), the
+    plain versions and the bounds of the true shape, with ``errs``' (y,
+    dx, dw) errors: (the forward's row, the backward's row)."""
     e, m, k = x.shape
     n = w.shape[2]
     flops, io = 2 * e * m * k * n, x.element_size()
-    fwd = dict(max_abs_err=errs[0], ms=cuda_ms(torch, lambda: mg.moe_gmm_fwd(x, w), reps=10),
-               ms_cold=cold_ms(torch, mg.moe_gmm_fwd, (x, w), reps=10),
-               plain_ms=cuda_ms(torch, lambda: mg.moe_gmm_plain(x, w)),
-               library_ms=cuda_ms(torch, lambda: torch.bmm(x, w)),
-               library_ms_cold=cold_ms(torch, torch.bmm, (x, w), reps=10),
-               **bound((x.numel() + w.numel() + e * m * n) * io, flops / BF16_FLOPS))
 
     def two_bmm(x, w, dy):
         return torch.bmm(dy, w.transpose(1, 2)), torch.bmm(x.transpose(1, 2), dy)
+    fwd = dict(max_abs_err=errs[0], ms=cuda_ms(torch, lambda: mg.moe_gmm_fwd(x, w), reps=10),
+               plain_ms=cuda_ms(torch, lambda: mg.moe_gmm_plain(x, w), reps=5),
+               library_ms=cuda_ms(torch, lambda: torch.bmm(x, w), reps=10),
+               **bound((x.numel() + w.numel() + e * m * n) * io, flops / BF16_FLOPS))
     bwd = dict(max_abs_err=max(errs[1:]),
                ms=cuda_ms(torch, lambda: mg.moe_gmm_bwd(x, w, dy), reps=5),
-               ms_cold=cold_ms(torch, mg.moe_gmm_bwd, (x, w, dy), reps=5),
-               plain_ms=cuda_ms(torch, lambda: mg.moe_gmm_bwd_plain(x, w, dy)),
-               library_ms=None, two_bmm_ms=cuda_ms(torch, lambda: two_bmm(x, w, dy)),
-               two_bmm_ms_cold=cold_ms(torch, two_bmm, (x, w, dy), reps=5),
+               plain_ms=cuda_ms(torch, lambda: mg.moe_gmm_bwd_plain(x, w, dy), reps=5),
+               library_ms=None,     # no single PyTorch call computes both dx and dw
+               two_bmm_ms=cuda_ms(torch, lambda: two_bmm(x, w, dy), reps=5),
+               # reads x, w, dy; writes dx, dw
                **bound(2 * (x.numel() + w.numel()) * io + dy.numel() * io,
                        2 * flops / BF16_FLOPS))
-    key = "at_padded_" + "_".join(map(str, (e, m, k, n)))
-    main = results["moe_gmm"], results["moe_gmm_bwd"]
-    for name, r, unpadded in (("moe_gmm", fwd, main[0]), ("moe_gmm_bwd", bwd, main[1])):
+    if cold:
+        fwd.update(ms_cold=cold_ms(torch, mg.moe_gmm_fwd, (x, w), reps=10),
+                   library_ms_cold=cold_ms(torch, torch.bmm, (x, w), reps=10))
+        bwd.update(ms_cold=cold_ms(torch, mg.moe_gmm_bwd, (x, w, dy), reps=5),
+                   two_bmm_ms_cold=cold_ms(torch, two_bmm, (x, w, dy), reps=5))
+    fwd["tflops"], bwd["tflops"] = flops / fwd["ms"] / 1e9, 2 * flops / bwd["ms"] / 1e9
+    return fwd, bwd
+
+
+def print_gmm_times(results: dict, shape: tuple, what: str, key: str | None = None) -> None:
+    """The K3 and K3-bwd rows of ``gmm_times`` at ``shape`` (under ``key``
+    of ``results``' rows, or the rows themselves), one line each."""
+    for name in ("moe_gmm", "moe_gmm_bwd"):
+        r = results[name][key] if key else results[name]
         lib = r["library_ms"] or r["two_bmm_ms"]
-        print(f"  {name} {(e, m, k, n)} bf16, K and N padded to {mg.tc_dims(x.dtype, k, n)}: "
-              f"kernel {r['ms']:.4f} ms warm / {r['ms_cold']:.4f} cold (the gate/up shape, "
-              f"unpadded: {unpadded['ms']:.4f} / {unpadded['ms_cold']:.4f}), plain "
-              f"{r['plain_ms']:.4f} ms, library {lib:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        cold = f" warm / {r['ms_cold']:.4f} cold" if "ms_cold" in r else ""
+        print(f"  {name} {shape} bf16{what}: kernel {r['ms']:.4f} ms{cold} "
+              f"({r['tflops']:.1f} TFLOP/s), plain {r['plain_ms']:.4f} ms, "
+              f"{'torch.bmm' if r['library_ms'] else 'two torch.bmm calls'} {lib:.4f} ms "
+              f"(kernel/library {r['ms'] / lib:.2f}x), bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})", flush=True)
-    return {"moe_gmm": {**main[0], key: fwd}, "moe_gmm_bwd": {**main[1], key: bwd}}
 
 
 def scan_inputs(torch, g, b, s, c, n, dtype, with_h0=False, dt_dtype=None, bc_dtype=None):
@@ -1412,6 +1440,60 @@ def path_loader(torch, cfg):
     return ModalLoader(torch, cfg, loader) if cfg.n_enc_layers or cfg.mrope else loader
 
 
+# the launch counters, by kernel (``ops.launch_counts``)
+LAUNCH_KEYS = ("rmsnorm", "flash_attention", "mamba_scan", "mamba_scan_bwd", "moe_gmm",
+               "moe_gmm_bwd")
+
+
+def train_launches(cfg, steps: int = STEPS) -> dict:
+    """Kernel launches of ``steps`` training steps of ``cfg`` (its own
+    depth), counted from the code.  Under remat "full" each layer's
+    kernels run in the forward and again in its recompute; the final norm
+    runs once.  A decoder layer runs two norms and one attention; an MoE
+    layer three grouped matmuls (two without SwiGLU: gate, up, down),
+    and each one's backward launches K3 twice (dx and dw).  A Mamba layer
+    runs one norm and one scan (K4, and K4-bwd in the backward).
+    Zamba2's checkpointed groups add two norms and one attention per
+    application of the shared block.  Whisper runs two norms and one
+    attention per encoder layer, three norms (self, cross, MLP) and two
+    attentions (self, cross) per decoder layer."""
+    runs = 2 if cfg.remat == "full" else 1
+    n = cfg.n_layers
+    if cfg.hybrid_every:
+        groups = n // cfg.hybrid_every
+        per = {"rmsnorm": runs * (n + 2 * groups) + 1, "flash_attention": runs * groups,
+               "mamba_scan": runs * n, "mamba_scan_bwd": n}
+    elif cfg.ssm:
+        per = {"rmsnorm": runs * n + 1, "mamba_scan": runs * n, "mamba_scan_bwd": n}
+    elif cfg.n_enc_layers:
+        enc = cfg.n_enc_layers
+        per = {"rmsnorm": runs * (2 * enc + 3 * n) + 1, "flash_attention": runs * (enc + 2 * n)}
+    else:
+        per = {"rmsnorm": runs * 2 * n + 1, "flash_attention": runs * n}
+        if cfg.moe:
+            mms = 3 if cfg.act == "swiglu" else 2
+            per.update(moe_gmm=runs * mms * n, moe_gmm_bwd=2 * mms * n)
+    return {**dict.fromkeys(LAUNCH_KEYS, 0), **{k: v * steps for k, v in per.items()}}
+
+
+def config_line(cfg) -> str:
+    """A training path's configuration as its phase prints it."""
+    attn = (f"heads={cfg.n_heads}/{cfg.n_kv_heads} head_dim={cfg.head_dim} "
+            + (f"moe={cfg.moe}" if cfg.moe else f"d_ff={cfg.d_ff}"))
+    widths = (f"ssm={cfg.ssm}" if cfg.ssm and not cfg.hybrid_every else
+              f"ssm={cfg.ssm} hybrid_every={cfg.hybrid_every} shared block {attn} "
+              f"window={cfg.sliding_window}" if cfg.hybrid_every else attn)
+    if cfg.n_enc_layers:
+        widths += (f" act={cfg.act}, {cfg.n_enc_layers} encoder layers over "
+                   f"{cfg.enc_seq} frames, a cross-attention in every decoder layer")
+    if cfg.mrope:
+        widths += (f" qkv_bias={cfg.qkv_bias} M-RoPE sections={cfg.mrope_sections} "
+                   f"theta={cfg.rope_theta:g}, one {IMAGE_GRID} image a row")
+    return (f"  config {cfg.name}: {cfg.n_layers} layers d_model={cfg.d_model} {widths} "
+            f"vocab={cfg.vocab} dtype={cfg.dtype} remat={cfg.remat} "
+            f"params={cfg.param_count()}, batch {BATCH} x {path_seq(cfg)} tokens")
+
+
 def phase_train(torch, cfg, want: dict, steps: int = STEPS, save: bool = True,
                 fp32_layers: int = FP32_LAYERS) -> tuple:
     """``cfg`` through the port's entry points, with kernels: ``steps``
@@ -1426,21 +1508,8 @@ def phase_train(torch, cfg, want: dict, steps: int = STEPS, save: bool = True,
     from repro_torch.models import init
     from repro_torch.optim import adamw_init, cosine_schedule
 
-    attn = (f"heads={cfg.n_heads}/{cfg.n_kv_heads} head_dim={cfg.head_dim} "
-            + (f"moe={cfg.moe}" if cfg.moe else f"d_ff={cfg.d_ff}"))
-    widths = (f"ssm={cfg.ssm}" if cfg.ssm and not cfg.hybrid_every else
-              f"ssm={cfg.ssm} hybrid_every={cfg.hybrid_every} shared block {attn} "
-              f"window={cfg.sliding_window}" if cfg.hybrid_every else attn)
-    if cfg.n_enc_layers:
-        widths += (f" act={cfg.act}, {cfg.n_enc_layers} encoder layers over "
-                   f"{cfg.enc_seq} frames, a cross-attention in every decoder layer")
-    if cfg.mrope:
-        widths += (f" qkv_bias={cfg.qkv_bias} M-RoPE sections={cfg.mrope_sections} "
-                   f"theta={cfg.rope_theta:g}, one {IMAGE_GRID} image a row")
     seq = path_seq(cfg)
-    print(f"  config {cfg.name}: {cfg.n_layers} layers d_model={cfg.d_model} {widths} "
-          f"vocab={cfg.vocab} dtype={cfg.dtype} remat={cfg.remat} "
-          f"params={cfg.param_count()}, batch {BATCH} x {seq} tokens", flush=True)
+    print(config_line(cfg), flush=True)
     params = init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     state = {"params": params, "opt": adamw_init(params),
              "step": torch.zeros((), dtype=torch.int32, device="cuda")}
@@ -1492,6 +1561,151 @@ def phase_train(torch, cfg, want: dict, steps: int = STEPS, save: bool = True,
           f"the steps ({'the checkpoint' if save else 'no checkpoint saved'})", flush=True)
     return counts, {"state": state, "step_fn": step_fn, "loader": loader, "step_s": step_s,
                     "peak": peak}
+
+
+# The zoo configurations the card had not run before (phases 3p-3t), each
+# at its published widths and at the depth of one pipeline stage, with
+# the embedding and lm_head: (tag, arch, layers, AdamW step or not).  At
+# the end of an AdamW step the old and new params and fp32 moments and the
+# bf16 grads are alive, 22 B a parameter (``build_step`` keeps the old
+# state until it returns); the supervisor's restart snapshot of the first
+# state (``ft.Supervisor.run``) holds 10 B a parameter more for the whole
+# run, 32 B: 87.2 GB for minicpm-2b's 2.725 B parameters.  So these paths
+# step ``build_step`` in a loop of their own.  DBRX's one layer holds
+# 4.492 B parameters (its 16 experts 3.17 B), 98.8 GB at 22 B: it runs
+# forward and backward only (``grads_step``).
+ZOO = [("3p", "minicpm-2b", 40, True),     # whole
+       ("3q", "qwen3-9b", 6, True),        # one stage of a 6-stage split of 36
+       ("3r", "qwen2.5-32b", 2, True),     # one stage of a 32-stage split of 64
+       ("3s", "granite-20b", 4, True),     # one stage of a 13-stage split of 52
+       ("3t", "dbrx-132b", 1, False)]      # one stage of a 40-stage split
+ZOO_STEPS = 4
+# the init's std of the embedding and lm_head (``models.init``, as the JAX
+# package's); the final norm leaves each row of h at rms 1, so each
+# logit at init is N(0, INIT_STD^2 d_model) and the expected first loss
+# is ln(vocab) + INIT_STD^2 d_model / 2 (``init_loss``): 0.46 nats over
+# ln(vocab) at minicpm-2b's 2304, 1.23 at granite-20b's and dbrx's 6144
+INIT_STD = 0.02
+
+
+def init_loss(cfg) -> float:
+    """The expected cross-entropy of random logits at the init's scale."""
+    return math.log(cfg.vocab) + INIT_STD ** 2 * cfg.d_model / 2
+
+
+def grads_step(torch, cfg):
+    """``build_step``'s loss and gradients without its AdamW update:
+    ``step(state, batch) -> (state, metrics)``, the state unchanged, the
+    gradients' global norm among the metrics."""
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import train_loss
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+    def step(state, batch):
+        batch = device_batch(batch, "cuda")
+        params = tree_map(lambda t: t.detach().requires_grad_(True), state["params"])
+        loss = train_loss(cfg, params, batch)
+        grads = tree_unflatten(params, torch.autograd.grad(loss, tree_leaves(params)))
+        return state, {"loss": loss.detach(), "gnorm": global_norm(grads)}
+    return step
+
+
+def phase_train_zoo(torch, cfg, optimizer: bool) -> tuple:
+    """``cfg`` at its published widths through the port's entry points:
+    first the kernels against their plain versions on step 1's weights
+    and batch (``compare_with_plain`` in bf16 at the path's depth), then
+    ``ZOO_STEPS`` steps of ``build_step`` with the kernels (of ``grads_step``
+    without ``optimizer``), each timed by the host clock around the
+    synchronised step, launches held to ``train_launches``, the first
+    loss within 1.0 of ``init_loss`` and equal to the comparison's kernel
+    loss, the peak (``max_memory_allocated``) beside the card's memory and
+    the reckoning of ``ZOO``, and one profile of kernel steps (no plain
+    profile: the plain run differs only in K1, K2 and K3, whose plain
+    versions phase 2 times).  With the state freed, an MoE config's block
+    is held to its plain version at its widths, and the fp32 comparison
+    runs at ``FP32_LAYERS`` layers (one for a one-layer path).  Saves no
+    checkpoint.  Returns (launches, summary)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import build_step
+    from repro_torch.models import init
+    from repro_torch.optim import adamw_init, cosine_schedule
+
+    steps = ZOO_STEPS
+    print(config_line(cfg), flush=True)
+    params = init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    k_loss = compare_with_plain(torch, cfg, params)
+    ops.register_kernels()
+    if optimizer:
+        state = {"params": params, "opt": adamw_init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+        step_fn = build_step(cfg, cosine_schedule(3e-4, steps), "cuda")
+    else:
+        state, step_fn = {"params": params}, grads_step(torch, cfg)
+    del params
+    loader = path_loader(torch, cfg)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, dts = [], []
+    for i in range(steps):
+        batch = loader.next_batch()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        print(f"  step {i + 1}: loss={losses[-1]:.4f} gnorm={float(metrics['gnorm']):.4f} "
+              f"({dts[-1] * 1e3:.0f} ms)", flush=True)
+    counts = ops.launch_counts()
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+    total = torch.cuda.get_device_properties(0).total_memory
+    want = train_launches(cfg, steps)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"losses {losses}")
+    print(f"  first loss {losses[0]:.6f}: ln(vocab) {math.log(cfg.vocab):.6f}, the init's "
+          f"expected loss {init_loss(cfg):.6f}", flush=True)
+    if abs(losses[0] - init_loss(cfg)) > 1.0:
+        fail(f"first loss {losses[0]} not within 1.0 of the init's expected loss "
+             f"{init_loss(cfg)}")
+    if abs(losses[0] - k_loss) > PLAIN_RTOL[cfg.dtype][0] * abs(k_loss):
+        fail(f"step 1's loss {losses[0]} differs from the comparison's kernel run's {k_loss} "
+             "on the same weights and batch")
+    print(f"  launch counts {counts}, expected {want}", flush=True)
+    if counts != want:
+        fail(f"kernel launches {counts} != {want}")
+    step_s = statistics.median(dts[1:])
+    per_param = 22 if optimizer else 4
+    print(f"  full width: {steps} steps, losses {[round(x, 4) for x in losses]} (step 1 "
+          f"{losses[0]:.6f}, the comparison's kernel run {k_loss:.6f}); step time median "
+          f"{step_s * 1e3:.1f} ms over steps 2-{steps} (min {min(dts[1:]) * 1e3:.1f}, max "
+          f"{max(dts[1:]) * 1e3:.1f}), {BATCH * path_seq(cfg) / step_s:.0f} tokens/s; peak "
+          f"{peak / 1e9:.2f} GB allocated, {reserved / 1e9:.2f} GB reserved, of the card's "
+          f"{total / 1e9:.2f} GB; reckoned {per_param} B a parameter: "
+          f"{per_param * cfg.param_count() / 1e9:.1f} GB", flush=True)
+    train = {"state": state, "step_fn": step_fn, "loader": loader}
+    del state
+    prof = phase_profile(torch, train, plain_steps=0)["kernels"]
+    del train, step_fn, loader
+    gc.collect()
+    torch.cuda.empty_cache()
+    if cfg.moe:
+        check_moe_block(torch, cfg)
+    cfg32 = dataclasses.replace(cfg, n_layers=min(FP32_LAYERS, cfg.n_layers), dtype="float32")
+    compare_with_plain(torch, cfg32, init(cfg32, torch.Generator(device="cuda").manual_seed(0),
+                                          "cuda"))
+    return counts, {"layers": cfg.n_layers, "params": cfg.param_count(),
+                    "optimizer_step": optimizer, "steps": steps, "losses": losses,
+                    "ln_vocab": math.log(cfg.vocab), "init_loss": init_loss(cfg),
+                    "step_ms": step_s * 1e3, "step_ms_min": min(dts[1:]) * 1e3,
+                    "step_ms_max": max(dts[1:]) * 1e3,
+                    "tokens_per_s": BATCH * path_seq(cfg) / step_s, "peak_bytes": peak,
+                    "peak_reserved_bytes": reserved, "card_bytes": total,
+                    "reckoned_bytes": per_param * cfg.param_count(),
+                    "profiled_step_ms": prof["step_ms"], "busy_share": prof["busy_share"],
+                    "profiled_launches": prof["launches"]}
 
 
 @contextlib.contextmanager
@@ -1667,7 +1881,7 @@ def nearer_fp32(torch, cfg, params, batch, paths, errs, k_grads, p_grads) -> dic
     return out
 
 
-def compare_with_plain(torch, cfg, params, step_loss: float | None = None) -> None:
+def compare_with_plain(torch, cfg, params, step_loss: float | None = None) -> float:
     """Step 1's loss and every gradient leaf on the same weights and
     batch, with the kernels and with their plain versions, held to
     ``PLAIN_RTOL`` of the config's dtype.  ``step_loss`` is the kernel
@@ -1688,7 +1902,8 @@ def compare_with_plain(torch, cfg, params, step_loss: float | None = None) -> No
     version on the same inputs, ``TOL``) holds every leaf within the
     limit.  Deep bf16 stacks whose leaves have small gradients need this:
     Whisper's 32 + 32 layers move their attention's q and k leaves by
-    ~9e-2 under (a) alone (PERF.md, section 6)."""
+    ~9e-2 under (a) alone (PERF.md, section 6).  Returns the kernel run's
+    loss."""
     from repro_torch.kernels import ops
     from repro_torch.launch.train import device_batch
     from repro_torch.models import layers as L
@@ -1752,7 +1967,7 @@ def compare_with_plain(torch, cfg, params, step_loss: float | None = None) -> No
         nearer_fp32(torch, cfg, params, batch, paths, errs, k_grads, p_grads)
     over = [name for name, err in errs.items() if err > grad_rtol]
     if not over:
-        return
+        return k_loss
     worst = max(errs, key=errs.get)
     if cfg.dtype != "bfloat16":
         fail(f"kernel and plain gradients disagree: {worst} at {errs[worst]:.3e}")
@@ -1791,6 +2006,7 @@ def compare_with_plain(torch, cfg, params, step_loss: float | None = None) -> No
     worst = max(errs, key=errs.get)
     if not all(math.isfinite(e) for e in errs.values()) or errs[worst] > grad_rtol:
         fail(f"kernel and followed plain gradients disagree: {worst} at {errs[worst]:.3e}")
+    return k_loss
 
 
 # the CLI's steps in phase 4 (its default is 200): the loss falls well
@@ -3318,17 +3534,19 @@ def device_kernels(torch, prof, n_steps: int) -> list:
             if e.device_type() == torch.autograd.DeviceType.CUDA]
 
 
-def phase_profile(torch, train: dict, plain_steps: int = PROFILED_STEPS) -> None:
+def phase_profile(torch, train: dict, plain_steps: int = PROFILED_STEPS) -> dict:
     """Where a full-width step's device time goes, continuing a training
-    phase's state: with the kernels, then with their plain versions, one
+    phase's state (taken out of ``train``, so that only the steps' states
+    stay alive): with the kernels, then with their plain versions, one
     warm-up step and then steps under ``torch.profiler`` (device activity
     only): PROFILED_STEPS with the kernels, ``plain_steps`` plain (none:
     the plain profile is skipped, as
     for the Mamba paths, whose plain scans launch ~445k kernels a Falcon
-    step)."""
+    step).  Returns {mode: {step_ms, busy_share, launches}}."""
     from repro_torch.kernels import ops
-    state, step_fn, loader = train["state"], train["step_fn"], train["loader"]
+    state, step_fn, loader = train.pop("state"), train["step_fn"], train["loader"]
     act = [torch.profiler.ProfilerActivity.CUDA]
+    out = {}
     for mode, n_steps in (("kernels", PROFILED_STEPS), ("plain", plain_steps)):
         if not n_steps:
             continue
@@ -3357,6 +3575,8 @@ def phase_profile(torch, train: dict, plain_steps: int = PROFILED_STEPS) -> None
             rec = by_name.setdefault(name, [0.0, 0])
             rec[0] += ms
             rec[1] += 1
+        out[mode] = {"step_ms": step_ms, "busy_share": busy_ms / step_ms,
+                     "launches": len(kernels) // n_steps}
         print(f"  {mode}: step {step_ms:.2f} ms (CUDA events, profiled), device busy "
               f"{busy_ms:.2f} ms/step = {busy_ms / step_ms:.1%} of the step, "
               f"{len(kernels) // n_steps} kernel launches/step", flush=True)
@@ -3366,6 +3586,7 @@ def phase_profile(torch, train: dict, plain_steps: int = PROFILED_STEPS) -> None
         for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
             print(f"    {ms:8.3f} {n // n_steps:5d}  {name[:100]}", flush=True)
     ops.unregister_kernels()
+    return out
 
 
 ROUTE_REPS = 10
@@ -3599,10 +3820,11 @@ def check_incremental(torch, label: str, cfg, params, tokens) -> float:
 
 
 def phase_serve_qwen3(torch, cfg, none: dict) -> tuple:
-    """(a) and (b) for qwen3-1b: a warm-up run, then the timed kernel run
-    (launches exact, peak memory, cache bytes, one decode step profiled),
-    the plain run fed its tokens, and decode against the forward.
-    Returns ({path: launches}, the summary)."""
+    """(a) and (b) for one of the paper's Qwen3 models whole (qwen3-1b,
+    then qwen3-9b): a warm-up run, then the timed kernel run (launches
+    exact, peak memory, cache bytes, one decode step profiled), the plain
+    run fed its tokens, and decode against the forward.  Returns ({path:
+    launches}, the summary)."""
     from repro_torch.kernels import ops
     from repro_torch.models import decode_step, init
     params = init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
@@ -4403,42 +4625,13 @@ def main() -> int:
     deepseek = dataclasses.replace(get_config("deepseek-moe-16b"), n_layers=DEEPSEEK_LAYERS)
     qwen3 = get_config("qwen3-1b")
     zamba2 = dataclasses.replace(get_config("zamba2-2.7b"), n_layers=ZAMBA2_LAYERS)
-    groups = zamba2.n_layers // zamba2.hybrid_every
     whisper = get_config("whisper-large-v3")
     qwen2_vl = dataclasses.replace(get_config("qwen2-vl-7b"), n_layers=QWEN2_VL_LAYERS)
-    results.update(phase_gmm_kernels(torch, mg, deepseek))
-    # per step with remat="full": each layer's kernels run in the forward
-    # and again in its recompute; the final norm runs once.  An MoE layer
-    # runs three grouped matmuls (gate, up, down), and each one's backward
-    # launches K3 twice (dx and dw).  Zamba2's checkpointed groups run one
-    # norm and one SSD scan (K4, and K4-bwd in the backward) per Mamba
-    # layer and two norms and one attention per application of the shared
-    # block.  Whisper runs two norms and one attention per encoder layer,
-    # three norms (self, cross, MLP) and two attentions (self, cross) per
-    # decoder layer
-    none = dict.fromkeys(("rmsnorm", "flash_attention", "mamba_scan", "mamba_scan_bwd",
-                          "moe_gmm", "moe_gmm_bwd"), 0)
-    paths = [(qwen, {**none, "rmsnorm": (4 * qwen.n_layers + 1) * STEPS,
-                     "flash_attention": 2 * qwen.n_layers * STEPS}),
-             (falcon, {**none, "rmsnorm": (2 * falcon.n_layers + 1) * STEPS,
-                       "mamba_scan": 2 * falcon.n_layers * STEPS,
-                       "mamba_scan_bwd": falcon.n_layers * STEPS}),
-             (deepseek, {**none, "rmsnorm": (4 * deepseek.n_layers + 1) * STEPS,
-                         "flash_attention": 2 * deepseek.n_layers * STEPS,
-                         "moe_gmm": 6 * deepseek.n_layers * STEPS,
-                         "moe_gmm_bwd": 6 * deepseek.n_layers * STEPS}),
-             (qwen3, {**none, "rmsnorm": (4 * qwen3.n_layers + 1) * STEPS,
-                      "flash_attention": 2 * qwen3.n_layers * STEPS}),
-             (zamba2, {**none, "rmsnorm": (2 * (zamba2.n_layers + 2 * groups) + 1) * STEPS,
-                       "flash_attention": 2 * groups * STEPS,
-                       "mamba_scan": 2 * zamba2.n_layers * STEPS,
-                       "mamba_scan_bwd": zamba2.n_layers * STEPS}),
-             (whisper, {**none, "rmsnorm": (4 * whisper.n_enc_layers + 6 * whisper.n_layers + 1)
-                        * STEPS,
-                        "flash_attention": (2 * whisper.n_enc_layers + 4 * whisper.n_layers)
-                        * STEPS}),
-             (qwen2_vl, {**none, "rmsnorm": (4 * qwen2_vl.n_layers + 1) * STEPS,
-                         "flash_attention": 2 * qwen2_vl.n_layers * STEPS})]
+    dbrx = dataclasses.replace(get_config("dbrx-132b"), n_layers=1)
+    results.update(phase_gmm_kernels(torch, mg, deepseek, (dbrx,)))
+    none = dict.fromkeys(LAUNCH_KEYS, 0)
+    paths = [(cfg, train_launches(cfg)) for cfg in (qwen, falcon, deepseek, qwen3, zamba2,
+                                                    whisper, qwen2_vl)]
     for (cfg, want), tag in zip(paths, ("3", "3b", "3c", "3d", "3j", "3k", "3l")):
         enc = f"{cfg.n_enc_layers} encoder and " if cfg.n_enc_layers else ""
         phase(f"{tag}/5 full-width training: {cfg.name}, {enc}{cfg.n_layers} layers")
@@ -4464,11 +4657,23 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    summary_zoo = {}
+    for tag, arch, layers, optimizer in ZOO:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        what = "training" if optimizer else "forward and backward, no optimizer step"
+        phase(f"{tag}/5 full-width {what}: {cfg.name}, {layers} of "
+              f"{get_config(arch).n_layers} layers")
+        counts[cfg.name], summary_zoo[cfg.name] = phase_train_zoo(torch, cfg, optimizer)
+        gc.collect()
+        torch.cuda.empty_cache()
+
     phase("3m/5 serving: init_cache, prefill and decode_step at full width")
-    served, summary_3m = phase_serve_qwen3(torch, qwen3, none)
-    counts.update({path: {**none, **launched} for path, launched in served.items()})
-    gc.collect()
-    torch.cuda.empty_cache()
+    summary_3m = {}
+    for cfg in (qwen3, get_config("qwen3-9b")):
+        served, summary_3m[cfg.name] = phase_serve_qwen3(torch, cfg, none)
+        counts.update({path: {**none, **launched} for path, launched in served.items()})
+        gc.collect()
+        torch.cuda.empty_cache()
     for cfg, incremental in ((deepseek, False), (falcon, True),
                              (dataclasses.replace(zamba2, n_layers=zamba2.hybrid_every), True),
                              (dataclasses.replace(whisper, n_layers=FP32_LAYERS,
@@ -4605,6 +4810,7 @@ def main() -> int:
     print("3m " + json.dumps(summary_3m), flush=True)
     print("3n " + json.dumps(summary_3n), flush=True)
     print("3o " + json.dumps(summary_3o), flush=True)
+    print("zoo " + json.dumps(summary_zoo), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
