@@ -71,7 +71,15 @@ their plain versions.  Only Qwen1.5's run ends with a checkpoint save
     (its AdamW step, 22 B a parameter, does not fit one card: K2 at GQA
     48/8, K3 and K3-bwd at (16, 1280, 6144) @ (16, 6144, 10752), its MoE
     block held at full width); each path's step time, peak beside the
-    card's memory and busy share go to a ``zoo {...}`` line near the end.
+    card's memory and busy share go to a ``zoo {...}`` line near the end;
+  - the TPU kernels' widest shapes on a training path (phase 3u,
+    ``wide_paths``), each a published configuration with one field
+    changed, as the zoo paths run: qwen3-1b with ``head_dim=512`` at 2 of
+    its 28 layers (K2 on the wide kernels, K1's qk-norm at width 512) and
+    Zamba2-2.7B with ``SSMCfg(state=256, version=2, ...)`` at one group
+    of 6 layers (K4 and K4-bwd as two groups of 128 states),
+    ``WIDE_STEPS`` AdamW steps each, the fp32 check at 1 layer (Zamba2 at
+    its group); a ``3u {...}`` line near the end.
 
 Falcon-Mamba's and Zamba2's plain profiles are skipped (the plain runs
 differ only in kernels whose plain versions phase 2 times), and so are
@@ -117,7 +125,15 @@ L2-cold beside SDPA, fp32 at 256 too), K3 with K and N no multiple of 8
 (``GMM_CONTRACT``; the gate/up shape less 4 in each timed beside the
 unpadded one and ``torch.bmm``) and K4 and K4-bwd at 128 states (Zamba2's
 scan shape at N = 128, timed warm and cold, K4-bwd twice for the same
-bits, the bytes of the partial rows one call allocates), and 96; phase 3j
+bits, the bytes of the partial rows one call allocates), and 96; past
+them, K2 at head dims 264, 320, 384 and 512 (``FLASH_WIDE``: GQA 16/8,
+bf16 and fp32, warm and cold, beside SDPA and the backend it chose) and
+1000, and K4 and K4-bwd at 129, 192 (Falcon-Mamba's channels) and 256
+states (Zamba2's, and its decode step), each new kernel twice for the
+same bits; and the three grids past CUDA's 65,535 blocks in y or z
+(``phase_grid_limits``: K2 at 65,536 query blocks, K3 at 65,536 row
+tiles, K4 at a batch of 65,536), one call each against the plain
+version.  Phase 3j
 reports which of its bf16 runs, the kernels' or the plain versions', is
 nearer an fp32 run of the same step through the plain versions
 (``nearer_fp32``).
@@ -459,6 +475,11 @@ FLASH_CONTRACT = {(BATCH, 16, 16, SEQ, 50): "at_head_dim_50_padded",
                   (BATCH, 16, 16, SEQ, 68): "at_head_dim_68_padded",
                   (BATCH, 16, 16, SEQ, 192): "at_head_dim_192",
                   (BATCH, 16, 16, SEQ, 256): "at_head_dim_256"}
+# K2 past head dim 256 (the wide kernels), GQA 16/8 as qwen3-1b's, timed
+# in bf16 and fp32, L2-warm and L2-cold, beside SDPA (whose flash backend
+# stops at 256: the row names the backend it chose), and their keys: 264
+# (its last block 8 columns wide), 320, 384 and 512 (phase 3u's qwen3-1b)
+FLASH_WIDE = {(BATCH, 16, 8, SEQ, d): f"at_head_dim_{d}_gqa_16_8" for d in (264, 320, 384, 512)}
 # K2 with a sliding window, (B, Hq, Hkv, Sq, Skv, D, causal, q_offset,
 # window), and its key in the kernels line: Zamba2's shared attention
 # (window 4096, which masks nothing at SEQ tokens), windows that are no
@@ -527,6 +548,17 @@ L2_COLD_BYTES = 128 << 20
 K1_SLEEP_CYCLES = 20_000_000
 # calls timed on the host's clock
 K1_HOST_CALLS = 2000
+
+
+def sdpa_backend(torch, q, k, v, causal: bool, gqa: bool) -> str:
+    """The backend SDPA's dispatcher picks for these inputs (its own
+    choice function, ``torch._fused_sdp_choice``), by name."""
+    from torch.nn.attention import SDPBackend
+    try:
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=causal,
+                                                  enable_gqa=gqa)).name
+    except (AttributeError, RuntimeError, TypeError, ValueError) as e:
+        return f"unknown ({type(e).__name__})"
 
 
 def cold_ms(torch, fn, args: tuple, reps: int = 20, sleep_cycles: int = 100_000_000) -> float:
@@ -665,7 +697,13 @@ def phase_kernels(torch, F, fa, rn) -> dict:
              *[(b, hq, hkv, s, s, d, True) for b, hq, hkv, s, d in FLASH_CONTRACT],
              (1, 8, 2, 100, 300, 256, True), (2, 4, 2, 40, 72, 192, False),
              (1, 4, 1, 50, 90, 5, True), (1, 4, 4, 130, 200, 1, True),
-             (2, 6, 2, 70, 130, 100, False)]
+             (2, 6, 2, 70, 130, 100, False),
+             # past 256 (the wide kernels): FLASH_WIDE's shapes, then 512
+             # with an offset and ragged Skv, 320 non-causal, and 1000
+             # padded to 1000 (8 blocks a query block, its last 104 wide)
+             *[(b, hq, hkv, s, s, d, True) for b, hq, hkv, s, d in FLASH_WIDE],
+             (1, 8, 2, 100, 300, 512, True), (2, 4, 2, 40, 72, 320, False),
+             (1, 4, 2, 130, 200, 1000, True)]
     errs = {}      # (case, dtype name) -> (max abs error of out and lse, against fp32 P)
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[1]
@@ -688,6 +726,11 @@ def phase_kernels(torch, F, fa, rn) -> dict:
                 p_err = check_close(torch, tag + " against fp32 P", out, fp32_p.to(dt),
                                     dname, FP32_P_TOL)
                 extra = f" against_fp32_P={p_err:.3e}"
+            if d > 256:           # a new kernel: the same bits on a second call
+                again = fa.flash_attention_fwd(q, k, v, causal=causal, q_offset=off)
+                if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+                    fail(f"{tag}: two calls on the same inputs differ")
+                extra += " (the same bits twice)"
             print(f"  {tag} max_abs_err={err:.3e} lse_err={lse_err:.3e}{extra}", flush=True)
             errs[(b, hq, hkv, sq, skv, d, causal), dname] = (max(err, lse_err), p_err)
 
@@ -771,6 +814,8 @@ def phase_kernels(torch, F, fa, rn) -> dict:
                 *a, causal=causal), (q, k, v))
             timed["library_ms_cold"] = cold_ms(torch, lambda *a: F.scaled_dot_product_attention(
                 *a, is_causal=causal, enable_gqa=hq != hkv), (q, k, v))
+        if d > 256:
+            timed["library_backend"] = sdpa_backend(torch, q, k, v, causal, hq != hkv)
         case = (b, hq, hkv, sq, skv, d, causal)
         tflops = 4 * d * pairs / timed["ms"] / 1e9
         if dt == torch.bfloat16:
@@ -782,6 +827,8 @@ def phase_kernels(torch, F, fa, rn) -> dict:
             timed["max_abs_err"] = errs[case, "float32"][0]
         floor = "" if dt == torch.bfloat16 else \
             f", the same FLOPs at the fp32 FFMA rate {4 * d * pairs / FP32_FLOPS * 1e3:.4f} ms"
+        if "library_backend" in timed:
+            floor += f"; SDPA's backend {timed['library_backend']}"
         if cold:
             floor += (f"; L2-cold: kernel {timed['ms_cold']:.4f} ms, SDPA "
                       f"{timed['library_ms_cold']:.4f} ms")
@@ -809,6 +856,11 @@ def phase_kernels(torch, F, fa, rn) -> dict:
             BATCH, 16, 16, SEQ, SEQ, d, True, torch.float32, cold=d == 256)
     for case, key in FLASH_PATHS.items():
         results["flash_attention"][key] = flash_times(*case)
+    for (b, hq, hkv, sq, d), key in FLASH_WIDE.items():
+        results["flash_attention"][key] = flash_times(b, hq, hkv, sq, sq, d, True, cold=True)
+        results["flash_attention"]["at_fp32_" + key[3:]] = flash_times(
+            b, hq, hkv, sq, sq, d, True, torch.float32, cold=True)
+        torch.cuda.empty_cache()
     for case, key in FLASH_WINDOWS.items():
         results["flash_attention"][key] = window_case(*case)
         torch.cuda.empty_cache()
@@ -817,21 +869,25 @@ def phase_kernels(torch, F, fa, rn) -> dict:
 
 # the bf16 tensor-core kernels and their instantiations (head dims 64, 128
 # and 256, each exact and padded, each with and without a sliding window;
-# layouts)
-TC_KERNELS = {"flash_fwd_wgmma_kernel": 12, "moe_gmm_wgmma_kernel": 3}
+# the wide kernel past 256, with and without a window; layouts)
+TC_KERNELS = {"flash_fwd_wgmma_kernel": 12, "flash_fwd_wgmma_wide_kernel": 2,
+              "moe_gmm_wgmma_kernel": 3}
 # the kernels that must keep their state in registers and shared memory,
 # and their instantiations: the scans (x fp32 or bf16, dt fp32 or bf16,
-# the built state sizes 16, 32, 64 and 128), the fp32 K3 (few rows: row
+# the built state sizes 16, 32, 64 and 128, and a group of 128 of a larger
+# size), the fp32 K3 (few rows: row
 # tiles 8, 16, 24, 32 x 3 layouts; tiles of 64 and 128 rows x 3 layouts x
 # 16- or 4-byte copies), the fp32 K2 (head dims 64 and 128 x blocks of 64
-# and 128 rows, and 256 in blocks of 64) and K1 (fp32 and bf16 x 1 to 5 chunks a thread and the
+# and 128 rows, and 256 in blocks of 64; the wide kernel past 256) and K1
+# (fp32 and bf16 x 1 to 5 chunks a thread and the
 # generic two-pass kernel with 16-byte accesses, and the generic one
 # element by element)
-SCAN_KERNELS = {"mamba_scan_fwd_kernel": 16, "mamba_scan_bwd_kernel": 16}
+SCAN_KERNELS = {"mamba_scan_fwd_kernel": 20, "mamba_scan_bwd_kernel": 20}
 LOCAL_FREE_KERNELS = {**SCAN_KERNELS, "gmm_few_rows_kernel": 12, "gmm_tile_kernel": 12,
-                      "flash_fwd_fp32_kernel": 5, "rmsnorm_kernel": 14}
+                      "flash_fwd_fp32_kernel": 5, "flash_fwd_fp32_wide_kernel": 1,
+                      "rmsnorm_kernel": 14}
 # the kernels whose fp32 products are split TF32 on the tensor cores
-SPLIT_TF32_KERNELS = ("flash_fwd_fp32_kernel",)
+SPLIT_TF32_KERNELS = ("flash_fwd_fp32_kernel", "flash_fwd_fp32_wide_kernel")
 
 
 def cuobjdump() -> str:
@@ -1232,7 +1288,15 @@ def phase_scan_kernels(torch, ms) -> dict:
     # Zamba2's scan shape at the public Mamba-2 models' 128 states (Mamba-2
     # 2.7B: d_model 2560, expand 2, headdim 64, d_state 128)
     wide = (BATCH, SEQ, 5120, 128, bf16, f32)
-    timed_shapes = {main: "main", zamba2: "zamba2", wide: "wide"}
+    # past 128 states, as groups of 128: Falcon-Mamba's channels at 192
+    # (padded to 256) and Zamba2's SSD channels at 256 (phase 3u's)
+    falcon_192 = (BATCH, SEQ, 8192, 192, bf16, bf16)
+    zamba2_256 = (BATCH, SEQ, 5120, 256, bf16, f32)
+    timed_shapes = {main: "main", zamba2: "zamba2", wide: "wide", falcon_192: "falcon_192",
+                    zamba2_256: "zamba2_256"}
+    # autograd through ssm_scan_ref's chunked (B, S, C, N) intermediates
+    # would not fit the card beside them: the plain versions hold them
+    no_ref = {falcon_192, zamba2_256}
     cases = [(*main, False), (*zamba2, False), (*wide, False), (1, 16, 8, 4, f32, f32, False),
              (2, 24, 16, 8, f32, f32, False), (1, 8, 6, 4, f32, f32, False),
              (2, 1000, 256, 16, f32, f32, True), (2, 1000, 256, 16, bf16, bf16, True),
@@ -1250,7 +1314,11 @@ def phase_scan_kernels(torch, ms) -> dict:
              # 128 states (8 lanes a channel; the backward's blocks four
              # 16-channel groups), C ragged past a block's 64 channels, and
              # 96 run on 128, with h0
-             (2, 77, 200, 128, bf16, f32, True), (2, 45, 70, 96, f32, f32, True)]
+             (2, 77, 200, 128, bf16, f32, True), (2, 45, 70, 96, f32, f32, True),
+             # groups of 128 states (192 and 256 at the paths' widths; 129
+             # and 256 with C ragged past a block, with h0)
+             (*falcon_192, False), (*zamba2_256, False), (2, 77, 200, 256, bf16, f32, True),
+             (2, 45, 70, 129, f32, f32, True)]
     results, timed = {}, {}
     for b, s, c, n, dtype, dt_dtype, with_h0, *bc in cases:
         bc_dtype = bc[0] if bc else dtype
@@ -1287,6 +1355,14 @@ def phase_scan_kernels(torch, ms) -> dict:
                         _scan_tol(y))
             err = check_close(torch, f"{tag} continued hT", h2, hT, "", SCAN_TOL)
             print(f"  {tag} continued from step {s // 2}: hT max_abs_err={err:.3e}", flush=True)
+        if (b, s, c, n, dtype, dt_dtype) in no_ref:
+            print(f"  {tag} grads vs autograd through ssm_scan_ref: skipped (its chunked "
+                  "intermediates would not fit the card; the plain versions hold it)",
+                  flush=True)
+            timed[timed_shapes[b, s, c, n, dtype, dt_dtype]] = (
+                {"mamba_scan": fwd_err, "mamba_scan_bwd": bwd_err}, (x, dt, A, B, C, hs, dy))
+            del x, dt, A, B, C, h0, y, hT, hs, want, dy, dhT
+            continue
         # autograd through K4/K4-bwd against autograd through the chunked reference
         D = 1 + 0.1 * torch.randn((c,), generator=g, device="cuda")
         ref_grads = []
@@ -1320,11 +1396,14 @@ def phase_scan_kernels(torch, ms) -> dict:
     # the serving path's calls: Falcon-Mamba's, and Zamba2's (fp32 dt)
     decode = scan_decode(torch, ms, g, 8192, 16, bf16)
     decode_zamba2 = scan_decode(torch, ms, g, 5120, 64, f32)
+    decode_256 = scan_decode(torch, ms, g, 5120, 256, f32)
     for key, label in (("main", "bf16"), ("zamba2", "bf16 x, fp32 dt"),
-                       ("wide", "bf16 x, fp32 dt, 128 states")):
+                       ("wide", "bf16 x, fp32 dt, 128 states"),
+                       ("falcon_192", "bf16, 192 states"),
+                       ("zamba2_256", "bf16 x, fp32 dt, 256 states")):
         errs, inputs = timed[key]
         same_bits_twice(torch, ms, *inputs, label)
-        times = scan_timing(torch, ms, *inputs, cold=key == "wide")
+        times = scan_timing(torch, ms, *inputs, cold=key not in ("main", "zamba2"))
         x, n = inputs[0], inputs[2].shape[1]
         b, s, c = x.shape
         # K4-bwd's partial rows of dB and dC, as one call allocates them (the
@@ -1340,9 +1419,12 @@ def phase_scan_kernels(torch, ms) -> dict:
         del grads
         times["mamba_scan_bwd"]["dB_dC_partial_bytes"] = ms.partial_bytes
         times["mamba_scan_bwd"]["call_peak_bytes"] = peak
+        times["mamba_scan_bwd"]["group_partial_bytes"] = ms.group_bytes
         print(f"  mamba_scan_bwd {(b, s, c, n)}: partial rows of dB and dC "
-              f"{ms.partial_bytes} bytes each ({ms.bwd_channels(n)} channels a block); the "
-              f"call's peak allocation {peak} bytes", flush=True)
+              f"{ms.partial_bytes} bytes each ({ms.bwd_channels(n)} channels a block), "
+              f"{ms.groups(n)} group(s) of states, the groups' partial sums of dx and ddt "
+              f"{ms.group_bytes} bytes each; the call's peak allocation {peak} bytes",
+              flush=True)
         if not 0 < 2 * ms.partial_bytes <= peak:
             fail(f"mamba_scan_bwd {(b, s, c, n)}: partial rows of {ms.partial_bytes} bytes "
                  f"do not fit the call's peak allocation of {peak}")
@@ -1356,6 +1438,7 @@ def phase_scan_kernels(torch, ms) -> dict:
         timed[key] = None
     results["mamba_scan"][f"at_decode_{BATCH}_1_8192_16"] = decode
     results["mamba_scan"][f"at_decode_zamba2_{BATCH}_1_5120_64"] = decode_zamba2
+    results["mamba_scan"][f"at_decode_zamba2_{BATCH}_1_5120_256"] = decode_256
     return results
 
 
@@ -1611,11 +1694,12 @@ def grads_step(torch, cfg):
     return step
 
 
-def phase_train_zoo(torch, cfg, optimizer: bool) -> tuple:
+def phase_train_zoo(torch, cfg, optimizer: bool, steps: int = ZOO_STEPS,
+                    fp32_layers: int = FP32_LAYERS) -> tuple:
     """``cfg`` at its published widths through the port's entry points:
     first the kernels against their plain versions on step 1's weights
     and batch (``compare_with_plain`` in bf16 at the path's depth), then
-    ``ZOO_STEPS`` steps of ``build_step`` with the kernels (of ``grads_step``
+    ``steps`` steps of ``build_step`` with the kernels (of ``grads_step``
     without ``optimizer``), each timed by the host clock around the
     synchronised step, launches held to ``train_launches``, the first
     loss within 1.0 of ``init_loss`` and equal to the comparison's kernel
@@ -1624,14 +1708,13 @@ def phase_train_zoo(torch, cfg, optimizer: bool) -> tuple:
     profile: the plain run differs only in K1, K2 and K3, whose plain
     versions phase 2 times).  With the state freed, an MoE config's block
     is held to its plain version at its widths, and the fp32 comparison
-    runs at ``FP32_LAYERS`` layers (one for a one-layer path).  Saves no
+    runs at ``fp32_layers`` layers (at most the path's).  Saves no
     checkpoint.  Returns (launches, summary)."""
     from repro_torch.kernels import ops
     from repro_torch.launch.train import build_step
     from repro_torch.models import init
     from repro_torch.optim import adamw_init, cosine_schedule
 
-    steps = ZOO_STEPS
     print(config_line(cfg), flush=True)
     params = init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     k_loss = compare_with_plain(torch, cfg, params)
@@ -1693,7 +1776,7 @@ def phase_train_zoo(torch, cfg, optimizer: bool) -> tuple:
     torch.cuda.empty_cache()
     if cfg.moe:
         check_moe_block(torch, cfg)
-    cfg32 = dataclasses.replace(cfg, n_layers=min(FP32_LAYERS, cfg.n_layers), dtype="float32")
+    cfg32 = dataclasses.replace(cfg, n_layers=min(fp32_layers, cfg.n_layers), dtype="float32")
     compare_with_plain(torch, cfg32, init(cfg32, torch.Generator(device="cuda").manual_seed(0),
                                           "cuda"))
     return counts, {"layers": cfg.n_layers, "params": cfg.param_count(),
@@ -1706,6 +1789,149 @@ def phase_train_zoo(torch, cfg, optimizer: bool) -> tuple:
                     "reckoned_bytes": per_param * cfg.param_count(),
                     "profiled_step_ms": prof["step_ms"], "busy_share": prof["busy_share"],
                     "profiled_launches": prof["launches"]}
+
+
+# Phase 3u: the TPU kernels' widest shapes on a training path.  No
+# configuration of the zoo goes past head dim 128 or 64 states, so each
+# path is a published configuration with one field changed, as a user
+# would write it, at its published widths: qwen3-1b with head_dim 512
+# (16/8 heads of 512, d_ff 6,144, vocab 151,936, tied embeddings) at 2 of
+# its 28 layers, and Zamba2-2.7B with SSMCfg(state=256, version=2,
+# d_conv=4, expand=2, headdim=64) at one group of its layers (6: a depth
+# must be a multiple of hybrid_every, as in phase 3j).  Each trains
+# ``WIDE_STEPS`` AdamW steps through ``phase_train_zoo``.
+WIDE_STEPS = 3
+
+
+def wide_paths(get_config) -> list:
+    """Phase 3u's paths: (tag, label, config, layers of the fp32 check)."""
+    qwen3 = dataclasses.replace(get_config("qwen3-1b"), n_layers=2, head_dim=512)
+    z = get_config("zamba2-2.7b")
+    zamba2 = dataclasses.replace(z, n_layers=z.hybrid_every,
+                                 ssm=dataclasses.replace(z.ssm, state=256))
+    return [("3u a", "qwen3-1b head_dim 512", qwen3, 1),
+            ("3u b", "zamba2-2.7b ssm state 256", zamba2, z.hybrid_every)]
+
+
+def dw_tol(dname: str, m: int, peak: float) -> tuple:
+    """(atol, rtol) of K3-bwd's dw, a sum of m products a value, against an
+    fp64 reference whose largest value is ``peak``.  fp32 (CUDA cores,
+    rounding to nearest): each of the m additions rounds by at most 2^-24
+    of its partial sum, independently, so the error walks: four standard
+    deviations of m such roundings, sqrt(m) 2^-24 peak each.  bf16 (the
+    tensor cores' fp32 accumulation, whose roundings need not cancel): at
+    most 2^-24 peak at each of the m / 16 steps of the MMAs' k, all of one
+    sign, and the result's rounding to bf16, 2^-8 of its value."""
+    if dname == "float32":
+        return 4 * m ** 0.5 * 2.0 ** -24 * peak, 0.0
+    return m / 16 * 2.0 ** -24 * peak, 2.0 ** -8
+
+
+def phase_grid_limits(torch, fa, mg, ms) -> dict:
+    """The three shapes whose grids pass CUDA's 65,535 blocks in y or z,
+    one call each at the smallest shape that crosses, against the plain
+    version, each timed (``cuda_ms``): K2 with a window of 1 at 65,536
+    query blocks (bf16: 128 rows a block; fp32: 64), held on slices around
+    the fold (with a window of 1 a row sees only its own key, so a slice
+    of q, k and v is the same problem; the plain version of the whole
+    would be Sq^2); K3 at 65,536 row tiles of 128 (bf16) and 131,071 of 64
+    (fp32), forward and backward (dw, summed over the M rows, held to an
+    fp64 reference at ``dw_tol``); K4 and K4-bwd at a batch of 65,536 and
+    S = 1.  Returns the kernels line's rows."""
+    g = torch.Generator(device="cuda").manual_seed(65536)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+    rows = {}
+    for dtype, per_block in ((torch.bfloat16, 128), (torch.float32, 64)):
+        dname = str(dtype)[6:]
+        sq = 65535 * per_block + 1
+        q, k, v = (randn((1, 1, sq, 64), dtype) for _ in range(3))
+        ms_ = cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal=True, window=1),
+                      reps=3)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=True, window=1)
+        torch.cuda.synchronize()
+        err = 0.0
+        for lo in (0, 65535 * per_block - 300, sq - 300):
+            sl = slice(lo, lo + 300)
+            want, want_lse = fa.flash_attention_fwd_plain(q[:, :, sl], k[:, :, sl], v[:, :, sl],
+                                                          causal=True, window=1)
+            tag = f"flash {dname} window 1 Sq {sq} rows {lo}-{lo + 299}"
+            err = max(err, check_close(torch, tag, out[:, :, sl], want, dname),
+                      check_close(torch, tag + " lse", lse[:, :, sl], want_lse, "float32"))
+        blocks = -(-sq // per_block)
+        print(f"  flash {dname} (1, 1, {sq}, 64) causal window 1: {blocks} query blocks of "
+              f"{per_block} (gridDim.y 65535, gridDim.z {-(-blocks // 65535)}), max_abs_err "
+              f"{err:.3e} on slices around the fold; kernel {ms_:.4f} ms", flush=True)
+        # one key a row: the bytes of q, k, v, out and lse bound it; the
+        # plain version of the whole would hold Sq^2 scores
+        rows.setdefault("flash_attention", {})[f"at_{dname}_window_1_{blocks}_query_blocks"] = \
+            {"max_abs_err": err, "ms": ms_, "plain_ms": None, "query_blocks": blocks,
+             **bound(4 * q.numel() * q.element_size() + sq * 4, 4 * 64 * sq / BF16_FLOPS)}
+        del q, k, v, out, lse
+    m = 65535 * 128 + 1
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
+        x, w, dy = randn((1, m, 8), dtype), randn((1, 8, 8), dtype), randn((1, m, 8), dtype)
+        y = mg.moe_gmm_fwd(x, w)
+        dx, dw = mg.moe_gmm_bwd(x, w, dy)
+        torch.cuda.synchronize()
+        tag = f"moe_gmm {dname} (1, {m}, 8) x (1, 8, 8)"
+        err = check_close(torch, tag, y, mg.moe_gmm_plain(x, w), dname, GMM_TOL[dname])
+        want_dx = mg.moe_gmm_bwd_plain(x.float(), w.float(), dy.float())[0]
+        want_dw = (x[0].double().T @ dy[0].double())[None]
+        bwd_err = max(check_close(torch, tag + " dx", dx, want_dx.to(dtype), dname,
+                                  GMM_TOL[dname]),
+                      check_close(torch, tag + " dw", dw, want_dw, dname,
+                                  dw_tol(dname, m, want_dw.abs().max().item())))
+        tile = 128 if dtype == torch.bfloat16 else 64
+        fwd_ms = cuda_ms(torch, lambda: mg.moe_gmm_fwd(x, w), reps=3)
+        bwd_ms = cuda_ms(torch, lambda: mg.moe_gmm_bwd(x, w, dy), reps=3)
+        print(f"  {tag}: {-(-m // tile)} row tiles of {tile}, max_abs_err {err:.3e} forward, "
+              f"{bwd_err:.3e} backward; kernel {fwd_ms:.4f} ms forward, {bwd_ms:.4f} ms "
+              "backward", flush=True)
+        key = f"at_{dname}_{-(-m // tile)}_row_tiles"
+        rate = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+        rows.setdefault("moe_gmm", {})[key] = {
+            "max_abs_err": err, "ms": fwd_ms,
+            "plain_ms": cuda_ms(torch, lambda: mg.moe_gmm_plain(x, w), reps=3),
+            **bound(_nbytes(x, w, y), 2 * m * 64 / rate)}
+        rows.setdefault("moe_gmm_bwd", {})[key] = {
+            "max_abs_err": bwd_err, "ms": bwd_ms,
+            "plain_ms": cuda_ms(torch, lambda: mg.moe_gmm_bwd_plain(x, w, dy), reps=3),
+            **bound(_nbytes(x, w, dy, dx, dw), 4 * m * 64 / rate)}
+        del x, w, dy, y, dx, dw
+    x, dt, A, B, C, h0 = scan_inputs(torch, g, 65536, 1, 64, 16, torch.float32, with_h0=True)
+    dy = randn((65536, 1, 64), torch.float32)
+    y, hT, hs = ms.mamba_scan_fwd(x, dt, A, B, C, h0, save_states=True)
+    grads = ms.mamba_scan_bwd(x, dt, A, B, C, hs, dy)
+    torch.cuda.synchronize()
+    want = ms.mamba_scan_plain(x, dt, A, B, C, h0, save_states=True)
+    tag = "mamba_scan float32 (65536, 1, 64, 16) h0"
+    err = max(check_close(torch, f"{tag} {k}", a, b_, "", SCAN_TOL)
+              for k, a, b_ in zip(("y", "hT", "hs"), (y, hT, hs), want))
+    bwd_err = max(check_close(torch, f"{tag} d{i}", a, b_, "", SCAN_TOL) for i, (a, b_) in
+                  enumerate(zip(grads, ms.mamba_scan_bwd_plain(x, dt, A, B, C, want[2], dy))))
+    fwd_ms = cuda_ms(torch, lambda: ms.mamba_scan_fwd(x, dt, A, B, C, h0, save_states=True),
+                     reps=3)
+    bwd_ms = cuda_ms(torch, lambda: ms.mamba_scan_bwd(x, dt, A, B, C, hs, dy), reps=3)
+    print(f"  {tag}: a batch of 65536 (two launches of at most 65535 rows), max_abs_err "
+          f"{err:.3e} forward, {bwd_err:.3e} backward; kernel {fwd_ms:.4f} ms forward, "
+          f"{bwd_ms:.4f} ms backward", flush=True)
+    elems = x.numel() * 16
+    rows["mamba_scan"] = {"at_batch_65536_1_64_16": {
+        "max_abs_err": err, "ms": fwd_ms,
+        "plain_ms": cuda_ms(torch, lambda: ms.mamba_scan_plain(x, dt, A, B, C, h0,
+                                                               save_states=True), reps=3),
+        # reads x, dt, A, B, C, h0; writes y, hT and the chunk states
+        **bound(_nbytes(x, dt, A, B, C, h0, x, h0, hs), 7 * elems / FP32_FLOPS)}}
+    rows["mamba_scan_bwd"] = {"at_batch_65536_1_64_16": {
+        "max_abs_err": bwd_err, "ms": bwd_ms,
+        "plain_ms": cuda_ms(torch, lambda: ms.mamba_scan_bwd_plain(x, dt, A, B, C, hs, dy),
+                            reps=3),
+        # reads x, dt, dy, A, B, C, the chunk states; writes dx, ddt, dA, dB, dC, dh0
+        **bound(2 * _nbytes(x, dt, B, C, A) + _nbytes(dy, hs, h0), 20 * elems / FP32_FLOPS)}}
+    return rows
 
 
 @contextlib.contextmanager
@@ -3508,7 +3734,8 @@ def phase_elastic_cli(torch, strategy_json: str, tmp: str) -> None:
 
 
 FAMILIES = [("moe_gmm_wgmma_kernel", "K3 grouped mm"), ("moe_gmm_kernel", "K3 grouped mm"),
-            ("flash_fwd_wgmma_kernel", "K2 flash fwd"),
+            ("flash_fwd_wgmma_kernel", "K2 flash fwd"), ("flash_fwd_wgmma_wide", "K2 flash fwd"),
+            ("flash_fwd_fp32", "K2 flash fwd"),
             ("rmsnorm_kernel", "K1 rmsnorm"), ("flash_fwd_kernel", "K2 flash fwd"),
             ("mamba_scan_fwd_kernel", "K4 scan fwd"), ("mamba_scan_bwd_kernel", "K4-bwd scan"),
             ("gemm", "matmul"), ("cutlass", "matmul"), ("sm90_xmma", "matmul"),
@@ -4629,6 +4856,11 @@ def main() -> int:
     qwen2_vl = dataclasses.replace(get_config("qwen2-vl-7b"), n_layers=QWEN2_VL_LAYERS)
     dbrx = dataclasses.replace(get_config("dbrx-132b"), n_layers=1)
     results.update(phase_gmm_kernels(torch, mg, deepseek, (dbrx,)))
+    phase("2/5 grids past 65,535 blocks")
+    for name, rows in phase_grid_limits(torch, fa, mg, ms).items():
+        results[name].update(rows)
+    gc.collect()
+    torch.cuda.empty_cache()
     none = dict.fromkeys(LAUNCH_KEYS, 0)
     paths = [(cfg, train_launches(cfg)) for cfg in (qwen, falcon, deepseek, qwen3, zamba2,
                                                     whisper, qwen2_vl)]
@@ -4664,6 +4896,15 @@ def main() -> int:
         phase(f"{tag}/5 full-width {what}: {cfg.name}, {layers} of "
               f"{get_config(arch).n_layers} layers")
         counts[cfg.name], summary_zoo[cfg.name] = phase_train_zoo(torch, cfg, optimizer)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    summary_3u = {}
+    for tag, label, cfg, fp32_layers in wide_paths(get_config):
+        phase(f"{tag}/5 full-width training past the old kernel limits: {label}, "
+              f"{cfg.n_layers} layers")
+        counts[label], summary_3u[label] = phase_train_zoo(torch, cfg, True, WIDE_STEPS,
+                                                           fp32_layers)
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -4811,6 +5052,7 @@ def main() -> int:
     print("3n " + json.dumps(summary_3n), flush=True)
     print("3o " + json.dumps(summary_3o), flush=True)
     print("zoo " + json.dumps(summary_zoo), flush=True)
+    print("3u " + json.dumps(summary_3u), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

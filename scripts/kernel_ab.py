@@ -2,7 +2,7 @@
 
 Usage (on a machine with a CUDA card, from the root of a checkout):
 
-    python3 scripts/kernel_ab.py {k1,k4,fp32} OTHER_CHECKOUT
+    python3 scripts/kernel_ab.py {k1,k4,fp32,wide} OTHER_CHECKOUT
 
 Times the set's kernels in OTHER_CHECKOUT and in this one, in turns:
 other, this, this, other.  Each turn is a subprocess that builds its
@@ -29,7 +29,13 @@ line a turn, in microseconds.  The sets:
   K2 at (4, 16, 1024, D) causal for D = 64 and 128, and K3 at
   DeepSeek-MoE-16B's decode shapes (64 experts x 4 rows: (2048 -> 1408)
   and (1408 -> 2048)) and its training shape (64 x 448 rows, 2048 ->
-  1408: the forward, dx and dw)."""
+  1408: the forward, dx and dw).
+- ``wide``: the shapes past the kernels' first instantiations: K2 at
+  qwen3-1b's (4, 16/8, 1024, 512) causal in bf16 and fp32 (the wide
+  kernels) beside SDPA, and K4 and K4-bwd at Zamba2's scan shape at 256
+  states, (4, 1024, 5120, 256) with bf16 x and fp32 dt (two groups of
+  128).  Both checkouts must take these shapes (the port's commits
+  before the wide kernels refuse them)."""
 import json
 import os
 import subprocess
@@ -118,6 +124,28 @@ out["k3_train_dx"] = us_of(lambda: mg.moe_gmm_bwd(x, w, dy, need_dw=False), reps
 out["bmm_train_dx"] = us_of(lambda: torch.bmm(dy, w.transpose(1, 2)), reps=5)
 out["k3_train_dw"] = us_of(lambda: mg.moe_gmm_bwd(x, w, dy, need_dx=False), reps=5)
 out["bmm_train_dw"] = us_of(lambda: torch.bmm(x.transpose(1, 2), dy), reps=5)
+''', "wide": r'''
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mamba_scan as ms
+g = torch.Generator(device="cuda").manual_seed(13)
+def randn(*shape, scale=1.0):
+    return torch.randn(shape, generator=g, device="cuda") * scale
+out = {}
+for dt_, name in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+    q = randn(4, 16, 1024, 512).to(dt_)
+    k, v = randn(4, 8, 1024, 512).to(dt_), randn(4, 8, 1024, 512).to(dt_)
+    out[f"k2_d512_{name}"] = us_of(lambda: fa.flash_attention_fwd(q, k, v, causal=True))
+    out[f"sdpa_d512_{name}"] = us_of(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    del q, k, v
+b, s, c, n = 4, 1024, 5120, 256
+x, dy = randn(b, s, c, scale=0.5).bfloat16(), randn(b, s, c).bfloat16()
+dt = torch.nn.functional.softplus(randn(b, s, c))
+A = -torch.exp(randn(c, n, scale=0.2))
+B, C = randn(b, s, n, scale=0.5).bfloat16(), randn(b, s, n, scale=0.5).bfloat16()
+_, _, hs = ms.mamba_scan_fwd(x, dt, A, B, C, save_states=True)
+out["fwd_n256"] = us_of(lambda: ms.mamba_scan_fwd(x, dt, A, B, C, save_states=True), reps=5)
+out["bwd_n256"] = us_of(lambda: ms.mamba_scan_bwd(x, dt, A, B, C, hs, dy), reps=5)
 '''}
 
 

@@ -159,9 +159,9 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def count_launch(counters: dict, name: str) -> None:
-    """Add one to the launch counter ``counters[name]`` (a wrapper
+def count_launch(counters: dict, name: str, n: int = 1) -> None:
+    """Add n launches to the counter ``counters[name]`` (a wrapper
     module's ``globals()``) under a lock, so that launches from several
     threads are all counted."""
     with _COUNT_LOCK:
-        counters[name] += 1
+        counters[name] += n

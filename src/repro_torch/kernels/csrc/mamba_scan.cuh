@@ -22,6 +22,24 @@
 // loads past it) ptxas spilled in most instantiations.  The wrapper runs
 // any N from 1 to 128 on the next of them, its extra states padded with 0
 // (A, B, C and h0), which stay 0 and add nothing to y or to any gradient.
+// Past 128, N is padded to a multiple of 128 and runs as groups of 128
+// states (kG): the recurrence is independent per (channel, state), so
+// each group is the 128-state kernel on its slice of the states, and all
+// the groups run in one launch, a block's group being blockIdx.z.
+// Per-state rows (A, h0, hT, the saved states, dhT, dA, dh0) are read and
+// written in place, ns = N floats apart; B and C, and the partial rows of
+// dB and dC, are the group's own slab (the wrapper lays them out
+// group-major: without a run-time stride in their copies the fp32
+// backward at the register cap does not spill); y, dx and ddt, sums over
+// all the states, are written by each group as fp32 partial sums (G, B,
+// S, C) that the wrapper adds with torch.sum in a fixed order: no
+// atomics, the same bits every run.  kG's `batch` is the kernels' last
+// parameter: placed before S it moved S, C and ns in the parameter bank,
+// and the 64-state fp32 forward without kG spilled.  A batch past
+// gridDim.y's limit of 65,535 rows is walked in launches of kMaxRows, and
+// a call returns the number of launches it made (launch): folding the
+// batch into gridDim.z as well, as K2 folds its query blocks, made a
+// block's row a computed value, which cost registers at the cap (PERF.md).
 // Each input in its own type, as the TPU kernel casts each one to fp32
 // on its own: x (and y, dy, dx) fp32 or bf16, dt (and ddt) fp32 or bf16
 // (a template type of its own, so an fp32 dt is never rounded to x's
@@ -43,7 +61,9 @@
 // operations, the channel sums included, and moves ~0.5 GB.  At Zamba2's
 // SSD shape (4, 1024, 5120, 64), fp32 dt, the exps (1.34G, ~321 us) are
 // the floor again; at N = 128 (the public Mamba-2 models' state size),
-// 2.68G exps, ~642 us.
+// 2.68G exps, ~642 us; at N = 256 twice that (two groups), and the
+// backward's bound grows with N the same way (1,602.6 us of operations,
+// 3,209.6 us of exps at (4, 1024, 5120, 256)).
 //
 // Forward design.  A channel's NP states are held in registers by L
 // lanes of one warp, 16 states each (L = 1 at 16 states, 2 at 32, 4 at
@@ -284,6 +304,12 @@ __device__ __forceinline__ void store_bc(float* flat, const E (&v)[2 * K * NP / 
 template <typename T, int NP>
 using FwdBC = std::conditional_t<(NP > 16), float, T>;
 
+// The type a kernel writes y, dx (Out) and ddt (OutD) in: x's and dt's,
+// or fp32 partial sums when it runs one group of states of several (kG),
+// which the wrapper adds up and casts.
+template <typename T, bool kG>
+using Out = std::conditional_t<kG, float, T>;
+
 // Sums each of M values over the lanes whose indices differ only in the
 // bits O, O/2, ..., Stop.  Each exchange halves the list: the lanes whose
 // bit O is set keep the upper half and add the partner's, the others the
@@ -324,12 +350,12 @@ __device__ __forceinline__ float lanes_sum(float v) {
 // partial sums, a shorter chain.  No branch (not even the store's: it is
 // predicated) splits the unrolled steps, so the compiler overlaps each
 // step's latencies with the next one's work.
-template <typename T, typename TD, int NP, bool kFull>
+template <typename T, typename TD, int NP, bool kFull, typename TY>
 __device__ __forceinline__ void fwd_tile(float (&h)[NP / kLanes<NP>],
                                          const float (&a2)[NP / kLanes<NP>],
                                          const T (&xr)[kTile], const TD (&dr)[kTile],
                                          const float (*sB)[NP], const float (*sC)[NP],
-                                         T* __restrict__ y, size_t off, int C, int nt, int sub,
+                                         TY* __restrict__ y, size_t off, int C, int nt, int sub,
                                          bool writer) {
   constexpr int L = kLanes<NP>, NL = NP / L;
 #pragma unroll
@@ -345,7 +371,7 @@ __device__ __forceinline__ void fwd_tile(float (&h)[NP / kLanes<NP>],
         ys[k % 4] = fmaf(h[k], Cv[k], ys[k % 4]);
       }
       const float yv = lanes_sum<L>((ys[0] + ys[1]) + (ys[2] + ys[3]));
-      store_if(y + off + static_cast<size_t>(r) * C, from_f<T>(yv), writer);
+      store_if(y + off + static_cast<size_t>(r) * C, from_f<TY>(yv), writer);
     }
   }
 }
@@ -359,26 +385,34 @@ __device__ __forceinline__ void fwd_tile(float (&h)[NP / kLanes<NP>],
 template <int NP>
 constexpr int kFwdBlocks = NP > 64 ? 2 : NP > 16 ? 3 : 1;
 
-template <typename T, typename TD, int NP>
+// kG: the groups of NP states of ns, group blockIdx.z: the rows of A,
+// h0, hT and hs ns floats apart (each block at its group's first state),
+// B and C each group's own (batch, S, NP) slab, y each group's fp32
+// partial sums; batch: the rows of a group's slab.
+template <typename T, typename TD, int NP, bool kG>
 __global__ void __launch_bounds__(kThreads, kFwdBlocks<NP>)
 mamba_scan_fwd_kernel(const T* __restrict__ x, const TD* __restrict__ dt,
                       const float* __restrict__ A, const FwdBC<T, NP>* __restrict__ Bm,
                       const FwdBC<T, NP>* __restrict__ Cm, const float* __restrict__ h0,
-                      T* __restrict__ y, float* __restrict__ hT, float* __restrict__ hs,
-                      int S, int C) {
+                      Out<T, kG>* __restrict__ y, float* __restrict__ hT,
+                      float* __restrict__ hs, int S, int C, int ns, int batch) {
   constexpr int L = kLanes<NP>, NL = NP / L;
+  const int NS = kG ? ns : NP;              // a row's stride: states in all groups
   __shared__ __align__(16) float sBC[2][2][kTile][NP];   // [buffer][B, C][step][state]
   const int tid = threadIdx.x, sub = tid % L, b = blockIdx.y;
   const int c = blockIdx.x * (kThreads / L) + tid / L;
   const bool active = c < C, writer = active && sub == 0;
   const int nchunk = (S + kChunk - 1) / kChunk;
-  const size_t row0 = static_cast<size_t>(b) * S;
-  const size_t st = (static_cast<size_t>(b) * C + c) * NP;
+  const size_t row0 = static_cast<size_t>(b) * S;          // x and dt
+  const size_t gb = kG ? static_cast<size_t>(blockIdx.z) * batch + b : b;
+  const size_t grow0 = gb * S;                              // B, C and y: the group's slab
+  const size_t g0 = kG ? static_cast<size_t>(blockIdx.z) * NP : 0;   // the group's first state
+  const size_t st = (static_cast<size_t>(b) * C + c) * NS + g0;
   float a2[NL], h[NL];
 #pragma unroll
   for (int k = 0; k < NL; ++k) a2[k] = h[k] = 0.f;
   if (active) {
-    load_row<NL, L>(a2, A + static_cast<size_t>(c) * NP, sub);
+    load_row<NL, L>(a2, A + static_cast<size_t>(c) * NS + g0, sub);
     if (h0) load_row<NL, L>(h, h0 + st, sub);
   }
 #pragma unroll
@@ -392,10 +426,10 @@ mamba_scan_fwd_kernel(const T* __restrict__ x, const TD* __restrict__ dt,
   load_steps<T, kTile>(xr, x, row0, 0, S, C, c, active);
   load_steps<TD, kTile>(dr, dt, row0, 0, S, C, c, active);
   if constexpr (kCopies) {
-    stage_bc<NP, kTile>(&sBC[0][0][0][0], Bm, Cm, row0, 0, S, tid);
+    stage_bc<NP, kTile>(&sBC[0][0][0][0], Bm, Cm, grow0, 0, S, tid);
     copies_wait();
   } else {
-    load_bc<T, NP, kTile>(bc, Bm, Cm, row0, 0, S, tid);
+    load_bc<T, NP, kTile>(bc, Bm, Cm, grow0, 0, S, tid);
     store_bc<T, NP, kTile>(&sBC[0][0][0][0], bc, tid);
   }
   __syncthreads();
@@ -407,19 +441,19 @@ mamba_scan_fwd_kernel(const T* __restrict__ x, const TD* __restrict__ dt,
     load_steps<TD, kTile>(dn, dt, row0, t0 + kTile, S, C, c, active);
     // every thread is past the last tile's barrier, so none reads this buffer now
     if constexpr (kCopies)
-      stage_bc<NP, kTile>(&sBC[(i + 1) & 1][0][0][0], Bm, Cm, row0, t0 + kTile, S, tid);
+      stage_bc<NP, kTile>(&sBC[(i + 1) & 1][0][0][0], Bm, Cm, grow0, t0 + kTile, S, tid);
     else
-      load_bc<T, NP, kTile>(bc, Bm, Cm, row0, t0 + kTile, S, tid);
+      load_bc<T, NP, kTile>(bc, Bm, Cm, grow0, t0 + kTile, S, tid);
     if (hs && active && t0 % kChunk == 0)
-      store_row<NL, L>(hs + ((static_cast<size_t>(b) * nchunk + t0 / kChunk) * C + c) * NP, h,
-                       sub);
-    const size_t off = (row0 + t0) * C + c;
+      store_row<NL, L>(hs + ((static_cast<size_t>(b) * nchunk + t0 / kChunk) * C + c) * NS + g0,
+                       h, sub);
+    const size_t off = (grow0 + t0) * C + c;
     if (nt == kTile)
-      fwd_tile<T, TD, NP, true>(h, a2, xr, dr, sBC[i & 1][0], sBC[i & 1][1], y, off, C, nt,
-                                sub, writer);
+      fwd_tile<T, TD, NP, true, Out<T, kG>>(h, a2, xr, dr, sBC[i & 1][0], sBC[i & 1][1], y, off,
+                                            C, nt, sub, writer);
     else
-      fwd_tile<T, TD, NP, false>(h, a2, xr, dr, sBC[i & 1][0], sBC[i & 1][1], y, off, C, nt,
-                                 sub, writer);
+      fwd_tile<T, TD, NP, false, Out<T, kG>>(h, a2, xr, dr, sBC[i & 1][0], sBC[i & 1][1], y, off,
+                                             C, nt, sub, writer);
     if constexpr (kCopies)
       copies_wait();
     else
@@ -483,13 +517,13 @@ __device__ __forceinline__ void put_red(float* row, const float (&v)[Len], int l
 // carrying g and adding to dA, storing dx_t and ddt_t, and leaving each
 // warp's channel sums of dB_t and dC_t in red[par].  As in fwd_tile, no
 // branch splits the unrolled steps.
-template <typename T, typename TD, int NP, bool kFull>
+template <typename T, typename TD, int NP, bool kFull, typename TX, typename TDX>
 __device__ __forceinline__ void bwd_segment(BwdSmem<NP>& sm, int sg, int nt, int par, int tid,
                                             const float (&a2)[NP / kLanes<NP>],
                                             float (&g)[NP / kLanes<NP>],
                                             float (&dA)[NP / kLanes<NP>], const T (&xs)[kSeg],
                                             const TD (&ds)[kSeg], const T (&dys)[kSeg],
-                                            T* __restrict__ dx, TD* __restrict__ ddt,
+                                            TX* __restrict__ dx, TDX* __restrict__ ddt,
                                             size_t off, int C, bool writer) {
   constexpr int L = kLanes<NP>, NL = NP / L;
   const int warp = tid / 32, lane = tid % 32, sub = lane % L;
@@ -545,8 +579,8 @@ __device__ __forceinline__ void bwd_segment(BwdSmem<NP>& sm, int sg, int nt, int
       }
       s1 = lanes_sum<L>(s1);
       s2 = lanes_sum<L>(s2);
-      store_if(dx + off + static_cast<size_t>(r) * C, from_f<T>(d * s1), writer);
-      store_if(ddt + off + static_cast<size_t>(r) * C, from_f<TD>(fmaf(xv, s1, s2 * kLn2)),
+      store_if(dx + off + static_cast<size_t>(r) * C, from_f<TX>(d * s1), writer);
+      store_if(ddt + off + static_cast<size_t>(r) * C, from_f<TDX>(fmaf(xv, s1, s2 * kLn2)),
                writer);
       if constexpr (kSplitV<NP>) {
         lane_sum<NL, 16, L>(v, lane);
@@ -571,16 +605,21 @@ static_assert(sizeof(BwdSmem<128>) <= 227 * 1024, "a block fits an SM's shared m
 template <int NP>
 constexpr int kBwdGroups = NP > 64 ? 4 : 1;
 
-template <typename T, typename TD, int NP>
+// kG as in the forward: the rows of A, hs, dhT, dA_part and dh0 ns floats
+// apart, B, C, dB_part and dC_part each group's own slabs, dx and ddt its
+// fp32 partial sums.
+template <typename T, typename TD, int NP, bool kG>
 __global__ void __launch_bounds__(kThreads, kBwdBlocks<NP>)
 mamba_scan_bwd_kernel(const T* __restrict__ x, const TD* __restrict__ dt,
                       const float* __restrict__ A, const float* __restrict__ Bm,
                       const float* __restrict__ Cm, const float* __restrict__ hs,
                       const T* __restrict__ dy, const float* __restrict__ dhT,
-                      T* __restrict__ dx, TD* __restrict__ ddt, float* __restrict__ dA_part,
-                      float* __restrict__ dB_part, float* __restrict__ dC_part,
-                      float* __restrict__ dh0, int S, int C) {
+                      Out<T, kG>* __restrict__ dx, Out<TD, kG>* __restrict__ ddt,
+                      float* __restrict__ dA_part, float* __restrict__ dB_part,
+                      float* __restrict__ dC_part, float* __restrict__ dh0, int S, int C,
+                      int ns, int batch) {
   constexpr int L = kLanes<NP>, NL = NP / L;
+  const int NS = kG ? ns : NP;
   // B and C as in the forward: at 16 states the next chunk's are loaded
   // into registers a chunk ahead (4 a thread); above, the chunk's are
   // copied by cp.async at its start, through no registers (through 32 of
@@ -592,17 +631,20 @@ mamba_scan_bwd_kernel(const T* __restrict__ x, const TD* __restrict__ dt,
   const int tid = threadIdx.x, sub = tid % L;
   const int b = blockIdx.y, blk = blockIdx.x, nblk = gridDim.x;
   const int nchunk = (S + kChunk - 1) / kChunk;
-  const size_t row0 = static_cast<size_t>(b) * S;
+  const size_t row0 = static_cast<size_t>(b) * S;          // x, dt and dy
+  const size_t gb = kG ? static_cast<size_t>(blockIdx.z) * batch + b : b;
+  const size_t grow0 = gb * S;                              // B, C, dx and ddt: the group's slab
+  const size_t g0 = kG ? static_cast<size_t>(blockIdx.z) * NP : 0;   // the group's first state
   int par = 0;
   for (int grp = 0; grp < kBwdGroups<NP>; ++grp) {
     const int c = (blk * kBwdGroups<NP> + grp) * (kThreads / L) + tid / L;
     const bool active = c < C, writer = active && sub == 0;
-    const size_t st = (static_cast<size_t>(b) * C + c) * NP;
+    const size_t st = (static_cast<size_t>(b) * C + c) * NS + g0;
     float a2[NL], g[NL], dA[NL];
 #pragma unroll
     for (int k = 0; k < NL; ++k) a2[k] = g[k] = dA[k] = 0.f;
     if (active) {
-      load_row<NL, L>(a2, A + static_cast<size_t>(c) * NP, sub);
+      load_row<NL, L>(a2, A + static_cast<size_t>(c) * NS + g0, sub);
       if (dhT) load_row<NL, L>(g, dhT + st, sub);
     }
 #pragma unroll
@@ -610,20 +652,20 @@ mamba_scan_bwd_kernel(const T* __restrict__ x, const TD* __restrict__ dt,
 
     float bc[kBC];
     if constexpr (!kCopies)
-      load_bc<float, NP, kChunk>(bc, Bm, Cm, row0, (nchunk - 1) * kChunk, S, tid);
+      load_bc<float, NP, kChunk>(bc, Bm, Cm, grow0, (nchunk - 1) * kChunk, S, tid);
     for (int k = nchunk - 1; k >= 0; --k) {
       const int ts = k * kChunk;
       const int nseg = (min(kChunk, S - ts) + kSeg - 1) / kSeg;
       // every thread is past the last segment's barrier, so none reads sBC now
       if constexpr (kCopies) {
-        stage_bc<NP, kChunk>(&sm.sBC[0][0][0], Bm, Cm, row0, ts, S, tid);
+        stage_bc<NP, kChunk>(&sm.sBC[0][0][0], Bm, Cm, grow0, ts, S, tid);
         copies_wait();
       } else {
         store_bc<float, NP, kChunk>(&sm.sBC[0][0][0], bc, tid);
       }
       __syncthreads();
       if constexpr (!kCopies) {
-        if (k > 0) load_bc<float, NP, kChunk>(bc, Bm, Cm, row0, ts - kChunk, S, tid);
+        if (k > 0) load_bc<float, NP, kChunk>(bc, Bm, Cm, grow0, ts - kChunk, S, tid);
       }
       const float(*sB)[NP] = sm.sBC[0];
 
@@ -632,7 +674,7 @@ mamba_scan_bwd_kernel(const T* __restrict__ x, const TD* __restrict__ dt,
 #pragma unroll
       for (int q = 0; q < NL; ++q) h[q] = 0.f;
       if (active)
-        load_row<NL, L>(h, hs + ((static_cast<size_t>(b) * nchunk + k) * C + c) * NP, sub);
+        load_row<NL, L>(h, hs + ((static_cast<size_t>(b) * nchunk + k) * C + c) * NS + g0, sub);
       for (int sg = 0; sg < nseg; ++sg) {
         store_col<NL>(sm.ck[sg], tid, h);
         if (sg + 1 == nseg) break;
@@ -657,13 +699,15 @@ mamba_scan_bwd_kernel(const T* __restrict__ x, const TD* __restrict__ dt,
         load_steps<T, kSeg>(xs, x, row0, s0, S, C, c, active);
         load_steps<TD, kSeg>(ds, dt, row0, s0, S, C, c, active);
         load_steps<T, kSeg>(dys, dy, row0, s0, S, C, c, active);
-        const size_t off = (row0 + s0) * C + c;
+        const size_t off = (grow0 + s0) * C + c;
         if (nt == kSeg)
-          bwd_segment<T, TD, NP, true>(sm, sg, nt, par, tid, a2, g, dA, xs, ds, dys, dx, ddt,
-                                       off, C, writer);
+          bwd_segment<T, TD, NP, true, Out<T, kG>, Out<TD, kG>>(sm, sg, nt, par, tid, a2, g, dA,
+                                                                xs, ds, dys, dx, ddt, off, C,
+                                                                writer);
         else
-          bwd_segment<T, TD, NP, false>(sm, sg, nt, par, tid, a2, g, dA, xs, ds, dys, dx, ddt,
-                                        off, C, writer);
+          bwd_segment<T, TD, NP, false, Out<T, kG>, Out<TD, kG>>(sm, sg, nt, par, tid, a2, g, dA,
+                                                                 xs, ds, dys, dx, ddt, off, C,
+                                                                 writer);
         __syncthreads();
         // the block's sums over its channels, warp by warp in a fixed order
         for (int j = tid; j < nt * 2 * NP; j += kThreads) {
@@ -671,8 +715,8 @@ mamba_scan_bwd_kernel(const T* __restrict__ x, const TD* __restrict__ dt,
           float s = 0.f;
 #pragma unroll
           for (int w = 0; w < kWarps; ++w) s += sm.red[par][r][w][m];
-          const size_t at = ((static_cast<size_t>(b) * nblk + blk) * S + s0 + r) * NP + m % NP;
-          float* dst = (m < NP ? dB_part : dC_part) + at;
+          const size_t to = ((gb * nblk + blk) * S + s0 + r) * NP + m % NP;
+          float* dst = (m < NP ? dB_part : dC_part) + to;
           *dst = grp ? *dst + s : s;           // this thread's own store of the group before
         }
         if constexpr (kRedBufs<NP> == 2)
@@ -702,43 +746,80 @@ struct Args {
   cudaStream_t s;
 };
 
-template <typename T, typename TD, int NP>
-int launch_fwd(const Args& a) {
+// Batch rows a launch takes: gridDim.y's limit.  A larger batch is walked
+// in launches of kMaxRows rows, each on pointers advanced to its first.
+constexpr int kMaxRows = 65535;
+
+// p advanced by `by` elements of its type, or null if p is.
+template <typename P>
+P* at(const void* p, size_t by) {
+  return p ? static_cast<P*>(const_cast<void*>(p)) + by : nullptr;
+}
+
+// The forward over rows [b0, b0 + nb) of the batch and all n states:
+// n / NP groups of NP in gridDim.z (kG) or one.
+template <typename T, typename TD, int NP, bool kG>
+int launch_fwd(const Args& a, int b0, int nb) {
   constexpr int kCh = kThreads / kLanes<NP>;
-  const dim3 grid((a.C + kCh - 1) / kCh, a.batch);
-  mamba_scan_fwd_kernel<T, TD, NP><<<grid, kThreads, 0, a.s>>>(
-      static_cast<const T*>(a.x), static_cast<const TD*>(a.dt), a.A,
-      static_cast<const FwdBC<T, NP>*>(a.Bm), static_cast<const FwdBC<T, NP>*>(a.Cm), a.h0_or_hs,
-      static_cast<T*>(a.y_or_dx), a.hT_or_dA, a.hs_or_dB, a.S, a.C);
+  const size_t S = a.S, C = a.C, n = a.n, nchunk = (a.S + kChunk - 1) / kChunk;
+  const dim3 grid((a.C + kCh - 1) / kCh, nb, a.n / NP);
+  mamba_scan_fwd_kernel<T, TD, NP, kG><<<grid, kThreads, 0, a.s>>>(
+      at<const T>(a.x, b0 * S * C), at<const TD>(a.dt, b0 * S * C), a.A,
+      at<const FwdBC<T, NP>>(a.Bm, b0 * S * NP), at<const FwdBC<T, NP>>(a.Cm, b0 * S * NP),
+      at<const float>(a.h0_or_hs, b0 * C * n), at<Out<T, kG>>(a.y_or_dx, b0 * S * C),
+      at<float>(a.hT_or_dA, b0 * C * n), at<float>(a.hs_or_dB, b0 * nchunk * C * n),
+      a.S, a.C, a.n, a.batch);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename TD, int NP>
-int launch_bwd(const Args& a) {
+template <typename T, typename TD, int NP, bool kG>
+int launch_bwd(const Args& a, int b0, int nb) {
   constexpr int kCh = kThreads / kLanes<NP> * kBwdGroups<NP>;
-  const dim3 grid((a.C + kCh - 1) / kCh, a.batch);
+  const size_t S = a.S, C = a.C, n = a.n, nchunk = (a.S + kChunk - 1) / kChunk;
+  const size_t part = static_cast<size_t>(b0) * a.nblk * S * NP;
+  const dim3 grid((a.C + kCh - 1) / kCh, nb, a.n / NP);
   if (static_cast<int>(grid.x) != a.nblk) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = static_cast<int>(sizeof(BwdSmem<NP>));
   const cudaError_t e = cudaFuncSetAttribute(
-      mamba_scan_bwd_kernel<T, TD, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      mamba_scan_bwd_kernel<T, TD, NP, kG>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  mamba_scan_bwd_kernel<T, TD, NP><<<grid, kThreads, smem, a.s>>>(
-      static_cast<const T*>(a.x), static_cast<const TD*>(a.dt), a.A,
-      static_cast<const float*>(a.Bm), static_cast<const float*>(a.Cm), a.h0_or_hs,
-      static_cast<const T*>(a.dy), a.dhT, static_cast<T*>(a.y_or_dx), static_cast<TD*>(a.ddt),
-      a.hT_or_dA, a.hs_or_dB, a.dC, a.dh0, a.S, a.C);
+  mamba_scan_bwd_kernel<T, TD, NP, kG><<<grid, kThreads, smem, a.s>>>(
+      at<const T>(a.x, b0 * S * C), at<const TD>(a.dt, b0 * S * C), a.A,
+      at<const float>(a.Bm, b0 * S * NP), at<const float>(a.Cm, b0 * S * NP),
+      at<const float>(a.h0_or_hs, b0 * nchunk * C * n), at<const T>(a.dy, b0 * S * C),
+      at<const float>(a.dhT, b0 * C * n), at<Out<T, kG>>(a.y_or_dx, b0 * S * C),
+      at<Out<TD, kG>>(a.ddt, b0 * S * C), at<float>(a.hT_or_dA, b0 * C * n),
+      at<float>(a.hs_or_dB, part), at<float>(a.dC, part), at<float>(a.dh0, b0 * C * n),
+      a.S, a.C, a.n, a.batch);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The built state sizes: 16, 32, 64 and 128.
+// One call: the batch in launches of at most kMaxRows rows, each over all
+// the states.  Returns the number of launches made, or minus the CUDA
+// error of the first that failed.
+template <bool kBwd, typename T, typename TD, int NP, bool kG>
+int launch(const Args& a) {
+  int made = 0;
+  for (int b0 = 0; b0 < a.batch; b0 += kMaxRows, ++made) {
+    const int nb = min(kMaxRows, a.batch - b0);
+    const int rc = kBwd ? launch_bwd<T, TD, NP, kG>(a, b0, nb) : launch_fwd<T, TD, NP, kG>(a, b0, nb);
+    if (rc) return -rc;
+  }
+  return made;
+}
+
+// The built state sizes 16, 32, 64 and 128, and every multiple of 128
+// above as groups of 128.
 template <bool kBwd, typename T, typename TD>
 int by_state(const Args& a) {
   switch (a.n) {
-    case 16: return kBwd ? launch_bwd<T, TD, 16>(a) : launch_fwd<T, TD, 16>(a);
-    case 32: return kBwd ? launch_bwd<T, TD, 32>(a) : launch_fwd<T, TD, 32>(a);
-    case 64: return kBwd ? launch_bwd<T, TD, 64>(a) : launch_fwd<T, TD, 64>(a);
-    case 128: return kBwd ? launch_bwd<T, TD, 128>(a) : launch_fwd<T, TD, 128>(a);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 16: return launch<kBwd, T, TD, 16, false>(a);
+    case 32: return launch<kBwd, T, TD, 32, false>(a);
+    case 64: return launch<kBwd, T, TD, 64, false>(a);
+    case 128: return launch<kBwd, T, TD, 128, false>(a);
+    default:
+      if (a.n > 128 && a.n % 128 == 0) return launch<kBwd, T, TD, 128, true>(a);
+      return -static_cast<int>(cudaErrorInvalidValue);
   }
 }
 

@@ -39,7 +39,14 @@
 // the entry point below calls for dtype 0: tensor cores take fp32 only as
 // TF32, which would break the fp32 tolerance.
 //
-// Offsets are 64-bit (E*K*N passes 2^31 bytes at DBRX's widths).
+// Offsets are 64-bit (E*K*N passes 2^31 bytes at DBRX's widths).  Experts
+// and row tiles past gridDim.z's and gridDim.y's limit of 65,535 are
+// walked in further launches (e0, mt0: the first expert and row tile of a
+// launch), so a call takes any E and M, and reports the launches it made.
+// Folding them into gridDim.z in one launch, as K2 folds its query
+// blocks, made a block's expert and row tile computed values; at the
+// register cap that spilled two fp32 tile kernels and slowed the fp32
+// training shape by 4-6% (PERF.md).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -60,6 +67,7 @@ constexpr int kTcStages = 4;
 constexpr int kTcThreads = 288;               // warps 0-7: two consumer warpgroups; 8: producer
 constexpr int kTcOperandBytes = kTcTile * kTcDepth * 2;               // 16 KB
 constexpr int kTcSmem = kTcStages * 2 * kTcOperandBytes + 1024;      // + alignment slack
+constexpr int kMaxGrid = 65535;               // gridDim.y's and gridDim.z's limit
 
 // C (E, M, N) = A . B per expert.  kMnA: A is stored (E, K, M) (MN-major),
 // else (E, M, K); kMnB: B is stored (E, K, N), else (E, N, K).  A stage
@@ -69,11 +77,11 @@ template <int kMnA, int kMnB>
 __global__ void __launch_bounds__(kTcThreads, 1)
 moe_gmm_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
                      const __grid_constant__ CUtensorMap bmap, __nv_bfloat16* __restrict__ c,
-                     int M, int N, int K) {
+                     int M, int N, int K, int e0, int mt0) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kTcStages], empty[kTcStages];
   uint8_t* smem = align1024(smem_raw);
-  const int e = blockIdx.z, m0 = blockIdx.y * kTcTile, n0 = blockIdx.x * kTcTile;
+  const int e = e0 + blockIdx.z, m0 = (mt0 + blockIdx.y) * kTcTile, n0 = blockIdx.x * kTcTile;
   const int nk = (K + kTcDepth - 1) / kTcDepth;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -156,23 +164,34 @@ moe_gmm_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
 template <int kMnA, int kMnB>
 int launch_wgmma(const void* a, const void* b, void* c, int E, int M, int N, int K,
                  cudaStream_t s) {
-  if (K == 0)      // no contraction: C is zero (a tensor map needs every extent > 0)
-    return static_cast<int>(
-        cudaMemsetAsync(c, 0, static_cast<size_t>(E) * M * N * sizeof(__nv_bfloat16), s));
+  if (K == 0) {    // no contraction: C is zero (a tensor map needs every extent > 0); no launch
+    const cudaError_t e =
+        cudaMemsetAsync(c, 0, static_cast<size_t>(E) * M * N * sizeof(__nv_bfloat16), s);
+    return -static_cast<int>(e);
+  }
   CUtensorMap amap, bmap;
   int rc = kMnA ? encode_bf16_3d(&amap, a, M, K, E, 64, 64)
                 : encode_bf16_3d(&amap, a, K, M, E, 64, kTcTile);
   if (!rc)
     rc = kMnB ? encode_bf16_3d(&bmap, b, N, K, E, 64, 64)
               : encode_bf16_3d(&bmap, b, K, N, E, 64, kTcTile);
-  if (rc) return rc;
+  if (rc) return -rc;
   const cudaError_t attr = cudaFuncSetAttribute(
       moe_gmm_wgmma_kernel<kMnA, kMnB>, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid((N + kTcTile - 1) / kTcTile, (M + kTcTile - 1) / kTcTile, E);
-  moe_gmm_wgmma_kernel<kMnA, kMnB><<<grid, kTcThreads, kTcSmem, s>>>(
-      amap, bmap, static_cast<__nv_bfloat16*>(c), M, N, K);
-  return static_cast<int>(cudaGetLastError());
+  if (attr != cudaSuccess) return -static_cast<int>(attr);
+  const int nm = (M + kTcTile - 1) / kTcTile;
+  int made = 0;
+  for (int e0 = 0; e0 < E; e0 += kMaxGrid)
+    for (int mt0 = 0; mt0 < nm; mt0 += kMaxGrid) {
+      const dim3 grid((N + kTcTile - 1) / kTcTile, nm - mt0 < kMaxGrid ? nm - mt0 : kMaxGrid,
+                      E - e0 < kMaxGrid ? E - e0 : kMaxGrid);
+      moe_gmm_wgmma_kernel<kMnA, kMnB><<<grid, kTcThreads, kTcSmem, s>>>(
+          amap, bmap, static_cast<__nv_bfloat16*>(c), M, N, K, e0, mt0);
+      const int rc = static_cast<int>(cudaGetLastError());
+      if (rc) return -rc;
+      ++made;
+    }
+  return made;
 }
 
 int launch_bf16(const void* a, const void* b, void* c, int E, int M, int N, int K, int trans_a,
@@ -182,12 +201,12 @@ int launch_bf16(const void* a, const void* b, void* c, int E, int M, int N, int 
   if (a_cols % 8 || b_cols % 8 || N % 8 ||
       (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
        reinterpret_cast<uintptr_t>(c)) % 16)
-    return static_cast<int>(cudaErrorInvalidValue);
+    return -static_cast<int>(cudaErrorInvalidValue);
   // an operand stored with k contiguous is K-major for wgmma, else MN-major
   if (!trans_a && !trans_b) return launch_wgmma<0, 1>(a, b, c, E, M, N, K, s);
   if (!trans_a && trans_b) return launch_wgmma<0, 0>(a, b, c, E, M, N, K, s);
   if (trans_a && !trans_b) return launch_wgmma<1, 1>(a, b, c, E, M, N, K, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return -static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -197,15 +216,15 @@ int launch_bf16(const void* a, const void* b, void* c, int E, int M, int N, int 
 // a is stored (E, K, M), else (E, M, K); trans_b: b is stored (E, N, K),
 // else (E, K, N); not both.  bf16 needs 16-byte aligned pointers and rows
 // (a's, b's and c's contiguous extents) of a multiple of 8 elements.
-// Returns cudaGetLastError() after the launch (0 on success); a refused
-// launch is reported here.
+// Any E and M.  Returns the number of launches made (one unless E or the
+// row tiles pass 65,535; none at K = 0, where c is zeroed), or minus a CUDA
+// error: the call's refusal, or cudaGetLastError() after the launch that
+// failed.
 extern "C" int moe_gmm(const void* a, const void* b, void* c, int E, int M, int N, int K,
                        int trans_a, int trans_b, int dtype, void* stream) {
   if (dtype == 0) return moe_gmm_fp32(a, b, c, E, M, N, K, trans_a, trans_b, stream);
-  if (E <= 0 || M <= 0 || N <= 0 || K < 0 || E > 65535 ||
-      (M + kTcTile - 1) / kTcTile > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (E <= 0 || M <= 0 || N <= 0 || K < 0) return -static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) return launch_bf16(a, b, c, E, M, N, K, trans_a, trans_b, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return -static_cast<int>(cudaErrorInvalidValue);
 }

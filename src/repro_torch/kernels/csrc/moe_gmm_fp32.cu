@@ -65,6 +65,7 @@ using cuda_core::copy16;
 using cuda_core::copy4;
 
 constexpr int kThreads = 256;
+constexpr int kMaxGrid = 65535;    // gridDim.y's and gridDim.z's limit: walked past in launches
 constexpr int kFewStages = 3;
 
 inline bool aligned16(const void* p) {
@@ -254,11 +255,17 @@ int launch_few(const float* a, const float* b, float* c, int E, int M, int N, in
   const cudaError_t attr =
       cudaFuncSetAttribute(gmm_few_rows_kernel<MT, kTransA, kTransB>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid((N + kFewCols - 1) / kFewCols, 1, E);
-  gmm_few_rows_kernel<MT, kTransA, kTransB><<<grid, kThreads, F::kSmem, s>>>(a, b, c, M, N, K,
-                                                                          vec_b);
-  return static_cast<int>(cudaGetLastError());
+  if (attr != cudaSuccess) return -static_cast<int>(attr);
+  int made = 0;
+  for (int e0 = 0; e0 < E; e0 += kMaxGrid, ++made) {   // experts past the limit: pointers advanced
+    const dim3 grid((N + kFewCols - 1) / kFewCols, 1, E - e0 < kMaxGrid ? E - e0 : kMaxGrid);
+    const int64_t e = e0;
+    gmm_few_rows_kernel<MT, kTransA, kTransB><<<grid, kThreads, F::kSmem, s>>>(
+        a + e * M * K, b + e * K * N, c + e * M * N, M, N, K, vec_b);
+    const int rc = static_cast<int>(cudaGetLastError());
+    if (rc) return -rc;
+  }
+  return made;
 }
 
 // ---- many rows
@@ -357,7 +364,7 @@ __device__ __forceinline__ void tile_transpose(float* dst, const float* raw) {
 template <int BM, bool kTransA, bool kTransB, bool kVec>
 __global__ void __launch_bounds__(2 * BM, 256 / BM)
 gmm_tile_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ c,
-                int M, int N, int K) {
+                int M, int N, int K, int mt0) {
   using T = TileShape<BM, kTransA, kTransB>;
   constexpr int NT = T::kThreads;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -368,7 +375,7 @@ gmm_tile_kernel(const float* __restrict__ a, const float* __restrict__ b, float*
   a += e * M * K;
   b += e * K * N;
   c += e * M * N;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * 128;
+  const int m0 = (mt0 + blockIdx.y) * BM, n0 = blockIdx.x * 128;
   const int64_t lda = kTransA ? M : K, ldb = kTransB ? K : N;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int nslab = (K + kSlab - 1) / kSlab;
@@ -444,11 +451,21 @@ int launch_tile(const float* a, const float* b, float* c, int E, int M, int N, i
   const cudaError_t attr = cudaFuncSetAttribute(
       gmm_tile_kernel<BM, kTransA, kTransB, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       T::kSmem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid((N + 127) / 128, (M + BM - 1) / BM, E);
-  gmm_tile_kernel<BM, kTransA, kTransB, kVec><<<grid, T::kThreads, T::kSmem, s>>>(a, b, c, M,
-                                                                                N, K);
-  return static_cast<int>(cudaGetLastError());
+  if (attr != cudaSuccess) return -static_cast<int>(attr);
+  const int nm = (M + BM - 1) / BM;
+  int made = 0;
+  for (int e0 = 0; e0 < E; e0 += kMaxGrid)
+    for (int mt0 = 0; mt0 < nm; mt0 += kMaxGrid) {   // row tiles past the limit: mt0 on
+      const dim3 grid((N + 127) / 128, nm - mt0 < kMaxGrid ? nm - mt0 : kMaxGrid,
+                      E - e0 < kMaxGrid ? E - e0 : kMaxGrid);
+      const int64_t e = e0;
+      gmm_tile_kernel<BM, kTransA, kTransB, kVec><<<grid, T::kThreads, T::kSmem, s>>>(
+          a + e * M * K, b + e * K * N, c + e * M * N, M, N, K, mt0);
+      const int rc = static_cast<int>(cudaGetLastError());
+      if (rc) return -rc;
+      ++made;
+    }
+  return made;
 }
 
 template <int BM, bool kTransA, bool kTransB>
@@ -478,12 +495,12 @@ int launch_layout(const float* a, const float* b, float* c, int E, int M, int N,
 
 // c (E, M, N) = op(a) . op(b) per expert in fp32; trans_a: a is stored
 // (E, K, M), else (E, M, K); trans_b: b is stored (E, N, K), else (E, K,
-// N); not both.  Returns cudaGetLastError() after the launch (0 on
-// success); a refused launch is reported here.
+// N); not both; any E and M.  Returns the number of launches made (one
+// unless E or the row tiles pass 65,535), or minus a CUDA error: the
+// call's refusal, or cudaGetLastError() after the launch that failed.
 extern "C" int moe_gmm_fp32(const void* a, const void* b, void* c, int E, int M, int N, int K,
                             int trans_a, int trans_b, void* stream) {
-  if (E <= 0 || M <= 0 || N <= 0 || K < 0 || E > 65535 || (M + 63) / 64 > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (E <= 0 || M <= 0 || N <= 0 || K < 0) return -static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* ap = static_cast<const float*>(a);
   const float* bp = static_cast<const float*>(b);
@@ -491,5 +508,5 @@ extern "C" int moe_gmm_fp32(const void* a, const void* b, void* c, int E, int M,
   if (!trans_a && !trans_b) return launch_layout<false, false>(ap, bp, cp, E, M, N, K, s);
   if (!trans_a && trans_b) return launch_layout<false, true>(ap, bp, cp, E, M, N, K, s);
   if (trans_a && !trans_b) return launch_layout<true, false>(ap, bp, cp, E, M, N, K, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return -static_cast<int>(cudaErrorInvalidValue);
 }

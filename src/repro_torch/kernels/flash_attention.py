@@ -7,18 +7,25 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 returns the row logsumexp, so the backward needs no second forward, and
 it takes the sliding window of the JAX package's ``_blk_mask`` (a key is
 visible when ``kpos > qpos - window``), which the JAX package computes in
-its jnp reference only.  Ragged Sq and Skv are taken, and every head dim
-D from 1 to 256 (``head_dim_refusal``): each kernel is built for D = 64,
-128 and 256 and runs a D on the next of the three, with the columns past
-D read as zeros.  A D that is no multiple of 8 is first padded here with
-zero columns to the next multiple (``fwd_call``): TMA reads bf16 rows of
-a multiple of 16 bytes.  The zero columns add nothing to q.k^T, the scale
+its jnp reference only.  Ragged Sq and Skv are taken, any Sq (query
+blocks past CUDA's 65,535 in gridDim.y go on in gridDim.z), and every
+head dim D >= 1, as the TPU kernel takes (``head_dim_refusal`` refuses
+only D < 1): each kernel is built for D = 64, 128 and 256 and runs a D
+up to 256 on the next of the three, with the columns past D read as
+zeros.  A D that is no multiple of 8 is first padded here with zero
+columns to the next multiple (``fwd_call``): TMA reads bf16 rows of a
+multiple of 16 bytes.  The zero columns add nothing to q.k^T, the scale
 stays D**-0.5 of the true D, and out is cut back to D, so only such a D
 pays for the copies, one pass over q, k, v and one over out.  On the
 256-wide instantiation two blocks share each query block, each computing
 S over all the columns and O for 128 of them (a warp's O at 256 columns
 would not fit its registers): S's products are done twice, 1.5x the MMA
-work of one block.
+work of one block.  Past 256 q no longer fits shared memory beside a K
+tile and a TMA box holds at most 256 columns, so the wide kernels (one a
+dtype) sum S over 64-column slices of q and K streamed through the ring,
+and ceil(D/128) blocks share a query block, each O for 128 columns from
+the same S, m and l bits: at D = 512, S four times, 2.5x the MMA work of
+one pass (PERF.md has the times).
 
 Two hand-written kernels, chosen by dtype, both on the tensor cores: bf16
 by ``wgmma`` fed by TMA, fp32 by ``mma.sync`` with each fp32 product split
@@ -44,10 +51,6 @@ from ..models.attention import NEG_INF, repeat_kv
 from . import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-PADDED_HEAD_DIMS = (64, 128, 256)   # the kernels' instantiations
-TC_ROWS = 128            # query rows per block of the bf16 kernel
-FP32_ROWS = 64           # the fewest query rows a block of the fp32 kernel takes
-GRID_Y = 65535           # CUDA's limit on gridDim.y
 
 launches = 0
 
@@ -104,10 +107,11 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = True, q_offset: int = 0
 
 
 def head_dim_refusal(d: int) -> str | None:
-    """Why neither kernel takes head dim ``d``, or None: d must fit the
-    largest instantiation (``fwd_call`` pads it to a multiple of 8)."""
-    if not 1 <= d <= PADDED_HEAD_DIMS[-1]:
-        return f"head_dim {d} is not in [1, {PADDED_HEAD_DIMS[-1]}]"
+    """Why neither kernel takes head dim ``d``, or None: every d >= 1 runs
+    (``fwd_call`` pads it to a multiple of 8; past 256 on the wide
+    kernels)."""
+    if d < 1:
+        return f"head_dim {d} is below 1"
     return None
 
 
@@ -115,19 +119,9 @@ def tc_refusal(q_shape) -> str | None:
     """Why the bf16 tensor-core kernel would not take q (B, Hq, Sq, D), or
     None if it takes it: the shape rules of that kernel alone, beside the
     wrapper's checks of devices, dtypes and k's shape.  D follows
-    ``head_dim_refusal``, and gridDim.y counts blocks of ``TC_ROWS`` query
-    rows."""
-    return _grid_refusal(q_shape, TC_ROWS)
-
-
-def _grid_refusal(q_shape, rows: int) -> str | None:
-    d, sq = q_shape[3], q_shape[2]
-    why = head_dim_refusal(d)
-    if why:
-        return why
-    if -(-sq // rows) > GRID_Y:
-        return f"Sq = {sq} needs more than {GRID_Y} blocks of {rows} query rows"
-    return None
+    ``head_dim_refusal``; any Sq (query blocks past gridDim.y's limit go
+    to gridDim.z)."""
+    return head_dim_refusal(q_shape[3])
 
 
 def _lib():
@@ -155,8 +149,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0,
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPES:
         raise TypeError(f"flash attention kernel: q {q.dtype}, k {k.dtype}, v {v.dtype} "
                         "must share one dtype of float32 / bfloat16")
-    why = tc_refusal(q.shape) if q.dtype == torch.bfloat16 else _grid_refusal(q.shape,
-                                                                               FP32_ROWS)
+    why = head_dim_refusal(q.shape[3])
     if why:
         raise ValueError(f"flash attention kernel: {why}")
     q, k, v = _build.aligned(q), _build.aligned(k), _build.aligned(v)

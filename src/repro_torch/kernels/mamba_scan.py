@@ -10,10 +10,25 @@ scan); the port's K4-bwd is its own.
 
 Both return the scan without the skip term ``x*D``, which the caller
 adds in x's dtype (``ops.mamba_scan``), as the JAX wrapper does.  They
-take any state size N from 1 to ``MAX_STATE`` (128) on the card: the
-kernels are built for the ``BUILT`` sizes (16, 32, 64, 128), and an N in
-between runs on the next one up, A, B, C and h0 padded here with zeros
-(those states stay 0 and add nothing) and the outputs cut back to N.
+take any state size N on the card, as the TPU kernel does: the kernels
+are built for the ``BUILT`` sizes (16, 32, 64, 128), and an N in between
+runs on the next one up, A, B, C and h0 padded here with zeros (those
+states stay 0 and add nothing) and the outputs cut back to N.  Above
+``GROUP`` (128) states N is padded to a multiple of 128 and runs as
+``groups(n)`` groups of 128 states, all in one launch of the 128-state
+kernel (a block's group is blockIdx.z): the recurrence is independent per (channel,
+state), so hT, the saved states, dA and dh0 are each group's own slice,
+while y, dx and ddt sum over the groups.  Each group writes its fp32
+partial sums of those three, (G, B, S, C), and they are added here with
+``torch.sum`` in a fixed order and cast once (``group_bytes`` records
+one buffer's bytes); B, C and the partial rows of dB and dC are laid out
+group-major for the kernels, so a group reads and writes contiguous
+slabs.  No atomics: a call gives the same bits every run.  At Zamba2's
+(4, 1024, 5120, 256) each partial buffer of y, dx or ddt is 167,772,160
+bytes, and the partial rows of dB and dC double the 128-state ones,
+335,544,320 bytes each.  Any batch: the C call walks one past CUDA's
+65,535 blocks in gridDim.y in launches of at most 65,535 rows, and
+returns how many it made.
 They take each input in its own dtype, as the TPU kernel does: x, dt, B
 and C each fp32 or bf16 (y, dx in x's dtype, ddt in dt's), so Mamba-2's
 fp32 dt beside bf16 x is read as it is; B and C, (B, S, N), are read
@@ -39,12 +54,15 @@ transpose-reduce for the sums over channels, and one partial row of dB
 and dC per 128-thread block (at 128 states, per block of four 16-channel
 groups, which it walks in turn: ``bwd_channels``), added here with
 ``torch.sum`` (no atomics: the same bits every run).  Measured, neither kernel reaches its exp
-floor: each warp's step is latency-bound (PERF.md has the times).
+floor: each warp's step is latency-bound (PERF.md has the times).  Above
+128 states the G groups share the launch's waves, so a call takes about
+G times the 128-state call (and each exp floor grows with N).
 
 ``mamba_scan_fwd`` and ``mamba_scan_bwd`` launch the kernels on CUDA
 tensors and use the plain PyTorch versions ``mamba_scan_plain`` and
 ``mamba_scan_bwd_plain`` on CPU or meta tensors.  ``launches`` and
-``bwd_launches`` count kernel launches.
+``bwd_launches`` count kernel launches: what each C call reports it
+made, one unless the batch passes 65,535 rows.
 """
 from __future__ import annotations
 
@@ -58,12 +76,13 @@ from . import _build
 CHUNK = 16              # steps between saved states (the kernel's kChunk)
 THREADS = 128           # threads per block (kThreads)
 BUILT = (16, 32, 64, 128)    # the state sizes the kernels are built for
-MAX_STATE = BUILT[-1]
+GROUP = BUILT[-1]       # above it, states run in groups of this many
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
 bwd_launches = 0
 partial_bytes = 0       # the bytes of each of the last backward call's dB and dC partial rows
+group_bytes = 0         # the bytes of the last call's fp32 partial sums over groups (y or dx)
 
 
 def _check(x, dt, A, B, C, h0):
@@ -84,14 +103,22 @@ def _check(x, dt, A, B, C, h0):
 
 
 def built(n: int) -> int:
-    """The built state size that state size n runs on: the next one up."""
-    return next(k for k in BUILT if k >= n)
+    """The state size that state size n runs on: the next built size up,
+    and above ``GROUP`` the next multiple of it."""
+    return next((k for k in BUILT if k >= n), -(-n // GROUP) * GROUP)
+
+
+def groups(n: int) -> int:
+    """The groups of ``GROUP`` states that state size n runs as: one up to
+    ``GROUP``, all in one launch of the ``GROUP``-state kernel above."""
+    return max(1, built(n) // GROUP)
 
 
 def lanes(n: int) -> int:
     """Lanes of a warp that share one channel's states at state size n
-    (the kernel's kLanes of the built size): 16 states a lane above 16."""
-    return max(1, built(n) // 16)
+    (the kernel's kLanes of the built size, or of a group): 16 states a
+    lane above 16."""
+    return max(1, min(built(n), GROUP) // 16)
 
 
 def bwd_channels(n: int) -> int:
@@ -114,11 +141,6 @@ def _check_kernel(x, dt, A, B, C, *others):
     if any(t.dtype not in DTYPES for t in (x, dt, B, C)):
         raise TypeError(f"mamba scan kernel: x {x.dtype}, dt {dt.dtype}, B {B.dtype}, "
                         f"C {C.dtype} must each be float32 or bfloat16")
-    if A.shape[1] > MAX_STATE:
-        raise ValueError(f"mamba scan kernel: state size {A.shape[1]} above {MAX_STATE}, "
-                         "the largest the kernels take")
-    if x.shape[0] > 65535:
-        raise ValueError(f"mamba scan kernel: batch {x.shape[0]} exceeds the grid")
 
 
 def _types(x, dt) -> tuple:
@@ -229,61 +251,105 @@ def _ptr(t):
     return 0 if t is None else t.data_ptr()
 
 
+def _outputs(t, n: int):
+    """The C call's buffer for y, dx or ddt (``t``'s shape): ``t``'s dtype
+    at one group, else the groups' fp32 partial sums (G, *shape)."""
+    global group_bytes
+    g = groups(n)
+    if g == 1:
+        group_bytes = 0
+        return torch.empty_like(t)
+    out = torch.empty((g, *t.shape), dtype=torch.float32, device=t.device)
+    group_bytes = out.nbytes
+    return out
+
+
+def _group_major(t, n: int):
+    """(B, S, N) ``t`` as the kernels read it above ``GROUP`` states:
+    (G, B, S, GROUP), each group's slab contiguous; as it is below."""
+    g = groups(n)
+    if g == 1:
+        return t
+    return t.unflatten(-1, (g, GROUP)).movedim(-2, 0).contiguous()
+
+
+def _from_group_major(t):
+    """(G, B, S, GROUP) sums back to (B, S, G * GROUP)."""
+    return t.movedim(0, -2).flatten(-2)
+
+
+def _summed(out, like):
+    """``_outputs``' buffer as ``like``'s dtype: above one group its
+    partial sums added in a fixed order (``torch.sum``) and cast once."""
+    return out if out.shape == like.shape else out.sum(0).to(like.dtype)
+
+
 def fwd_call(fn, stream, x, dt, A, B, C, h0=None, save_states: bool = False):
     """The forward kernel's C call ``fn`` on ``stream`` (a pointer) and the
     work around it: the inputs made contiguous; a state size N between the
     built ones padded with zeros to the next (A, B, C and h0; the padded
-    states stay 0 and add nothing), and the outputs cut back to N; B and
-    C in the kernel's type, x's at 16 states and fp32 above (widened
-    exactly; fp32 B or C beside bf16 x run on the 32-state kernel).
-    Returns what ``mamba_scan_fwd`` returns."""
+    states stay 0 and add nothing), and the outputs cut back to N; above
+    ``GROUP`` states, N padded to a multiple of it and y the sum of the
+    groups' fp32 partial sums, cast to x's dtype; B and C in the kernel's
+    type, x's at 16 states and fp32 above (widened exactly; fp32 B or C
+    beside bf16 x run on the 32-state kernel).  Adds the launches the
+    call reports to ``launches``.  Returns what ``mamba_scan_fwd``
+    returns."""
     b, s, c = x.shape
     n, nb = A.shape[1], built(A.shape[1])
     if nb == 16 and x.dtype != torch.float32 and not B.dtype == C.dtype == x.dtype:
         nb = 32
     x, dt = x.contiguous(), dt.contiguous()
     bc_dtype = x.dtype if nb == 16 else torch.float32
-    B, C = (_build.aligned(_pad(t.to(bc_dtype), nb)) for t in (B, C))
+    B, C = (_build.aligned(_group_major(_pad(t.to(bc_dtype), nb), nb)) for t in (B, C))
     A = _build.aligned(_pad(A, nb))     # read as float4s, as are h0 and the states
     h0 = None if h0 is None else _build.aligned(_pad(h0.float(), nb))
-    y = torch.empty_like(x)
+    y = _outputs(x, nb)
     hT = torch.empty((b, c, nb), dtype=torch.float32, device=x.device)
     hs = (torch.empty((b, _n_chunks(s), c, nb), dtype=torch.float32, device=x.device)
           if save_states else None)
     rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), _ptr(h0),
             y.data_ptr(), hT.data_ptr(), _ptr(hs), b, s, c, nb, CHUNK, *_types(x, dt),
             stream)
-    if rc:
-        raise RuntimeError(f"mamba scan kernel launch failed: CUDA error {rc}")
-    return y, hT[..., :n], None if hs is None else hs[..., :n]
+    if rc < 0:
+        raise RuntimeError(f"mamba scan kernel launch failed: CUDA error {-rc}")
+    _build.count_launch(globals(), "launches", rc)
+    return _summed(y, x), hT[..., :n], None if hs is None else hs[..., :n]
 
 
 def bwd_call(fn, stream, x, dt, A, B, C, hs, dy, dhT=None):
     """The backward kernel's C call ``fn`` on ``stream`` and the work
-    around it, as ``fwd_call``'s; the partial sums of dA, dB and dC are
-    added here.  Returns what ``mamba_scan_bwd`` returns."""
+    around it, as ``fwd_call``'s; the partial sums of dA, dB and dC, and
+    above ``GROUP`` states those of dx and ddt over the groups, are added
+    here; the launches the call reports go to ``bwd_launches``.  Returns
+    what ``mamba_scan_bwd`` returns."""
     global partial_bytes
     b, s, c = x.shape
     n, nb = A.shape[1], built(A.shape[1])
     dtypes = B.dtype, C.dtype
     x, dt, dy = x.contiguous(), dt.contiguous(), dy.contiguous()
-    B, C = (_build.aligned(_pad(t.float(), nb)) for t in (B, C))
+    B, C = (_build.aligned(_group_major(_pad(t.float(), nb), nb)) for t in (B, C))
     A, hs = _build.aligned(_pad(A, nb)), _build.aligned(_pad(hs, nb))
     dhT = None if dhT is None else _build.aligned(_pad(dhT.float(), nb))
     nblk = -(-c // bwd_channels(n))           # channel blocks: partial rows of dB, dC
     f32 = dict(dtype=torch.float32, device=x.device)
-    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    dx, ddt = _outputs(x, nb), _outputs(dt, nb)
     dA_part, dh0 = torch.empty((b, c, nb), **f32), torch.empty((b, c, nb), **f32)
-    dB_part, dC_part = (torch.empty((b, nblk, s, nb), **f32) for _ in range(2))
+    g = groups(n)
+    part = (b, nblk, s, nb) if g == 1 else (g, b, nblk, s, GROUP)   # group-major above GROUP
+    dB_part, dC_part = (torch.empty(part, **f32) for _ in range(2))
     partial_bytes = dB_part.nbytes
     rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
             hs.data_ptr(), dy.data_ptr(), _ptr(dhT), dx.data_ptr(), ddt.data_ptr(),
             dA_part.data_ptr(), dB_part.data_ptr(), dC_part.data_ptr(), dh0.data_ptr(), b, s, c,
             nb, CHUNK, nblk, *_types(x, dt), stream)
-    if rc:
-        raise RuntimeError(f"mamba scan backward kernel launch failed: CUDA error {rc}")
-    return (dx, ddt, dA_part.sum(0)[:, :n], dB_part.sum(1)[..., :n].to(dtypes[0]),
-            dC_part.sum(1)[..., :n].to(dtypes[1]), dh0[..., :n])
+    if rc < 0:
+        raise RuntimeError(f"mamba scan backward kernel launch failed: CUDA error {-rc}")
+    _build.count_launch(globals(), "bwd_launches", rc)
+    dB, dC = ((t.sum(1) if g == 1 else _from_group_major(t.sum(2)))[..., :n]
+              for t in (dB_part, dC_part))
+    return (_summed(dx, x), _summed(ddt, dt), dA_part.sum(0)[:, :n], dB.to(dtypes[0]),
+            dC.to(dtypes[1]), dh0[..., :n])
 
 
 def mamba_scan_fwd(x, dt, A, B, C, h0=None, save_states: bool = False):
@@ -294,10 +360,8 @@ def mamba_scan_fwd(x, dt, A, B, C, h0=None, save_states: bool = False):
         return mamba_scan_plain(x, dt, A, B, C, h0, save_states)
     _check(x, dt, A, B, C, h0)
     _check_kernel(x, dt, A, B, C, h0)
-    out = fwd_call(_fwd_fn(), torch.cuda.current_stream(x.device).cuda_stream, x, dt, A, B, C,
-                   h0, save_states)
-    _build.count_launch(globals(), "launches")
-    return out
+    return fwd_call(_fwd_fn(), torch.cuda.current_stream(x.device).cuda_stream, x, dt, A, B,
+                    C, h0, save_states)
 
 
 def mamba_scan_bwd(x, dt, A, B, C, hs, dy, dhT=None):
@@ -316,7 +380,5 @@ def mamba_scan_bwd(x, dt, A, B, C, hs, dy, dhT=None):
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"mamba scan kernel: dy {tuple(dy.shape)} {dy.dtype} must match "
                          f"x {tuple(x.shape)} {x.dtype}")
-    out = bwd_call(_bwd_fn(), torch.cuda.current_stream(x.device).cuda_stream, x, dt, A, B, C,
-                   hs, dy, dhT)
-    _build.count_launch(globals(), "bwd_launches")
-    return out
+    return bwd_call(_bwd_fn(), torch.cuda.current_stream(x.device).cuda_stream, x, dt, A, B,
+                    C, hs, dy, dhT)

@@ -20,15 +20,19 @@ the bytes' pace, above it tiles of 64 or 128 rows by 128 columns fed by a
 which needs K and N multiples of 8 (16-byte rows; its C entry point
 refuses the rest); the wrappers take any K and N by padding bf16
 operands with zeros to the next multiples (``tc_dims``): zero rows and
-columns of the contraction add nothing, and each output is cut back.  Only such a K or N pays for the copies, one pass
-over x and w (and dy) and one over the output.
+columns of the contraction add nothing, and each output is cut back.
+Only such a K or N pays for the copies, one pass over x and w (and dy)
+and one over the output.  Any E and M: experts and row tiles past
+CUDA's 65,535 blocks in gridDim.z and gridDim.y run in further launches
+of the same C call, which reports how many it made.
 
 ``moe_gmm_fwd`` and ``moe_gmm_bwd`` launch the kernel on CUDA tensors
 and use the plain PyTorch versions ``moe_gmm_plain`` and
 ``moe_gmm_bwd_plain`` on CPU or meta tensors.  ``fwd_call`` and
 ``bwd_call`` hold the work around the C call (the CPU emulation test
 calls them too).  ``launches`` and ``bwd_launches`` count kernel
-launches.
+launches: what each C call reports it made, one unless E or the row
+tiles pass 65,535.
 """
 from __future__ import annotations
 
@@ -40,8 +44,6 @@ from ..models.layers import moe_gmm_ref as moe_gmm_plain  # the plain version
 from . import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TILE = 128              # rows and columns of C per block (both kernels)
-GRID_YZ = 65535         # CUDA's limit on gridDim.y and gridDim.z
 
 launches = 0
 bwd_launches = 0
@@ -71,9 +73,6 @@ def _check_shapes(x, w):
     if x.ndim != 3 or w.ndim != 3 or x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1]:
         raise ValueError(f"moe_gmm: x {tuple(x.shape)} and w {tuple(w.shape)} must be "
                          "(E, M, K) and (E, K, N)")
-    e, m, k = x.shape
-    if e > GRID_YZ or -(-max(m, k) // TILE) > GRID_YZ:
-        raise ValueError(f"moe_gmm kernel: {e} experts x {m} rows x {k} exceed the grid")
 
 
 def tc_dims(dtype, k: int, n: int) -> tuple:
@@ -102,12 +101,14 @@ def _fn():
     return fn
 
 
-def _launch(fn, stream, a, b, c, m, n, k, trans_a, trans_b):
-    """c (E, m, n) = op(a) @ op(b) per expert by the C call ``fn``."""
+def _launch(fn, stream, a, b, c, m, n, k, trans_a, trans_b, counter="launches"):
+    """c (E, m, n) = op(a) @ op(b) per expert by the C call ``fn``; the
+    launches it reports go to ``counter``."""
     rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), c.shape[0], m, n, k,
             int(trans_a), int(trans_b), DTYPES[c.dtype], stream)
-    if rc:
-        raise RuntimeError(f"moe_gmm kernel launch failed: CUDA error {rc}")
+    if rc < 0:
+        raise RuntimeError(f"moe_gmm kernel launch failed: CUDA error {-rc}")
+    _build.count_launch(globals(), counter, rc)
 
 
 def fwd_call(fn, stream, x, w):
@@ -137,12 +138,12 @@ def bwd_call(fn, stream, x, w, dy, need_dx: bool = True, need_dw: bool = True):
     if need_dx:
         dx = torch.empty_like(x)
         if dx.numel():
-            _launch(fn, stream, dy, w, dx, m, kp, np_, False, True)
+            _launch(fn, stream, dy, w, dx, m, kp, np_, False, True, "bwd_launches")
         dx = dx if kp == k else dx[..., :k].contiguous()
     if need_dw:
         dw = torch.empty_like(w)
         if dw.numel():
-            _launch(fn, stream, x, dy, dw, kp, np_, m, True, False)
+            _launch(fn, stream, x, dy, dw, kp, np_, m, True, False, "bwd_launches")
         dw = dw if (kp, np_) == (k, n) else dw[:, :k, :n].contiguous()
     return dx, dw
 
@@ -156,15 +157,12 @@ def moe_gmm_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if _build.takes_plain(x, w):
         return moe_gmm_plain(x, w)
     x, w = _admit(x, w)
-    y = fwd_call(_fn(), _stream(x), x, w)
-    if y.numel():
-        _build.count_launch(globals(), "launches")
-    return y
+    return fwd_call(_fn(), _stream(x), x, w)
 
 
 def moe_gmm_bwd(x, w, dy, need_dx: bool = True, need_dw: bool = True):
     """Gradients of ``moe_gmm_fwd`` from dy (E, M, N): (dx (E, M, K),
-    dw (E, K, N)), each one launch, or None where not asked for."""
+    dw (E, K, N)), each one C call, or None where not asked for."""
     if _build.takes_plain(x, w, dy):
         return moe_gmm_bwd_plain(x, w, dy, need_dx, need_dw)
     x, w, dy = _admit(x, w, dy)
@@ -172,8 +170,4 @@ def moe_gmm_bwd(x, w, dy, need_dx: bool = True, need_dw: bool = True):
     n = w.shape[2]
     if dy.shape != (e, m, n):
         raise ValueError(f"moe_gmm kernel: dy {tuple(dy.shape)} must be ({e}, {m}, {n})")
-    dx, dw = bwd_call(_fn(), _stream(x), x, w, dy, need_dx, need_dw)
-    for out in (dx, dw):
-        if out is not None and out.numel():
-            _build.count_launch(globals(), "bwd_launches")
-    return dx, dw
+    return bwd_call(_fn(), _stream(x), x, w, dy, need_dx, need_dw)

@@ -1,21 +1,23 @@
-"""The kernels' whole contract up to head dim 256 and state size 128, on the
-CPU, against the JAX package.
+"""The kernels' whole contract, on the CPU, against the JAX package.
 
 The Pallas kernels take any head dim D, any expert widths K and N and any
-state size N; the port's kernels take D up to 256 (a D that is no multiple
-of 8 padded by the wrapper), any K and N (bf16 operands padded to
-multiples of 8) and N up to 128 (``head_dim_refusal``, ``moe_gmm.tc_dims``,
-``mamba_scan.MAX_STATE``).  Here the plain versions the wrappers run on CPU
-tensors are held to the Pallas kernels in interpret mode at the new
-shapes; the bf16 K3 wrappers' padding is driven through a stand-in for the
-tensor-core kernel's C call that computes its contract on the CPU and
-refuses what the kernel refuses; and the two CLI configurations whose
-shapes the card refused before (``--d-model 200``: four heads of 50;
-``--arch deepseek-moe-16b --d-model 1020``: 15 heads of 68, experts of
-1020 x 2040) are held to the JAX package's ``train_loss``, with the JAX
-parameters carried across by ``interop``, and trained by the port's CLI.
+state size N, and so do the port's kernels: D from 1 (a D that is no
+multiple of 8 padded by the wrapper; past 256 on the wide kernels), any K
+and N (bf16 operands padded to multiples of 8) and any N (past 128 as
+groups of 128 states: ``mamba_scan.groups``).  Here the plain versions the
+wrappers run on CPU tensors are held to the Pallas kernels in interpret
+mode at those shapes; the bf16 K3 wrappers' padding is driven through a
+stand-in for the tensor-core kernel's C call that computes its contract
+on the CPU and refuses what the kernel refuses; the two CLI
+configurations whose shapes the card refused before (``--d-model 200``:
+four heads of 50; ``--arch deepseek-moe-16b --d-model 1020``: 15 heads of
+68, experts of 1020 x 2040) are held to the JAX package's ``train_loss``,
+with the JAX parameters carried across by ``interop``, and trained by the
+port's CLI; and so are ``chip_smoke.py`` phase 3u's two models, reduced
+(qwen3-1b with a head dim past 256, Zamba2 with more than 128 states).
 Inputs are made with numpy from a seed and handed to both frameworks.
 """
+import dataclasses
 import ctypes
 import functools
 
@@ -56,9 +58,10 @@ def _x64_off():
     jax.config.update("jax_enable_x64", prev)
 
 
-# ---- K2: every head dim from 1 to 256
+# ---- K2: every head dim from 1, past 256 too (264, 320 and 512 on the
+# wide kernels)
 
-FLASH_DIMS = [1, 5, 50, 68, 100, 192, 256]
+FLASH_DIMS = [1, 5, 50, 68, 100, 192, 256, 264, 320, 512]
 
 
 @pytest.mark.parametrize("d", FLASH_DIMS)
@@ -81,8 +84,10 @@ def test_flash_plain_matches_pallas_at_every_head_dim(d, causal, dtype):
 
 
 def test_flash_head_dims_every_one_to_256_and_none_past():
-    assert all(fa.head_dim_refusal(d) is None for d in range(1, 257))
-    for d in (0, 257, 264, 512):
+    """Every head dim from 1 runs, past 256 too (the wide kernels); only
+    D < 1 is refused."""
+    assert all(fa.head_dim_refusal(d) is None for d in (*range(1, 257), 257, 264, 512, 1000))
+    for d in (0, -8):
         assert "head_dim" in fa.head_dim_refusal(d)
 
 
@@ -95,7 +100,7 @@ class _FlashCall:
     """The flash C call (``flash_attention_fwd``) on CPU memory, fp32 and
     without a window: softmax(q k^T * scale + causal mask) v in fp64 from
     the tensors at the pointers, with the head dim and scale it is given,
-    after the kernels' own check (d a multiple of 8 up to 256).  It
+    after the kernels' own check (d a multiple of 8, at least 8).  It
     records each call's (d, scale)."""
 
     def __init__(self):
@@ -103,7 +108,7 @@ class _FlashCall:
 
     def __call__(self, q_ptr, k_ptr, v_ptr, o_ptr, lse_ptr, b, hq, hkv, sq, skv, d, causal,
                  q_offset, window, scale, dtype, stream):
-        if dtype != 0 or window or d % 8 or not 8 <= d <= 256:
+        if dtype != 0 or window or d % 8 or d < 8:
             return 1              # cudaErrorInvalidValue, as the kernels' entry point
         self.calls.append((d, scale))
         q = _f32_at(q_ptr, (b, hq, sq, d)).astype(np.float64)
@@ -120,7 +125,7 @@ class _FlashCall:
         return 0
 
 
-@pytest.mark.parametrize("d", [1, 5, 50, 68, 100, 192])
+@pytest.mark.parametrize("d", [1, 5, 50, 68, 100, 192, 300])
 def test_flash_call_pads_to_eight_at_the_true_scale(d):
     """``fwd_call`` hands the kernel a multiple of 8 and the scale of the
     true D, and cuts out back to D."""
@@ -154,17 +159,18 @@ class _TensorCoreGmm:
     """The bf16 tensor-core K3's C call (``moe_gmm``) on CPU memory: c =
     op(a) . op(b) per expert, summed in fp64 and rounded to bf16, after the
     kernel's own checks (rows of a multiple of 8 elements for TMA, 16-byte
-    aligned pointers).  It records each call's (M, N, K)."""
+    aligned pointers), reporting one launch, or minus the error it
+    refuses with.  It records each call's (M, N, K)."""
 
     def __init__(self):
         self.calls = []
 
     def __call__(self, a, b, c, E, M, N, K, trans_a, trans_b, dtype, stream):
         if dtype != 1:
-            return 1
+            return -1
         if (K if not trans_a else M) % 8 or (N if not trans_b else K) % 8 or N % 8 \
                 or (a | b | c) % 16:
-            return 1              # cudaErrorInvalidValue, as the kernel's entry point
+            return -1             # -cudaErrorInvalidValue, as the kernel's entry point
         self.calls.append((M, N, K))
         A = _f32(_bf16_at(a, (E, K, M) if trans_a else (E, M, K))).astype(np.float64)
         B = _f32(_bf16_at(b, (E, N, K) if trans_b else (E, K, N))).astype(np.float64)
@@ -172,7 +178,7 @@ class _TensorCoreGmm:
         B = B.transpose(0, 2, 1) if trans_b else B
         prod = torch.from_numpy((A @ B).astype(np.float32)).to(torch.bfloat16)
         _bf16_at(c, (E, M, N))[...] = prod.view(torch.int16).numpy().view(np.uint16)
-        return 0
+        return 1
 
 
 @pytest.mark.parametrize("k,n", GMM_KN)
@@ -208,15 +214,19 @@ def test_gmm_bf16_call_pads_k_and_n(k, n):
     torch.testing.assert_close(dw.float(), want_dw, **GMM_TOL["bfloat16"])
 
 
-# ---- K4: state sizes up to 128
+# ---- K4: every state size (past 128 as groups of 128)
 
 @pytest.mark.parametrize("n", [96, 128])
 @pytest.mark.parametrize("with_h0", [False, True])
 def test_scan_plain_matches_pallas_at_wide_states(n, with_h0):
     """``ops.mamba_scan`` on CPU tensors (K4's plain version plus x*D)
-    against ``mamba_scan_pallas``, fp32, with and without h0; N is within
-    the kernels' ``MAX_STATE``."""
-    assert n <= ms.MAX_STATE and ms.built(n) == 128 and ms.lanes(n) == 8
+    against ``mamba_scan_pallas``, fp32, with and without h0; N runs on the
+    128-state kernel, one group."""
+    assert ms.built(n) == 128 and ms.lanes(n) == 8 and ms.groups(n) == 1
+    _scan_against_pallas(n, with_h0)
+
+
+def _scan_against_pallas(n: int, with_h0: bool):
     b, s, c = 2, 20, 24
     rng = np.random.default_rng(n)
     x = rng.standard_normal((b, s, c)).astype(np.float32) * 0.5
@@ -232,6 +242,15 @@ def test_scan_plain_matches_pallas_at_wide_states(n, with_h0):
     y, hT = ops.mamba_scan(*t, h0=None if h0 is None else torch.from_numpy(h0))
     _close(y, want_y, SCAN_TOL)
     _close(hT, want_h, SCAN_TOL)
+
+
+@pytest.mark.parametrize("n", [129, 192, 256])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_scan_plain_matches_pallas_in_state_groups(n, with_h0):
+    """As at 96 and 128 states, past 128: the kernels run such an N as
+    ``groups(n)`` groups of 128 (129 and 192 padded to 256)."""
+    assert ms.groups(n) == 2 and ms.built(n) == 256 and ms.lanes(n) == 8
+    _scan_against_pallas(n, with_h0)
 
 
 def test_scan_backward_channel_blocks_at_128_states():
@@ -303,3 +322,63 @@ def test_cli_config_trains_on_the_cpu(case, tmp_path):
     heads = max(4, d_model // 64)
     assert tuple(wq.shape) == (1, d_model, heads * (d_model // heads))
 
+
+
+# ---- chip_smoke.py phase 3u's two models, reduced
+
+PHASE_3U = ["qwen3_head_dim_320", "zamba2_state_192"]
+
+
+def _phase_3u_cfgs(case: str):
+    """(JAX config, port config): qwen3-1b reduced to 2 layers of 4/2 heads
+    with ``head_dim=320`` (phase 3u trains 512 at published widths), or
+    Zamba2 reduced to one group of 2 layers with 192 states (``SSMCfg(state=
+    192, version=2)``, the reduction's headdim 16; phase 3u trains 256)."""
+    cfgs = []
+    for get in (jconfigs.get_config, get_config):
+        if case == "qwen3_head_dim_320":
+            cfg = get("qwen3-1b").reduced(n_layers=2, n_kv_heads=2)
+            cfgs.append(dataclasses.replace(cfg, head_dim=320))
+        else:
+            cfg = get("zamba2-2.7b").reduced(n_layers=2)
+            cfgs.append(dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, state=192)))
+    return cfgs
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_3u_loss_and_grads(case: str):
+    jcfg = _phase_3u_cfgs(case)[0]
+    jp = jmodels.init(jcfg, jax.random.PRNGKey(0))
+    batch = _batch(jcfg.vocab, s=32)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    loss, grads = jax.jit(jax.value_and_grad(lambda p: jmodels.train_loss(jcfg, p, jb)))(jp)
+    return jax.tree_util.tree_map(np.asarray, jp), batch, float(loss), _jax_paths(grads)
+
+
+@pytest.mark.parametrize("case", PHASE_3U)
+def test_phase_3u_model_reduced_matches_jax(case):
+    """The loss and every gradient leaf of the port's ``train_loss`` with
+    the kernels registered (K1, K2 and K4/K4-bwd on their plain versions
+    here) against ``jax.value_and_grad(train_loss)`` on the same weights."""
+    jcfg, tcfg = _phase_3u_cfgs(case)
+    if case.startswith("qwen3"):
+        assert tcfg.head_dim == jcfg.head_dim == 320 and fa.head_dim_refusal(320) is None
+    else:
+        assert tcfg.ssm.state == jcfg.ssm.state == 192 and ms.groups(192) == 2
+        assert tcfg.ssm.version == 2 and tcfg.n_layers == tcfg.hybrid_every
+    np_params, batch, want_loss, want = _jax_3u_loss_and_grads(case)
+    tp = params_from_numpy(np_params, "cpu")
+    for leaf in tree_leaves(tp):
+        leaf.requires_grad_(True)
+    tb = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    ops.register_kernels()
+    try:
+        loss = train_loss(tcfg, tp, tb)
+        loss.backward()
+    finally:
+        ops.unregister_kernels()
+    np.testing.assert_allclose(loss.item(), want_loss, rtol=LOSS_RTOL)
+    got = {path: leaf.grad.numpy() for path, leaf in tree_flatten_with_path(tp)}
+    assert got.keys() == want.keys()
+    for path in want:
+        np.testing.assert_allclose(got[path], want[path], err_msg=str(path), **GRAD_TOL)

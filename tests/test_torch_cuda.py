@@ -153,10 +153,14 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     x = _randn((4, 64), torch.bfloat16, dev)
     with pytest.raises(TypeError):
         rn.rmsnorm_fwd(x, torch.ones(64, device=dev))           # dtype mismatch
-    q = _randn((1, 2, 16, 264), torch.float32, dev)
+    q = _randn((1, 2, 16, 0), torch.float32, dev)
     with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention_fwd(q, q, q)
+        fa.flash_attention_fwd(q, q, q)                         # below 1: the only D refused
     q = _randn((1, 2, 16, 64), torch.float32, dev)
+    with pytest.raises(ValueError, match="k, v alike"):
+        fa.flash_attention_fwd(q, q, q[..., :32].contiguous())  # k and v mismatched
+    with pytest.raises(TypeError):
+        fa.flash_attention_fwd(q.half(), q.half(), q.half())    # no kernel for fp16
     with pytest.raises(ValueError, match="no visible key"):
         ops.flash_attention(q, q, q, causal=False, q_offset=20, window=4)
 
@@ -169,7 +173,9 @@ WINDOW_CASES = [(1, 4, 4, 300, 300, 64, True, 1), (1, 4, 4, 300, 300, 64, True, 
                 (2, 4, 2, 200, 333, 128, True, 70), (1, 8, 2, 257, 257, 80, True, 129),
                 (1, 4, 4, 130, 130, 80, True, 4096), (1, 2, 1, 100, 260, 64, False, 150),
                 (1, 4, 4, 64, 200, 128, True, 33), (2, 4, 2, 200, 333, 256, True, 70),
-                (1, 4, 4, 130, 200, 192, False, 50)]
+                (1, 4, 4, 130, 200, 192, False, 50),
+                # past 256 on the wide kernels
+                (1, 4, 2, 200, 333, 320, True, 70), (1, 4, 4, 130, 200, 512, False, 50)]
 
 
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", WINDOW_CASES)
@@ -282,16 +288,17 @@ def test_mamba_scan_grads_match_reference(dev):
 
 
 def test_mamba_scan_refuses_other_state_sizes(dev):
-    """Every state size up to ``MAX_STATE`` (128) launches once, forward
-    and backward, against the plain forward; above it the wrappers raise,
-    naming the limit."""
+    """Every state size launches once, forward and backward, against the
+    plain forward: each up to 128 and, as groups of 128, 129, 256 and 300;
+    what the wrappers still refuse is a tensor off the card and a dtype
+    without a kernel (fp16)."""
     from repro_torch.kernels import mamba_scan as ms
-    assert ms.MAX_STATE == 128
-    for n in (ms.MAX_STATE + 1, 256):
-        x, dt, A, B, C, _ = _scan_inputs(1, 8, 6, n, torch.float32, dev)
-        with pytest.raises(ValueError, match="state size .* above 128"):
-            ms.mamba_scan_fwd(x, dt, A, B, C)
-    for n in range(1, ms.MAX_STATE + 1):
+    x, dt, A, B, C, _ = _scan_inputs(1, 8, 6, 16, torch.float32, dev)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ms.mamba_scan_fwd(x, dt, A.cpu(), B, C)
+    with pytest.raises(TypeError):
+        ms.mamba_scan_fwd(x.half(), dt, A, B, C)
+    for n in [*range(1, 129), 129, 256, 300]:
         x, dt, A, B, C, _ = _scan_inputs(1, 20, 6, n, torch.float32, dev)
         before = (ms.launches, ms.bwd_launches)
         y, hT, hs = ms.mamba_scan_fwd(x, dt, A, B, C, save_states=True)
@@ -558,16 +565,25 @@ def test_flash_tc_kernel_bf16(dev, b, hq, hkv, sq, skv, d):
 def test_tc_kernels_refuse_bf16_shapes_they_do_not_take(dev):
     """A bf16 call the tensor-core kernel does not take raises: it never
     goes to the CUDA-core kernel or to the plain version.  K2 takes every
-    head dim to 256 and refuses wider ones; K3's rows that TMA cannot read
-    (K or N no multiple of 8) are padded by the wrappers and launch once,
-    within tolerance of the plain version."""
+    head dim from 1 (past 256 on the wide kernel) and refuses only D < 1
+    and mixed dtypes; K3's rows that TMA cannot read (K or N no multiple of
+    8) are padded by the wrappers and launch once, within tolerance of the
+    plain version."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as mg
     before = (fa.launches, mg.launches)
-    q = _randn((1, 2, 16, 264), torch.bfloat16, dev)
+    q = _randn((1, 2, 16, 0), torch.bfloat16, dev)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_fwd(q, q, q)
+    q = _randn((1, 2, 16, 264), torch.bfloat16, dev)
+    with pytest.raises(TypeError):
+        fa.flash_attention_fwd(q, q.float(), q)
     assert (fa.launches, mg.launches) == before
+    out, _ = fa.flash_attention_fwd(q, q, q)
+    torch.cuda.synchronize()
+    assert fa.launches == before[0] + 1
+    torch.testing.assert_close(out.float(), fa.flash_attention_fwd_plain(q, q, q)[0].float(),
+                               **TOL[torch.bfloat16])
     for k, n in ((36, 24), (32, 20)):
         x = _randn((2, 16, k), torch.bfloat16, dev)
         w = _randn((2, k, n), torch.bfloat16, dev, seed=1, scale=k ** -0.5)
@@ -604,6 +620,119 @@ def test_flash_kernel_at_contract_head_dims(dev, d, dtype):
         torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
         again = fa.flash_attention_fwd(q, k, v, causal=causal, q_offset=off)
         assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+# K2 past 256 on the wide kernels: 264 (its last block 8 columns wide),
+# 320, 384 and 512 (the phase 3u qwen3-1b's head dim)
+WIDE_HEAD_DIMS = [264, 320, 384, 512]
+
+
+@pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_past_head_dim_256(dev, d, dtype):
+    """As at the contract's head dims: one launch, the plain version's
+    tolerance, the same bits twice."""
+    test_flash_kernel_at_contract_head_dims(dev, d, dtype)
+
+
+# K4 and K4-bwd as groups of 128 states: Falcon-Mamba's channels at 192
+# states and Zamba2's SSD channels at 256, S off the chunks, with h0
+# (and a dhT), fp32 dt beside bf16 x where Mamba-2 has it
+GROUP_SCAN_CASES = [(2, 70, 1000, 192, torch.bfloat16, torch.bfloat16),
+                    (2, 70, 640, 256, torch.bfloat16, torch.float32),
+                    (1, 33, 130, 256, torch.float32, torch.float32)]
+
+
+@pytest.mark.parametrize("b,s,c,n,dtype,dt_dtype", GROUP_SCAN_CASES)
+def test_mamba_scan_state_groups(dev, b, s, c, n, dtype, dt_dtype):
+    """One launch each way, the plain versions' tolerances, and K4-bwd the
+    same bits twice (the groups' partial sums added in a fixed order)."""
+    from repro_torch.kernels import mamba_scan as ms
+    x, dt, A, B, C, h0 = _scan_inputs(b, s, c, n, dtype, dev, with_h0=True)
+    dt = dt.to(dt_dtype)
+    dy = _randn((b, s, c), dtype, dev, seed=6)
+    dhT = _randn((b, c, n), torch.float32, dev, seed=7)
+    before = (ms.launches, ms.bwd_launches)
+    y, hT, hs = ms.mamba_scan_fwd(x, dt, A, B, C, h0, save_states=True)
+    grads = ms.mamba_scan_bwd(x, dt, A, B, C, hs, dy, dhT)
+    again = ms.mamba_scan_bwd(x, dt, A, B, C, hs, dy, dhT)
+    torch.cuda.synchronize()
+    assert (ms.launches, ms.bwd_launches) == (before[0] + 1, before[1] + 2)
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+    want_y, want_hT, want_hs = ms.mamba_scan_plain(x, dt, A, B, C, h0, save_states=True)
+    torch.testing.assert_close(y.float(), want_y.float(), **TOL[dtype])
+    for got, want in ((hT, want_hT), (hs, want_hs)):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+    for got, want in zip(grads, ms.mamba_scan_bwd_plain(x, dt, A, B, C, want_hs, dy, dhT)):
+        assert got.dtype == want.dtype
+        tol = TOL[dtype] if got.dtype == torch.bfloat16 else dict(atol=1e-5, rtol=1e-4)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_grids_past_65535_blocks(dev):
+    """The three shapes whose grids pass CUDA's 65,535 blocks in y or z,
+    at the smallest shape that crosses, each call counting the launches it
+    made (K2 one, its query blocks folded into z; K3 and K4 one a 65,535
+    row tiles or rows): K2 with a window
+    of 1 at 65,536 query blocks (bf16, 128 rows a block) and 65,536 (fp32,
+    64 rows), held to the plain version on slices around the fold (with
+    a window of 1 a row sees only its own key, so a slice of q, k and v is
+    the same problem); K3 at 65,536 row tiles (M = 65,535 x 128 + 1: bf16
+    tiles of 128 rows, fp32 of 64), forward and backward; K4 and K4-bwd
+    at a batch of 65,536 and S = 1."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import moe_gmm as mg
+    for dtype, rows in ((torch.bfloat16, 128), (torch.float32, 64)):
+        sq = 65535 * rows + 1
+        q, k, v = (_randn((1, 1, sq, 64), dtype, dev, seed=i) for i in range(3))
+        before = fa.launches
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=True, window=1)
+        torch.cuda.synchronize()
+        assert fa.launches == before + 1
+        for lo in (0, 65535 * rows - 300, sq - 300):
+            sl = slice(lo, lo + 300)
+            want, want_lse = fa.flash_attention_fwd_plain(q[:, :, sl], k[:, :, sl], v[:, :, sl],
+                                                          causal=True, window=1)
+            torch.testing.assert_close(out[:, :, sl].float(), want.float(), **TOL[dtype])
+            torch.testing.assert_close(lse[:, :, sl], want_lse, **TOL[torch.float32])
+        del q, k, v, out, lse
+    m = 65535 * 128 + 1
+    for dtype in (torch.float32, torch.bfloat16):
+        x = _randn((1, m, 8), dtype, dev)
+        w = _randn((1, 8, 8), dtype, dev, seed=1)
+        dy = _randn((1, m, 8), dtype, dev, seed=2)
+        before = (mg.launches, mg.bwd_launches)
+        y = mg.moe_gmm_fwd(x, w)
+        dx, dw = mg.moe_gmm_bwd(x, w, dy)
+        torch.cuda.synchronize()
+        tiles = -(-m // (128 if dtype == torch.bfloat16 else 64))
+        walks = -(-tiles // 65535)            # launches of at most 65,535 row tiles
+        # dx as the forward; dw's 8 rows one tile, its M the contraction
+        assert (mg.launches, mg.bwd_launches) == (before[0] + walks, before[1] + walks + 1)
+        tol = GMM_TOL[dtype]
+        torch.testing.assert_close(y.float(), mg.moe_gmm_plain(x, w).float(), **tol)
+        want_dx = mg.moe_gmm_bwd_plain(x.float(), w.float(), dy.float())[0]
+        torch.testing.assert_close(dx.float(), want_dx, **tol)
+        # dw sums m products a value: held to fp64 at the bound of its
+        # accumulation (chip_smoke.dw_tol says how it is derived)
+        want_dw = (x[0].double().T @ dy[0].double())[None]
+        peak = want_dw.abs().max().item()
+        atol, rtol = ((4 * m ** 0.5 * 2.0 ** -24 * peak, 0.0) if dtype == torch.float32
+                      else (m / 16 * 2.0 ** -24 * peak, 2.0 ** -8))
+        torch.testing.assert_close(dw.double(), want_dw, atol=atol, rtol=rtol)
+    x, dt, A, B, C, h0 = _scan_inputs(65536, 1, 64, 16, torch.float32, dev, with_h0=True)
+    before = (ms.launches, ms.bwd_launches)
+    y, hT, hs = ms.mamba_scan_fwd(x, dt, A, B, C, h0, save_states=True)
+    grads = ms.mamba_scan_bwd(x, dt, A, B, C, hs, torch.ones_like(x))
+    torch.cuda.synchronize()
+    assert (ms.launches, ms.bwd_launches) == (before[0] + 2, before[1] + 2)   # 65,535 + 1 rows
+    want_y, want_h, want_hs = ms.mamba_scan_plain(x, dt, A, B, C, h0, save_states=True)
+    torch.testing.assert_close(y, want_y, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(hT, want_h, atol=1e-5, rtol=1e-4)
+    want_g = ms.mamba_scan_bwd_plain(x, dt, A, B, C, want_hs, torch.ones_like(x))
+    for got, want in zip(grads, want_g):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
 
 
 # K3 at widths that are no multiple of 8 (bf16 runs them padded): the CLI's

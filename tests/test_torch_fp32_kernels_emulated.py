@@ -51,9 +51,14 @@ REWRITES = [
      "std::memset(dst, 0, 4); std::memcpy(dst, src, bytes);"),
     (r'asm volatile\("cp\.async\.commit_group;" ::: "memory"\);', ""),
     (r'asm volatile\("cp\.async\.wait_group %0;"[^;]*;', ""),
-    (r"(\w+<[^<>]*>)<<<([^>]*)>>>\(", r"emu_launch(\2, \1, "),
+    (r"(\w+(?:<[^<>]*>)?)<<<([^>]*)>>>\(", r"emu_launch(\2, \1, "),
     (r"extern __shared__ __align__\(16\) unsigned char smem_raw\[\];",
      "unsigned char* smem_raw = emu_dyn_smem;"),
+    # grids past CUDA's 65,535 blocks in y or z, at a limit of 2: K2's
+    # query blocks past it go to gridDim.z, and so do K3's (expert, row
+    # tile) pairs, so every case with more than two takes that path
+    (r"constexpr int kMaxGridY = 65535;", "constexpr int kMaxGridY = 2;"),
+    (r"constexpr int kMaxGrid = 65535;", "constexpr int kMaxGrid = 2;"),
 ]
 SHIM = r"""
 #include <cuda_runtime.h>
@@ -66,7 +71,7 @@ static int emu_rows = 0;
 extern "C" void emu_set_rows(int rows) { emu_rows = rows; }
 extern "C" int moe_gmm(const void* a, const void* b, void* c, int E, int M, int N, int K,
                        int trans_a, int trans_b, int dtype, void* stream) {
-  if (dtype != 0) return cudaErrorInvalidValue;
+  if (dtype != 0) return -cudaErrorInvalidValue;
   return moe_gmm_fp32(a, b, c, E, M, N, K, trans_a, trans_b, stream);
 }
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
@@ -217,6 +222,13 @@ FLASH_CASES = [
     (1, 4, 2, 70, 90, 50, True, 20, None, 0),
     (1, 2, 1, 100, 130, 192, True, 30, None, 0),
     (1, 2, 2, 80, 100, 256, False, 0, 40, 0),
+    # past 256 on the wide kernel (S summed over 64-column slices of q and
+    # K, ceil(D / 128) blocks a query block): 320 with GQA and an offset,
+    # 512 non-causal, and 264 (its last slice and block 8 columns wide)
+    # with a window; Sq past two query blocks (the gridDim.z fold)
+    (1, 2, 1, 150, 170, 320, True, 20, None, 0),
+    (1, 4, 2, 40, 100, 512, False, 0, None, 0),
+    (1, 2, 2, 70, 90, 264, True, 10, 30, 0),
 ]
 
 

@@ -12,7 +12,13 @@ The library is called through the wrappers' own C calls (``fwd_call``,
 partial sums) and held to the plain versions, so the tiling, the ragged
 edges, the lanes a channel's states are split over, the saved states
 and the fixed-order sums are checked without a GPU.
-Timing, register allocation and ``ex2.approx``'s rounding are not.
+Above 128 states the kernels run as groups of 128 (all in one launch,
+the group in gridDim.z, the wrapper adding the groups' partial sums);
+there they are also held to the JAX package's Pallas scan in interpret
+mode.  The launches' batch limit (gridDim.y's 65,535 rows) is rewritten
+to 3 here, so every batch above 3 is walked in several launches as a
+larger one is on the card, and the calls' reported launches are
+checked.  Timing, register allocation and ``ex2.approx``'s rounding are not.
 """
 import ctypes
 import pathlib
@@ -20,9 +26,13 @@ import re
 import shutil
 import subprocess
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
+from repro.kernels.mamba_scan import mamba_scan_pallas
 from repro_torch.kernels import mamba_scan as ms
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -36,12 +46,22 @@ REWRITES = [
     (r"(\w+<[^<>]*>)<<<([^>]*)>>>\(", r"emu_launch(\2, \1, "),
     (r"extern __shared__ __align__\(16\) unsigned char smem_raw\[\];",
      "unsigned char* smem_raw = emu_dyn_smem;"),
+    (r"constexpr int kMaxRows = 65535;", "constexpr int kMaxRows = 3;"),
 ]
 # the JAX test grid, then C ragged past a 128-channel block and below a
 # warp, S = 1 and S off the 16-step tiles and chunks and 8-step segments
 CASES = [(1, 16, 8, 4, False), (2, 24, 16, 8, False), (2, 37, 20, 4, True),
          (1, 45, 136, 8, True), (2, 1, 200, 16, True), (1, 40, 130, 16, True)]
 TOL = {torch.float32: dict(atol=1e-5, rtol=1e-4), torch.bfloat16: dict(atol=3e-2, rtol=3e-2)}
+
+
+@pytest.fixture(autouse=True)
+def _x64_off():
+    """Other test modules flip jax_enable_x64 process-wide."""
+    prev = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", False)
+    yield
+    jax.config.update("jax_enable_x64", prev)
 
 
 @pytest.fixture(scope="module")
@@ -76,11 +96,17 @@ def lib(tmp_path_factory):
 
 
 def _fwd(lib, x, dt, A, B, C, h0, save_states=True):
-    return ms.fwd_call(lib.mamba_scan_fwd, None, x, dt, A, B, C, h0, save_states)
+    before = ms.launches
+    out = ms.fwd_call(lib.mamba_scan_fwd, None, x, dt, A, B, C, h0, save_states)
+    assert ms.launches - before == -(-x.shape[0] // 3)    # launches of at most 3 rows
+    return out
 
 
 def _bwd(lib, x, dt, A, B, C, hs, dy, dhT):
-    return ms.bwd_call(lib.mamba_scan_bwd, None, x, dt, A, B, C, hs, dy, dhT)
+    before = ms.bwd_launches
+    out = ms.bwd_call(lib.mamba_scan_bwd, None, x, dt, A, B, C, hs, dy, dhT)
+    assert ms.bwd_launches - before == -(-x.shape[0] // 3)
+    return out
 
 
 def _check_against_plain(lib, b, s, c, n, with_h0, dtype, dt_dtype=None, bc_dtype=None):
@@ -183,3 +209,42 @@ def test_emulated_decode_step_matches_plain(lib, b, s, c, n, dtype):
     want_y, want_h, _ = ms.mamba_scan_plain(x, dt, A, B, C, h)
     torch.testing.assert_close(torch.cat(ys, 1).float(), want_y.float(), **TOL[dtype])
     torch.testing.assert_close(state, want_h, **TOL[torch.float32])
+
+
+# above 128 states: 192 (run as two groups of 128, the last 64 padded) and
+# 256, C ragged past a backward block's 64 channels and a forward block's
+# 16, with and without h0; a batch of 4 (two launches at the rewritten
+# limit of 3 rows)
+GROUP_CASES = [(1, 21, 70, 192, True, bf16, f32, bf16), (2, 18, 20, 256, False, f32, f32, f32),
+               (4, 5, 17, 256, True, f32, f32, f32)]
+
+
+@pytest.mark.parametrize("b,s,c,n,with_h0,dtype,dt_dtype,bc_dtype", GROUP_CASES)
+def test_emulated_state_groups_match_plain_and_pallas(lib, b, s, c, n, with_h0, dtype, dt_dtype,
+                                                      bc_dtype):
+    """N = 192 and 256 as groups of 128: K4 and K4-bwd against the plain
+    versions (and twice for the same bits), and K4's y and hT against
+    ``mamba_scan_pallas`` in interpret mode on the same inputs, at the
+    card test's fp32 tolerance (bf16 x at its own)."""
+    assert ms.groups(n) == 2 and ms.built(n) == 256
+    _check_against_plain(lib, b, s, c, n, with_h0, dtype, dt_dtype, bc_dtype)
+    rng = np.random.default_rng(b * 1000 + s * 10 + c + n)
+    x = (rng.standard_normal((b, s, c)) * 0.5).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, c)))).astype(np.float32)
+    A = -np.exp(rng.standard_normal((c, n)) * 0.2).astype(np.float32)
+    B, C = ((rng.standard_normal((b, s, n)) * 0.5).astype(np.float32) for _ in range(2))
+    h0 = (rng.standard_normal((b, c, n)) * 0.5).astype(np.float32) if with_h0 else None
+    t = [torch.from_numpy(a) for a in (x, dt, A, B, C)]
+    tx = t[0].to(dtype)
+    y, hT, _ = _fwd(lib, tx, t[1].to(dt_dtype), t[2], t[3].to(bc_dtype), t[4].to(bc_dtype),
+                    None if h0 is None else torch.from_numpy(h0))
+    # the Pallas scan on the inputs as the kernel read them (each cast
+    # back to fp32), with D = 0: y without the skip term
+    args = [jnp.asarray(a.float().numpy()) for a in
+            (tx, t[1].to(dt_dtype), t[2], t[3].to(bc_dtype), t[4].to(bc_dtype))]
+    want_y, want_h = mamba_scan_pallas(*args, jnp.zeros((c,), jnp.float32),
+                                       h0=None if h0 is None else jnp.asarray(h0),
+                                       interpret=True)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(want_y, np.float32), **tol)
+    np.testing.assert_allclose(hT.numpy(), np.asarray(want_h), **TOL[torch.float32])

@@ -111,11 +111,14 @@ class TestAdmission:
         assert fa.tc_refusal((b, hq, sq, d)) is None
 
     def test_flash_refuses(self):
-        """Head dims past the 256-wide instantiation (every D in [1, 256]
-        runs, padded where it is no multiple of 8)."""
-        for d in (257, 264, 300, 512):
+        """Only head dims below 1: every D >= 1 runs (padded where it is no
+        multiple of 8, past 256 on the wide kernel: 257, 264, 300, 512), and
+        any Sq (query blocks past gridDim.y's limit go to gridDim.z)."""
+        for d in (0, -1):
             assert "head_dim" in fa.tc_refusal((1, 2, 16, d))
-        assert "blocks" in fa.tc_refusal((1, 1, 128 * 65536, 64))
+        for d in (257, 264, 300, 512):
+            assert fa.tc_refusal((1, 2, 16, d)) is None
+        assert fa.tc_refusal((1, 1, 128 * 65536, 64)) is None
         # mixed devices fail the wrapper's checks before any launch
         q, k = _meta((1, 2, 16, 64)), _meta((1, 2, 16, 64))
         with pytest.raises(ValueError, match="q on meta, k on meta, v on cpu"):

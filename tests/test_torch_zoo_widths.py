@@ -144,10 +144,10 @@ def test_earlier_paths_match_the_launch_formula(arch, layers):
 def test_zoo_kernel_calls_are_admitted_and_held_in_phase_2(arch, layers):
     """Every K1, K2, K3 and K3-bwd call of the step has a shape its
     wrapper admits (K2: ``head_dim_refusal`` and ``tc_refusal``; K3:
-    ``_check_shapes``, the C entry point's grid and ``tc_dims``' 16-byte
-    rows) and one that phase 2 holds against its plain version on the
-    card: K1 at ``K1_SHAPES``' rows, K2 at a shape of ``FLASH_TIMED`` or
-    ``FLASH_PATHS``, K3 at ``gmm_shapes`` of the config."""
+    ``_check_shapes`` and ``tc_dims``' 16-byte rows) and one that phase 2
+    holds against its plain version on the card: K1 at ``K1_SHAPES``'
+    rows, K2 at a shape of ``FLASH_TIMED`` or ``FLASH_PATHS``, K3 at
+    ``gmm_shapes`` of the config."""
     cfg = zoo_cfg(arch, layers)
     flash_held = {(b, hq, hkv, s, s, d, True) for b, hq, hkv, s, d in chip_smoke.FLASH_TIMED}
     flash_held |= set(chip_smoke.FLASH_PATHS)
@@ -170,9 +170,7 @@ def test_zoo_kernel_calls_are_admitted_and_held_in_phase_2(arch, layers):
         else:
             x, w = (torch.empty(s, device="meta", dtype=torch.bfloat16) for s in shapes[:2])
             mg._check_shapes(x, w)
-            e, m, kdim = shapes[0]
-            n = shapes[1][2]
-            assert e <= 65535 and -(-m // mg.TILE) <= 65535
+            kdim, n = shapes[0][2], shapes[1][2]
             assert mg.tc_dims(torch.bfloat16, kdim, n) == (kdim, n)    # no padding copy
             assert shapes in gmm_held, shapes
     assert seen["rmsnorm"] and seen["flash_attention"]
@@ -209,3 +207,35 @@ def test_first_loss_is_the_inits_expected_loss(arch, _x64_off):
                                      {k: torch.as_tensor(v).long() for k, v in batch.items()}))
     print(f"init loss {want:.4f}: JAX {jax_loss:.4f}, port {port_loss:.4f}")
     assert abs(jax_loss - want) < 0.1 and abs(port_loss - want) < 0.1, (jax_loss, port_loss, want)
+
+
+# phase 3u's paths: published widths with one field changed (qwen3-1b at
+# head dim 512, 2 layers; Zamba2 at 256 states, one group of 6 layers)
+WIDE = {label: cfg for _, label, cfg, _ in chip_smoke.wide_paths(get_config)}
+
+
+@pytest.mark.parametrize("label", list(WIDE))
+def test_phase_3u_paths_match_the_launch_formula_and_phase_2(label):
+    """``train_launches`` counts phase 3u's calls, and each K2 and K4 call
+    has a shape its wrapper admits and phase 2 holds on the card
+    (``FLASH_WIDE``, ``FLASH_WINDOWS``, and K4 at (4, 1024, 5120, 256))."""
+    cfg = WIDE[label]
+    assert_formula(cfg)
+    flash_held = {(b, hq, hkv, s, s, d, True, 0, None)
+                  for b, hq, hkv, s, d in chip_smoke.FLASH_WIDE}
+    flash_held |= set(chip_smoke.FLASH_WINDOWS)
+    seen = collections.Counter()
+    for name, _, shapes, kw in step_calls(cfg):
+        seen[name] += 1
+        if name == "flash_attention":
+            q, k, _ = shapes
+            assert fa.head_dim_refusal(q[3]) is None and fa.tc_refusal(q) is None
+            key = (*q[:2], k[1], q[2], k[2], q[3], kw.get("causal", True), kw.get("q_offset", 0),
+                   kw.get("window"))
+            assert key in flash_held, key
+        elif name in ("mamba_scan", "mamba_scan_bwd"):
+            x, _, a = shapes[:3]
+            assert (*x, a[1]) == (chip_smoke.BATCH, chip_smoke.SEQ, 5120, 256)
+            assert ms.groups(a[1]) == 2
+    assert seen["flash_attention"]
+    assert bool(seen["mamba_scan"]) == bool(cfg.ssm)
